@@ -23,8 +23,24 @@ not 0.  Phases:
   5. parity  — the proxy entropy from the kernel against the plain version,
                and full-model logits on the card against the CPU (1e-3);
   6. breakdown — the gated step's parts at batch 64, timed on the card;
-  7. kernels — one line with every kernel's numbers;
-  8. the last line: ``{"ok": true, "device": {...}}``.
+  7. attention — the flash-attention and flash-decode kernels against
+               their plain versions at the generate path's shapes, long
+               shapes and a GQA + window case, timed beside their bounds
+               and ``scaled_dot_product_attention`` with the same mask
+               (a yardstick only: the port never calls it);
+  8. serve_generate — stablelm-3b at published width (32 layers, bf16,
+               seeded weights) through the launcher's ``serve_generate``:
+               32 requests x 16 new tokens over 8 slots, bio controller;
+               both attention kernels' launch counters zeroed just before
+               and read just after, and both must have launched;
+  9. parity_generate — published width at depth 2 in f32, prefill logits
+               on the card (kernel path) against the CPU (einsum path)
+               within 1e-3 and 8 greedy tokens equal; the served model at
+               full depth in bf16, kernel path against ``attn_impl="xla"``;
+ 10. breakdown_generate — one decode step at 8 slots: attention kernels,
+               products and the rest, beside the weight-bytes bound;
+ 11. kernels — one line with every kernel's numbers;
+ 12. the last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero without CUDA or without the repo.
 """
@@ -37,16 +53,22 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.energy import energy_model_for  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
 from repro_torch.kernels import entropy as ent_mod  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import distilbert  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.serving.engine import GenerationEngine  # noqa: E402
 from repro_torch.serving.gated import make_gated_classify_step  # noqa: E402
 from repro_torch.training.data import ClassificationData  # noqa: E402
 
@@ -54,9 +76,10 @@ F32_TOL = 1e-4          # tests/test_kernels.py:30
 BF16_TOL = 3e-2
 LOGITS_TOL = 1e-3       # CUDA vs CPU full model: other sum orders over d_ff
 # published dense peaks (NVIDIA data sheets): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores
-PEAKS = {"sxm": {"hbm": 3.35e12, "f32": 67e12},
-         "pcie": {"hbm": 2.0e12, "f32": 51e12}}
+# outside the tensor cores, bf16 FLOP/s on the tensor cores
+PEAKS = {"sxm": {"hbm": 3.35e12, "f32": 67e12, "bf16": 989e12},
+         "pcie": {"hbm": 2.0e12, "f32": 51e12, "bf16": 756e12}}
+ARCH = "stablelm-3b"
 ENTROPY_OPS_PER_ELEMENT = 6   # compare, subtract, exp, 2 mul-adds, add
 
 
@@ -315,6 +338,388 @@ def phase_parity(cfg, model, x):
          full_logits_cuda_vs_cpu_max_abs_err=logits_err)
 
 
+# ---------------------------------------------------------------------------
+# the generate path: attention kernels, serve, parity, breakdown
+# ---------------------------------------------------------------------------
+
+def _bshd_views(shape_bhsd, dtype, gen):
+    """Random [B, X, S, hd] data stored BSHD and returned as the BHSD
+    view the model passes (the kernels read strides)."""
+    B, X, S, hd = shape_bhsd
+    x = torch.randn(B, S, X, hd, generator=gen, device="cuda").to(dtype)
+    return x.transpose(1, 2)
+
+
+def _decode_positions(B, S, lengths, ring):
+    """kv_pos [B,S] and cur [B] on the card: a valid prefix of
+    ``lengths[b]`` rows then -1 (the serving pool), or a ring written
+    past its extent up to position ``lengths[b]``."""
+    col = torch.arange(S, device="cuda")[None]
+    n = torch.as_tensor(lengths, device="cuda")[:, None]
+    if ring:
+        cur = n[:, 0]
+        kv = n - ((n - col) % S)
+    else:
+        cur = n[:, 0] - 1
+        kv = torch.where(col < n, col, -1)
+    return kv.to(torch.int32), cur.to(torch.int32)
+
+
+def attention_bound_ms(kind, case, valid_pairs, peaks):
+    """Least time for the work: each input read once and the output
+    written once over HBM bandwidth, or the operations the visible
+    (query, key) pairs need (4 * hd per pair and head) at the peak of
+    the inputs' type; whichever is larger."""
+    hd, H, K = case["hd"], case["H"], case["K"]
+    isq, iskv = case["qdt"].itemsize, case["kvdt"].itemsize
+    B = case["B"]
+    if kind == "flash":
+        Sq = Skv = case["S"]
+        nbytes = 2 * B * H * Sq * hd * isq + 2 * B * K * Skv * hd * iskv
+        ops_ = 4 * hd * H * valid_pairs
+    else:
+        rows = valid_pairs                # valid cache rows over all slots
+        nbytes = (2 * B * H * hd * isq + 2 * rows * K * hd * iskv
+                  + B * case["S"] * 4 + B * 4)
+        ops_ = 4 * hd * H * rows
+    rate = peaks["bf16" if case["kvdt"] == torch.bfloat16 else "f32"]
+    t_bytes, t_ops = nbytes / peaks["hbm"], ops_ / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+ATTN_CASES = [
+    # the generate path's shapes: prefill of up to 8 prompts of 16 tokens,
+    # a decode step at 8 slots over the 128-row bf16 pool
+    dict(name="prefill_main", kind="flash", B=8, H=32, K=32, S=16, hd=80,
+         qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0, iters=200),
+    dict(name="decode_main_bf16q", kind="decode", B=8, H=32, K=32, S=128,
+         hd=80, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         lengths=list(range(17, 33, 2)), ring=False, iters=200),
+    dict(name="decode_main_f32q", kind="decode", B=8, H=32, K=32, S=128,
+         hd=80, qdt=torch.float32, kvdt=torch.bfloat16, window=0,
+         lengths=list(range(17, 33, 2)), ring=False, iters=200),
+    # long shapes
+    dict(name="prefill_long", kind="flash", B=1, H=32, K=32, S=2048, hd=80,
+         qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0, iters=5),
+    dict(name="decode_long", kind="decode", B=8, H=32, K=32, S=4096, hd=80,
+         qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         lengths=[4096] * 8, ring=False, iters=20),
+    # GQA with a window, in f32
+    dict(name="prefill_gqa_window", kind="flash", B=2, H=32, K=8, S=512,
+         hd=128, qdt=torch.float32, kvdt=torch.float32, window=128,
+         iters=20),
+    dict(name="decode_gqa_window", kind="decode", B=8, H=32, K=8, S=1024,
+         hd=128, qdt=torch.float32, kvdt=torch.float32, window=256,
+         lengths=[1500 + 37 * b for b in range(8)], ring=True, iters=50),
+]
+
+
+def _library_call(kind, q, k, v, mask, causal_square):
+    """One ``scaled_dot_product_attention`` call computing the same
+    function, or None where the inputs' types differ."""
+    F = torch.nn.functional
+    if q.dtype != k.dtype:
+        return None
+    gqa = q.shape[1] != k.shape[1]
+    if kind == "flash":
+        if causal_square:
+            return lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=gqa)
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=gqa)
+    q4 = q[:, :, None]
+    m4 = mask[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        q4, k, v, attn_mask=m4, enable_gqa=gqa)[:, :, 0]
+
+
+def phase_attention(peaks):
+    """Each attention kernel on the card against its plain version, with
+    times, bounds and the library yardstick; -> {kernel: summary}."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out = {"flash_attention": {"max_err": 0.0, "main": None},
+           "decode_attention": {"max_err": 0.0, "main": None}}
+    for case in ATTN_CASES:
+        kind, B, H, K, S, hd = (case[k] for k in ("kind", "B", "H", "K",
+                                                  "S", "hd"))
+        window = case["window"]
+        if kind == "flash":
+            q = _bshd_views((B, H, S, hd), case["qdt"], gen)
+            k = _bshd_views((B, K, S, hd), case["kvdt"], gen)
+            v = _bshd_views((B, K, S, hd), case["kvdt"], gen)
+            pos = torch.arange(S, device="cuda")
+            mask = pos[None, :] <= pos[:, None]
+            if window:
+                mask &= pos[:, None] - pos[None, :] < window
+            valid = int(mask.sum()) * B
+            kern = lambda: fa_mod.flash_attention_cuda(  # noqa: E731
+                q, k, v, window=window)
+            plain = lambda: fa_mod.flash_attention_plain(  # noqa: E731
+                q, k, v, window=window)
+            lib = _library_call(kind, q, k, v, mask, window == 0)
+            rows_ok = None
+            name = "flash_attention"
+        else:
+            q = torch.randn(B, H, hd, generator=gen,
+                            device="cuda").to(case["qdt"])
+            k = _bshd_views((B, K, S, hd), case["kvdt"], gen)
+            v = _bshd_views((B, K, S, hd), case["kvdt"], gen)
+            kv_pos, cur = _decode_positions(B, S, case["lengths"],
+                                            case["ring"])
+            mask = da_mod.valid_rows(kv_pos, cur, window)
+            valid = int(mask.sum())
+            rows_ok = mask.any(dim=1)
+            kern = lambda: da_mod.decode_attention_cuda(  # noqa: E731
+                q, k, v, kv_pos, cur, window=window)
+            plain = lambda: da_mod.decode_attention_plain(  # noqa: E731
+                q, k, v, kv_pos, cur, window=window)
+            lib = _library_call(kind, q, k, v, mask, False)
+            name = "decode_attention"
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        fail_unless(rows_ok is None or bool(rows_ok.all()),
+                    f"{case['name']}: every slot has a valid row")
+        fail_unless(bool(torch.isfinite(got.float()).all()),
+                    f"{case['name']}: non-finite kernel output")
+        err = (got.float() - want.float()).abs().max().item()
+        tol = (F32_TOL if case["qdt"] == case["kvdt"] == torch.float32
+               else BF16_TOL)
+        fail_unless(err <= tol, f"{case['name']}: kernel vs plain max abs "
+                                f"err {err} > {tol}")
+        it = case["iters"]
+        lib_ms, lib_err = None, None
+        lib_what = "none: q and k/v types differ"
+        if lib is not None:
+            try:      # a yardstick: its failure fails nothing of the port
+                lib_err = (lib().float() - want.float()).abs().max().item()
+                time_ms(lib, 2)
+                lib_ms = graph_ms(lib, it)
+                lib_what = "scaled_dot_product_attention, same mask"
+            except Exception as e:
+                lib_what = f"none: {type(e).__name__}: {e}"[:200]
+        row = dict(phase="attention", kernel=name, case=case["name"],
+                   B=B, H=H, K=K, S=S, hd=hd, window=window,
+                   q_dtype=str(case["qdt"]).replace("torch.", ""),
+                   kv_dtype=str(case["kvdt"]).replace("torch.", ""),
+                   valid_pairs_or_rows=valid, max_abs_err=err, tol=tol,
+                   ms=graph_ms(kern, it), call_ms=time_ms(kern, it),
+                   plain_ms=graph_ms(plain, max(it // 4, 2)),
+                   library_ms=lib_ms, library_computes=lib_what,
+                   library_max_abs_err=lib_err)
+        row["bound_ms"], row["bound_by"] = attention_bound_ms(
+            kind, case, valid, peaks)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        emit(**row)
+        out[name]["max_err"] = max(out[name]["max_err"], err)
+        if case["name"] in ("prefill_main", "decode_main_bf16q"):
+            out[name]["main"] = row
+    return out
+
+
+def phase_serve_generate():
+    """stablelm-3b at published width through the launcher; -> (launch
+    counts over the run, the served model)."""
+    args = serve.parser().parse_args(
+        ["--device", "cuda", "--mode", "generate", "--arch", ARCH,
+         "--requests", "32", "--new-tokens", "16", "--slots", "8",
+         "--controller", "bio"])
+    fa_mod.launches = 0
+    da_mod.launches = 0
+    t0 = time.perf_counter()
+    summary, server = serve.serve_generate(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"flash_attention": fa_mod.launches,
+                "decode_attention": da_mod.launches}
+    vocab = get_config(ARCH).vocab
+    resp = server.responses
+    fail_unless(sorted(r.rid for r in resp) == list(range(args.requests)),
+                "generate: every request answered once")
+    admitted = [r for r in resp if r.admitted]
+    fail_unless(len(admitted) > 0, "generate: some request admitted")
+    fail_unless(all(isinstance(r.output, list)
+                    and 1 <= len(r.output) <= args.new_tokens
+                    and all(0 <= t < vocab for t in r.output)
+                    for r in admitted),
+                "generate: 1..16 token ids inside the vocabulary each")
+    fail_unless(all(n > 0 for n in launches.values()),
+                f"generate: both attention kernels launched: {launches}")
+    model = server.engine.engine.params
+    fail_unless(model.cfg.n_layers == 32 and model.cfg.d_model == 2560
+                and model.emb.dtype == torch.bfloat16,
+                "generate: published width, 32 layers, bf16")
+    steps_run = summary["host_syncs"] * server.engine.engine.sync_every
+    decode_s = summary["device_s"] - summary["prefill_s"]
+    emit(phase="serve_generate", seconds=secs, launches=launches,
+         admitted=len(admitted),
+         tokens_per_busy_s=summary["tokens_generated"] / summary["busy_s"],
+         decode_ms_per_step=decode_s / steps_run * 1e3,
+         prefill_ms_per_call=(summary["prefill_s"]
+                              / summary["prefill_calls"] * 1e3),
+         **summary)
+    return launches, model
+
+
+def _greedy_f32_cache(model, prompts, n_new):
+    """Lockstep greedy decode over an f32 cache (no bf16 rounding of the
+    keys, so the card and the CPU can agree token for token)."""
+    B, S = prompts.shape
+    cache = tfm.init_cache(model.cfg, B, S + n_new, torch.float32,
+                           device=model.device)
+    logits, cache = model.prefill(prompts, cache)
+    first = logits
+    tok = logits[:, -1].argmax(-1)[:, None]
+    out = []
+    for i in range(n_new):
+        out.append(tok[:, 0])
+        logits, cache = model.decode_step(tok, cache, S + i)
+        tok = logits[:, -1].argmax(-1)[:, None]
+    return first.float().cpu(), torch.stack(out, 1).cpu()
+
+
+def phase_parity_generate(model):
+    cfg = get_config(ARCH)
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab, (8, 16)).astype(np.int32)
+    # published width, depth 2, f32: card (kernel path) vs CPU (einsum)
+    cfg2 = cfg.replace(n_layers=2, dtype="float32")
+    m_gpu = tfm.init_lm(cfg2, 0, device="cuda")
+    m_cpu = tfm.LM(cfg2, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
+    fa_mod.launches = da_mod.launches = 0
+    lg, tg = _greedy_f32_cache(m_gpu, prompts, 8)
+    fail_unless(fa_mod.launches > 0 and da_mod.launches > 0,
+                "parity: the card's run went through both kernels")
+    lc, tc = _greedy_f32_cache(m_cpu.eval(), prompts, 8)
+    err = (lg - lc).abs().max().item()
+    fail_unless(bool(torch.isfinite(lg).all()) and err <= LOGITS_TOL,
+                f"depth-2 f32 prefill logits card vs CPU: {err}")
+    fail_unless(torch.equal(tg, tc), "depth-2 f32 greedy tokens card vs CPU")
+    del m_gpu, m_cpu
+    # the served model, full depth, bf16: kernels vs the einsum path
+    res = {}
+    for impl in ("auto", "xla"):
+        model.attn_impl = impl
+        c = tfm.init_cache(model.cfg, 8, 128, device="cuda")
+        logits, _ = model.prefill(prompts, c)
+        toks = GenerationEngine(model.cfg, model, max_seq=128,
+                                device="cuda").generate(prompts, 16)
+        res[impl] = (logits.float(), toks)
+    model.attn_impl = "auto"
+    full_err = (res["auto"][0] - res["xla"][0]).abs().max().item()
+    fail_unless(bool(torch.isfinite(res["auto"][0]).all()),
+                "full-depth bf16 logits finite")
+    agree = float((res["auto"][1] == res["xla"][1]).mean())
+    emit(phase="parity_generate",
+         depth2_f32_prefill_logits_card_vs_cpu_max_abs_err=err,
+         depth2_f32_greedy_tokens_equal=True,
+         full_bf16_prefill_logits_kernel_vs_xla_max_abs_err=full_err,
+         full_bf16_greedy_token_agreement=agree,
+         full_bf16_first_tokens_equal=bool(
+             (res["auto"][1][:, 0] == res["xla"][1][:, 0]).all()))
+
+
+def _profile_step(step):
+    """Kernels and device time of one call, by the profiler, split by
+    name into the attention kernel, matrix products and the rest; None
+    where the profiler records no device time here."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    parts = {"attention": 0.0, "products": 0.0, "rest": 0.0}
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "device_time", None)
+        if t is None:
+            t = getattr(e, "cuda_time", 0.0)
+        name = e.name.lower()
+        if "decode_kernel" in name:
+            parts["attention"] += t / 1e3
+        elif any(w in name for w in ("gemm", "gemv", "cutlass", "xmma",
+                                     "nvjet", "splitk")):
+            parts["products"] += t / 1e3
+        else:
+            parts["rest"] += t / 1e3
+        cnt = by_name.setdefault(e.name[:60], [0, 0.0])
+        cnt[0] += 1
+        cnt[1] += t / 1e3
+    n = sum(c for c, _ in by_name.values())
+    if n == 0 or sum(parts.values()) == 0.0:
+        return None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return dict(kernels=n, **{f"{k}_ms": v for k, v in parts.items()},
+                top=[[name, c, ms] for name, (c, ms) in top])
+
+
+def phase_breakdown_generate(model, peaks):
+    """One decode step at 8 slots of the served model: its device time
+    (graph replay) and its time issued from Python, split into the
+    attention kernels, the products and the rest, beside the step's
+    weight-bytes bound."""
+    cfg = model.cfg
+    B = 8
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab, (B, 16))
+    cache = tfm.init_cache(cfg, B, 128, device="cuda")
+    model.prefill(prompts, cache)
+    tok = torch.zeros(B, 1, dtype=torch.long, device="cuda")
+    pos = torch.full((B,), 16, dtype=torch.long, device="cuda")
+
+    def step():
+        model.decode_step(tok, cache, pos)
+
+    step_call = time_ms(step, 10)
+    step_dev = graph_ms(step, 1, replays=10)
+    kv = cache.layer(0)
+    q = torch.randn(B, cfg.n_heads, cfg.head_dim, device="cuda").to(
+        torch.bfloat16)
+    cur = pos.to(torch.int32)
+    attn = graph_ms(lambda: da_mod.decode_attention_cuda(
+        q, kv.k.transpose(1, 2), kv.v.transpose(1, 2), kv.pos, cur),
+        50) * cfg.n_layers
+    x = torch.randn(B, 1, cfg.d_model, device="cuda").to(torch.bfloat16)
+    g = torch.randn(B, 1, cfg.d_ff, device="cuda").to(torch.bfloat16)
+
+    def products():
+        for layer in model.layers:
+            p, m = layer.mix, layer.mlp
+            x @ p.wq, x @ p.wk, x @ p.wv, x @ p.wo
+            x @ m.w_gate, x @ m.w_up, g @ m.w_down
+        x @ model.unemb
+
+    prod = graph_ms(products, 1, replays=10)
+    wbytes = sum(t.numel() * t.element_size() for t in model.parameters())
+    try:
+        prof = _profile_step(step)
+    except Exception as e:          # the profiler is untried on the card
+        prof = {"error": repr(e)[:200]}
+    emit(phase="breakdown_generate", slots=B, layers=cfg.n_layers,
+         step_ms=step_dev, step_call_ms=step_call,
+         device_busy_share_of_call=step_dev / step_call,
+         attention_ms=attn, products_ms=prod,
+         rest_ms=step_dev - attn - prod,
+         weight_bytes=wbytes, weight_bytes_bound_ms=wbytes / peaks["hbm"] * 1e3,
+         profiler=prof if prof is not None else "no device time recorded")
+
+
+def kernel_entry(name, src, replaces, tpu_kernel, launches, max_err, main):
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "tpu_kernel": tpu_kernel,
+            "launches": launches, "max_abs_err": max_err,
+            "max_err": max_err, "case": main["case"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "library_computes": main["library_computes"],
+            "call_ms": main["call_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -328,7 +733,12 @@ def main() -> int:
     cfg, model, x = _gated_batch()
     phase_parity(cfg, model, x)
     phase_breakdown(cfg, model, x, peaks)
-    emit(kernels=[{
+    del model, x
+    attn = phase_attention(peaks)
+    gen_launches, lm = phase_serve_generate()
+    phase_parity_generate(lm)
+    phase_breakdown_generate(lm, peaks)
+    entropy = {
         "name": "entropy_stats",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/entropy.cu",
@@ -348,7 +758,22 @@ def main() -> int:
         "call_ms": main_row["call_ms"],
         "plain_call_ms": main_row["plain_call_ms"],
         "library_call_ms": main_row["library_call_ms"],
-    }])
+    }
+    emit(kernels=[
+        entropy,
+        kernel_entry("flash_attention", "flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:26",
+                     "src/repro/kernels/flash_attention.py:_flash_kernel",
+                     gen_launches["flash_attention"],
+                     attn["flash_attention"]["max_err"],
+                     attn["flash_attention"]["main"]),
+        kernel_entry("decode_attention", "decode_attention.cu",
+                     "src/repro/kernels/decode_attention.py:45",
+                     "src/repro/kernels/decode_attention.py:_decode_kernel",
+                     gen_launches["decode_attention"],
+                     attn["decode_attention"]["max_err"],
+                     attn["decode_attention"]["main"]),
+    ])
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,23 +8,56 @@ Dispatch policy (``impl=``), the port of ``repro.kernels.ops``:
   - ``"ref"``  — always the plain PyTorch version.
   - ``"cuda"`` — the CUDA kernel, or raise (a CPU tensor raises).
 
-Only ``entropy_stats`` lies on the classify path; the attention and
-scan kernels of ``repro.kernels`` come with their slices.
+``entropy_stats`` carries the classify path; ``flash_attention`` (every
+prefill) and ``decode_attention`` (every decode step) carry the
+generate path.  The paged decode kernel and the SSD scan of
+``repro.kernels`` come with their slices.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import entropy as _ent
+from repro_torch.kernels import flash_attention as _fa
 
 IMPLS = ("auto", "ref", "cuda")
+
+
+def _check(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
 
 
 def entropy_stats(logits, *, impl: str = "auto"):
     """logits [B,V] -> (entropy, max_prob, argmax).  The controller's
     L(x) hot spot."""
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    _check(impl)
     if impl == "ref":
         return _ent.entropy_stats_plain(logits)
     if impl == "cuda":
         return _ent.entropy_stats_cuda(logits)
     return _ent.entropy_stats(logits)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                    impl: str = "auto"):
+    """q [B,H,Sq,hd]; k/v [B,K,Skv,hd] (GQA: H = K*G) -> [B,H,Sq,hd]."""
+    _check(impl)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if impl == "ref":
+        return _fa.flash_attention_plain(q, k, v, **kw)
+    if impl == "cuda":
+        return _fa.flash_attention_cuda(q, k, v, **kw)
+    return _fa.flash_attention(q, k, v, **kw)
+
+
+def decode_attention(q, k, v, kv_pos, cur_pos, *, window=0,
+                     impl: str = "auto"):
+    """q [B,H,hd]; k/v [B,K,S,hd]; kv_pos [B,S]; cur_pos [B] -> [B,H,hd]."""
+    _check(impl)
+    if impl == "ref":
+        return _da.decode_attention_plain(q, k, v, kv_pos, cur_pos,
+                                          window=window)
+    if impl == "cuda":
+        return _da.decode_attention_cuda(q, k, v, kv_pos, cur_pos,
+                                         window=window)
+    return _da.decode_attention(q, k, v, kv_pos, cur_pos, window=window)

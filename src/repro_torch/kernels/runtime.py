@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["HOPPER_CAPABILITY", "on_hopper", "is_hopper", "resolve_device",
-           "synchronize"]
+           "synchronize", "check_kernel_tensors"]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -52,3 +52,38 @@ def synchronize(device: torch.device) -> None:
     read without it times the enqueue, not the work."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def check_kernel_tensors(what: str, tensors: dict, *, dtypes,
+                         align: bool, device: torch.device | None = None
+                         ) -> None:
+    """The checks every attention kernel wrapper makes before a launch:
+    CUDA tensors on one sm_90 card (``device``, default the first
+    tensor's), a dtype the kernel was compiled for, a contiguous last
+    dimension, and with ``align`` a 16-byte aligned start and strides
+    that are multiples of 4 elements (the kernel's vector loads).
+    Raises on the first tensor that fails."""
+    dev = device or next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"the CUDA {what} kernel needs a CUDA tensor, "
+                             f"got {name} on {t.device}")
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} is on {t.device}, not {dev}")
+    if not is_hopper(dev):
+        raise RuntimeError(
+            f"the {what} kernel is built for sm_90a; "
+            f"{torch.cuda.get_device_name(dev)} has capability "
+            f"{torch.cuda.get_device_capability(dev)}")
+    for name, t in tensors.items():
+        if t.dtype not in dtypes:
+            raise TypeError(f"{what}: {name} must be one of "
+                            f"{sorted(str(d) for d in dtypes)}, got {t.dtype}")
+        if t.dim() and t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name}'s last dimension must be "
+                             f"contiguous, got strides {t.stride()}")
+        if align and (t.data_ptr() % 16
+                      or any(s % 4 for s in t.stride()[:-1])):
+            raise ValueError(f"{what}: {name} must start 16-byte aligned "
+                             f"with strides that are multiples of 4 "
+                             f"elements, got strides {t.stride()}")

@@ -1,6 +1,7 @@
-"""Classify serving driver of the PyTorch port — the closed loop of
-``repro.launch.serve --mode classify`` on one card.
+"""Serving driver of the PyTorch port — the closed loop of
+``repro.launch.serve`` on one card, in its two modes.
 
+``--mode classify`` (the default):
 It builds the FULL-WIDTH DistilBERT (6 layers, d 768, 12 heads, vocab
 30522; ``--layers`` cuts depth only) from a flat reference checkpoint
 (``--params PATH.npz``, as ``repro.training.checkpoint.save`` writes
@@ -21,6 +22,21 @@ entropy through the CUDA kernel, full-model predictions), calibrates
 latency models from measured walltimes and replays through the
 virtual-time direct/dynamic-batch backend; ``--path gated`` runs the
 live gated step, admission on the device.
+
+``--mode generate``: continuous-batching decode of ``--arch`` (default
+stablelm-3b) at its PUBLISHED width with weights from ``--seed``
+(``--layers`` cuts depth only; ``--smoke`` takes the arch's reduced
+smoke config, as the reference launcher always does), ``--slots`` decode
+slots over a contiguous bf16 KV pool of 128 rows, the closed-loop
+controller as admission middleware, and the reference's request stream:
+16-token prompts from ``default_rng(seed)``, arrivals 1 ms apart, a
+uniform entropy hint, ``--new-tokens`` each.  On the card, prefill runs
+through the flash-attention kernel and every decode step through the
+flash-decode kernel (``--attn-impl``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode generate
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mode generate --smoke --requests 8 --runs /tmp/runs
 """
 from __future__ import annotations
 
@@ -30,17 +46,22 @@ import json
 import numpy as np
 import torch
 
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core import (AdaptiveThreshold, AdmissionController,
                               CostWeights, DecayingThreshold, EnergyMeter,
                               EnergyModel, LatencyModel, energy_model_for)
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import distilbert
+from repro_torch.models import transformer as tfm
 from repro_torch.models.convert import distilbert_from_numpy, load_flat_npz
-from repro_torch.serving.adapters import (GatedEngineAdapter, OracleEngine)
-from repro_torch.serving.api import (PATH_GATED, AdmissionMiddleware, Server,
-                                     ServerConfig, TelemetryMiddleware,
-                                     canonical_path)
+from repro_torch.serving.adapters import (ContinuousEngineAdapter,
+                                          GatedEngineAdapter, OracleEngine)
+from repro_torch.serving.api import (PATH_CONTINUOUS, PATH_GATED,
+                                     AdmissionMiddleware, InferRequest,
+                                     Server, ServerConfig,
+                                     TelemetryMiddleware, canonical_path)
 from repro_torch.serving.batcher import DirectPath, DynamicBatcher
+from repro_torch.serving.continuous import ContinuousBatchingEngine, GenRequest
 from repro_torch.serving.engine import ClassifierEngine
 from repro_torch.serving.simulator import Oracle
 from repro_torch.serving.workload import bursty_arrivals, poisson_arrivals
@@ -58,7 +79,8 @@ def device_energy_model(device: torch.device) -> EnergyModel:
 
 def build_classifier(args, device: torch.device):
     """Full-width DistilBERT (depth ``--layers``) + the request data."""
-    cfg = distilbert.config(n_layers=args.layers)
+    cfg = distilbert.config(
+        n_layers=6 if args.layers is None else args.layers)
     if args.params:
         model = distilbert_from_numpy(cfg, load_flat_npz(args.params),
                                       device=device)
@@ -184,9 +206,94 @@ def serve_classifier(args):
     return summary, server
 
 
+GEN_MAX_SEQ = 128      # the reference launcher's decode pool extent
+GEN_PROMPT_LEN = 16
+
+
+def generate_config(args):
+    """``--arch`` at published width (``--smoke``: its smoke config),
+    depth cut by ``--layers``, attention dispatch ``--attn-impl``."""
+    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    cfg = cfg.replace(attn_impl=args.attn_impl)
+    if args.layers is not None:
+        cfg = cfg.replace(n_layers=args.layers)
+    return cfg
+
+
+def serve_generate(args):
+    """Serve one generate run; -> (summary dict, the finished ``Server``)."""
+    device = resolve_device(args.device)
+    em = device_energy_model(device)
+    cfg = generate_config(args)
+    model = tfm.init_lm(cfg, args.seed, device=device)
+    engine = ContinuousBatchingEngine(cfg, model, n_slots=args.slots,
+                                     max_seq=GEN_MAX_SEQ, device=device)
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab, size=(args.requests,
+                                               GEN_PROMPT_LEN)
+                           ).astype(np.int32)
+    # untimed, at the served shapes: the kernels' build and every
+    # first-call cost stay out of the measured windows
+    engine.serve([GenRequest(rid=-1 - i, prompt=prompts[i % len(prompts)],
+                             max_new=2)
+                  for i in range(min(args.slots, len(prompts)))],
+                 prompt_len=GEN_PROMPT_LEN)
+    ctrl = make_controller(args.controller, weights=args.weights,
+                           target_rate=args.target_rate, energy_model=em)
+    server = Server(ContinuousEngineAdapter(engine,
+                                            prompt_len=GEN_PROMPT_LEN),
+                    ServerConfig(path=PATH_CONTINUOUS, energy_model=em),
+                    middleware=[AdmissionMiddleware(ctrl)])
+    reqs = [InferRequest(rid=i, arrival_s=0.001 * i, payload=prompts[i],
+                         kind="generate", max_new=args.new_tokens,
+                         entropy_hint=float(rng.uniform(0, 1)))
+            for i in range(args.requests)]
+    responses = server.serve(reqs)
+    summary = server.summary()
+    summary.pop("accuracy", None)     # no labels in generation mode
+    decode_stats = {}
+    for r in reversed(responses):
+        if "decode_steps" in r.telemetry:
+            decode_stats = {k: r.telemetry[k]
+                            for k in ("decode_steps", "occupancy",
+                                      "host_syncs", "prefill_calls",
+                                      "device_s", "prefill_s")
+                            if k in r.telemetry}
+            break
+    lat = np.array([r.latency_s for r in responses])
+    summary.update(
+        arch=cfg.arch_id, path=PATH_CONTINUOUS, controller=args.controller,
+        attn_impl=args.attn_impl,
+        device=(torch.cuda.get_device_name(device)
+                if device.type == "cuda" else "cpu"),
+        n_layers=cfg.n_layers, d_model=cfg.d_model, slots=args.slots,
+        tokens_generated=sum(len(r.output) for r in responses
+                             if isinstance(r.output, list)),
+        p50_latency_ms=float(np.percentile(lat, 50)) * 1e3,
+        p95_latency_ms=float(np.percentile(lat, 95)) * 1e3,
+        sample=(responses[0].output[:8] if responses else []),
+        **decode_stats)
+    return summary, server
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--mode", choices=["classify", "generate"],
+                    default="classify")
+    ap.add_argument("--arch", choices=list(ARCH_IDS), default="stablelm-3b",
+                    help="generate mode: the decoder LM")
+    ap.add_argument("--smoke", action="store_true",
+                    help="generate mode: the arch's reduced smoke config "
+                         "instead of its published width")
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--attn-impl", choices=["auto", "xla", "ref", "cuda"],
+                    default="auto",
+                    help="generate mode: attention dispatch ('auto': the "
+                         "CUDA kernels on the card, the einsum path on the "
+                         "CPU; 'xla': the einsum path; 'ref': the kernels' "
+                         "plain versions; 'cuda': the kernels or raise)")
     ap.add_argument("--path",
                     choices=["direct", "batched", "dynamic-batch",
                              "gated", "gated-in-graph", "auto"],
@@ -200,8 +307,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--params", default=None, metavar="PATH.npz",
                     help="flat reference checkpoint (repro.training."
                          "checkpoint.save); default: seeded init")
-    ap.add_argument("--layers", type=int, default=6,
-                    help="encoder depth (width stays full)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth (width stays full); default: 6 encoder "
+                         "layers in classify mode, the arch's own depth "
+                         "in generate mode")
     ap.add_argument("--exit-layer", type=int, default=1,
                     help="layers under the early-exit proxy head")
     ap.add_argument("--seq-len", type=int, default=128)
@@ -218,7 +327,9 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    summary, _ = serve_classifier(parser().parse_args(argv))
+    args = parser().parse_args(argv)
+    serve = serve_generate if args.mode == "generate" else serve_classifier
+    summary, _ = serve(args)
     print(json.dumps(summary, indent=2))
 
 

@@ -1,1 +1,2 @@
-"""DistilBERT and its building blocks, ported from ``repro.models``."""
+"""DistilBERT, the decoder LM for attention stacks and their building
+blocks, ported from ``repro.models``."""

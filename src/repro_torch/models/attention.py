@@ -1,16 +1,26 @@
-"""The attention pieces DistilBERT uses, ported from
-``repro.models.attention``.
+"""Attention, ported from ``repro.models.attention``: the einsum path
+DistilBERT and the decoder LM share, the masks, the contiguous KV cache
+and the BSHD shims in front of the port's flash / flash-decode kernels.
 
 Layout convention, as the reference: activations are [B, S, D];
-per-head tensors are [B, S, H, hd] ("BSHD").  Attention here is plain
-``torch.einsum`` with an additive f32 bias and an f32 softmax — the
-reference's einsum path, not one of its Pallas kernels.
+per-head tensors are [B, S, H, hd] ("BSHD"); a KV cache is
+[B, C, K, hd] plus an int32 position per row (-1 = empty), so a
+windowed layer's cache is a ring of C = window rows.  The einsum path
+(``attend``) keeps the reference's numerics: f32 scores from the
+operands' own dtype, an additive f32 bias, an f32 softmax, and the
+weights cast DOWN to v's dtype before an f32-accumulated weighted sum.
+
+Unlike the reference, whose caches are immutable and rebuilt by every
+write, the port writes a cache IN PLACE: ``cache_write`` updates the
+tensors it is given and returns the same cache.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.nn import param, dense_init_
@@ -22,18 +32,20 @@ class AttnParams(nn.Module):
     """``wq/wk/wv/wo`` (``[d_in, d_out]``) plus optional biases."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv: int,
-                 head_dim: int, *, bias: bool = False, device=None):
+                 head_dim: int, *, bias: bool = False, device=None,
+                 dtype=torch.float32):
         super().__init__()
-        self.wq = param(d_model, n_heads * head_dim, device=device)
-        self.wk = param(d_model, n_kv * head_dim, device=device)
-        self.wv = param(d_model, n_kv * head_dim, device=device)
-        self.wo = param(n_heads * head_dim, d_model, device=device)
+        kw = dict(device=device, dtype=dtype)
+        self.wq = param(d_model, n_heads * head_dim, **kw)
+        self.wk = param(d_model, n_kv * head_dim, **kw)
+        self.wv = param(d_model, n_kv * head_dim, **kw)
+        self.wo = param(n_heads * head_dim, d_model, **kw)
         self.has_bias = bias
         if bias:
-            self.bq = param(n_heads * head_dim, device=device)
-            self.bk = param(n_kv * head_dim, device=device)
-            self.bv = param(n_kv * head_dim, device=device)
-            self.bo = param(d_model, device=device)
+            self.bq = param(n_heads * head_dim, **kw)
+            self.bk = param(n_kv * head_dim, **kw)
+            self.bv = param(n_kv * head_dim, **kw)
+            self.bo = param(d_model, **kw)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         for w in (self.wq, self.wk, self.wv, self.wo):
@@ -84,5 +96,195 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             bias = bias[None]
         s = s + bias
     w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype), v)
+    # weights rounded to v's dtype, products summed in f32 (the
+    # reference's preferred_element_type=float32)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype).float(), v.float())
     return o.reshape(B, Sq, K * G, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# masks and full-sequence attention (prefill / forward)
+# ---------------------------------------------------------------------------
+
+def mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+              window: int = 0, prefix_len=0,
+              k_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Additive f32 mask [..., Sq, Skv] from absolute positions: causal
+    admits k_pos <= q_pos; a window also needs q_pos - k_pos < window;
+    positions < prefix_len are mutually visible (prefix-LM); ``k_valid``
+    [Skv] / [B, Skv] marks valid keys."""
+    qp = q_pos[..., :, None]
+    kp = k_pos[..., None, :]
+    ok = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                    dtype=torch.bool, device=q_pos.device)
+    if causal:
+        cau = kp <= qp
+        if not isinstance(prefix_len, int) or prefix_len != 0:
+            pl = torch.as_tensor(prefix_len, device=q_pos.device)
+            while pl.dim() < 2:
+                pl = pl[..., None]
+            cau = cau | (kp < pl)
+        ok = ok & cau
+    if window:
+        ok = ok & (qp - kp < window)
+    if k_valid is not None:
+        ok = ok & k_valid[..., None, :]
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def causal_attention(q, k, v, *, q_offset: int = 0, window: int = 0,
+                     prefix_len=0, q_chunk: int = 1024,
+                     scale: float | None = None) -> torch.Tensor:
+    """Full causal attention chunked over query blocks of ``q_chunk``,
+    so the scores never exceed [B, H, q_chunk, Skv].  A window masks but
+    saves no FLOPs here (``local_attention`` does)."""
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+    q_pos = torch.arange(Sq, device=q.device) + q_offset
+    k_pos = torch.arange(Skv, device=q.device)
+    if Sq <= q_chunk:
+        bias = mask_bias(q_pos, k_pos, causal=True, window=window,
+                         prefix_len=prefix_len)
+        return attend(q, k, v, bias, scale)
+    outs = []
+    for i in range(0, Sq, q_chunk):
+        bias = mask_bias(q_pos[i:i + q_chunk], k_pos, causal=True,
+                         window=window, prefix_len=prefix_len)
+        outs.append(attend(q[:, i:i + q_chunk], k, v, bias, scale))
+    return torch.cat(outs, dim=1)
+
+
+def local_attention(q, k, v, *, window: int, q_offset: int = 0,
+                    scale: float | None = None) -> torch.Tensor:
+    """Blocked sliding-window attention, FLOPs O(S * 2 * window): the
+    queries of block i attend to the keys of blocks i-1 and i under the
+    causal + window mask.  The sequence is padded to a block multiple."""
+    B, S, H, hd = q.shape
+    w = window
+    n = -(-S // w)
+    pad = n * w - S
+
+    def blockify(x):
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        return x.reshape(B, n, w, x.shape[2], hd)
+
+    qb, kb, vb = blockify(q), blockify(k), blockify(v)
+    kprev = F.pad(kb, (0, 0, 0, 0, 0, 0, 1, 0))[:, :n]
+    vprev = F.pad(vb, (0, 0, 0, 0, 0, 0, 1, 0))[:, :n]
+    k2 = torch.cat([kprev, kb], dim=2)                # [B, n, 2w, K, hd]
+    v2 = torch.cat([vprev, vb], dim=2)
+    pos = torch.arange(n * w, device=q.device).reshape(n, w) + q_offset
+    kpos = torch.cat([pos - w, pos], dim=1)            # [n, 2w]
+    outs = []
+    for i in range(n):
+        valid = torch.cat([torch.full((w,), i > 0, device=q.device),
+                           torch.ones(w, dtype=torch.bool, device=q.device)])
+        bias = mask_bias(pos[i], kpos[i], causal=True, window=w,
+                         k_valid=valid)
+        outs.append(attend(qb[:, i], k2[:, i], v2[:, i], bias, scale))
+    return torch.cat(outs, dim=1)[:, :S]
+
+
+# ---------------------------------------------------------------------------
+# the kernels, behind BSHD shims (repro_torch.kernels.ops)
+# ---------------------------------------------------------------------------
+
+def causal_attention_kernel(q, k, v, *, window: int = 0, q_offset: int = 0,
+                            impl: str = "auto") -> torch.Tensor:
+    """Full causal attention through ``ops.flash_attention``.  The model
+    speaks BSHD, the kernel's interface BHSD: the transposes are views
+    (the CUDA kernel reads strides and writes a BSHD buffer), so nothing
+    is copied at the boundary."""
+    from repro_torch.kernels import ops
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True, window=window,
+                            q_offset=q_offset, impl=impl)
+    return o.transpose(1, 2)
+
+
+def decode_attend_kernel(q, cache: "KVCache", *, pos, window: int = 0,
+                         impl: str = "auto") -> torch.Tensor:
+    """One-token attention through ``ops.decode_attention``: q [B,1,H,hd]
+    against the cache read in place (a transposed view); ``pos`` is a
+    scalar (lockstep) or [B] (continuous batching).  Same validity rule
+    as :func:`decode_attend`."""
+    from repro_torch.kernels import ops
+    B = q.shape[0]
+    cur = torch.as_tensor(pos, device=q.device)
+    if cur.dtype != torch.int32 or cur.dim() == 0:
+        cur = cur.to(torch.int32).expand(B).contiguous()
+    o = ops.decode_attention(q[:, 0], cache.k.transpose(1, 2),
+                             cache.v.transpose(1, 2), cache.pos, cur,
+                             window=window, impl=impl)
+    return o[:, None]
+
+
+# ---------------------------------------------------------------------------
+# KV cache (full or ring) and the decode step's attention
+# ---------------------------------------------------------------------------
+
+@dataclass
+class KVCache:
+    """One layer's cache: k/v [B, C, K, hd] (C = min(max_seq, window or
+    inf)) and pos [B, C] int32, the absolute position each row holds
+    (-1 = empty).  The tensors may be views into a stacked cache."""
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+
+
+def init_kv_cache(batch: int, max_seq: int, n_kv: int, head_dim: int, *,
+                  window: int = 0, dtype=torch.bfloat16,
+                  device=None) -> KVCache:
+    C = min(max_seq, window) if window else max_seq
+    return KVCache(
+        k=torch.zeros(batch, C, n_kv, head_dim, dtype=dtype, device=device),
+        v=torch.zeros(batch, C, n_kv, head_dim, dtype=dtype, device=device),
+        pos=torch.full((batch, C), -1, dtype=torch.int32, device=device))
+
+
+def cache_write(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                start) -> KVCache:
+    """Write S_new tokens from absolute position ``start`` IN PLACE and
+    return ``cache``.  ``start`` is a scalar (lockstep decode, prefill)
+    or a [B] tensor (continuous batching: each slot at its own
+    position).  Rows go to position modulo C, so a windowed cache is a
+    ring.  When S_new > C only the last C tokens are written: the
+    earlier ones would be overwritten anyway, and one scatter with
+    repeated indices has no defined order on the card."""
+    B, C = cache.k.shape[:2]
+    S_new = k_new.shape[1]
+    first = max(S_new - C, 0)
+    dev = cache.k.device
+    steps = torch.arange(first, S_new, device=dev)
+    k_new = k_new[:, first:].to(cache.k.dtype)
+    v_new = v_new[:, first:].to(cache.v.dtype)
+    if not (isinstance(start, torch.Tensor) and start.dim() == 1):
+        posn = steps + start        # [S]; an int start costs no copy
+        idx = posn % C
+        cache.k[:, idx] = k_new
+        cache.v[:, idx] = v_new
+        cache.pos[:, idx] = posn.to(torch.int32)
+        return cache
+    posn = start[:, None] + steps[None, :]                     # [B, S]
+    idx = posn % C
+    b = torch.arange(B, device=dev)[:, None]
+    cache.k[b, idx] = k_new
+    cache.v[b, idx] = v_new
+    cache.pos[b, idx] = posn.to(torch.int32)
+    return cache
+
+
+def decode_attend(q: torch.Tensor, cache: KVCache, *, pos,
+                  window: int = 0, scale: float | None = None):
+    """One-token attention on the einsum path: q [B, 1, H, hd]; ``pos``
+    is the new token's absolute position, scalar or [B]."""
+    pos = torch.as_tensor(pos, device=q.device)
+    if pos.dim() == 1:
+        pos = pos[:, None]                         # [B,1] vs k_pos [B,C]
+    k_pos = cache.pos
+    valid = (k_pos >= 0) & (k_pos <= pos)
+    if window:
+        valid = valid & (pos - k_pos < window)
+    bias = torch.where(valid, 0.0, NEG_INF).float()[:, None, None, None, :]
+    return attend(q, cache.k, cache.v, bias, scale)

@@ -1,4 +1,4 @@
-"""Carry reference (JAX) DistilBERT weights into the port.
+"""Carry reference (JAX) DistilBERT and decoder-LM weights into the port.
 
 Two sources, neither needing JAX:
   - the reference's param pytree as numpy arrays (nested dicts and
@@ -17,8 +17,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.distilbert import DistilBERT
+from repro_torch.models.transformer import LM
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -59,7 +61,8 @@ def load_state(model: torch.nn.Module, flat: dict[str, np.ndarray]) -> None:
                          f"{bad[:5]}")
     with torch.no_grad():
         for k, name in want.items():
-            # np.array copies: a JAX-backed array is read-only
+            # np.array copies (a JAX-backed array is read-only) and widens
+            # bf16 exactly; copy_ casts to the parameter's own dtype
             state[name].copy_(torch.from_numpy(
                 np.array(flat[k], dtype=np.float32)))
 
@@ -70,4 +73,36 @@ def distilbert_from_numpy(cfg: dict, tree, *, device="cuda") -> DistilBERT:
     which flattens to itself)."""
     model = DistilBERT(cfg, device=resolve_device(device))
     load_state(model, flatten_tree(tree))
+    return model.eval()
+
+
+def unstack_layers(flat: dict[str, np.ndarray],
+                   n_layers: int) -> dict[str, np.ndarray]:
+    """The reference stacks a homogeneous stack's layer leaves
+    (``layers/mix/wq`` [L, d, H*hd]); the port keeps one module per
+    layer (``layers/0/mix/wq`` [d, H*hd]).  Split every stacked
+    ``layers/*`` leaf along its first axis; raise when that axis is
+    not ``n_layers`` long.  Already per-layer keys pass through."""
+    out = {}
+    for key, a in flat.items():
+        parts = key.split("/")
+        if parts[0] != "layers" or len(parts) < 2 or parts[1].isdigit():
+            out[key] = a
+            continue
+        if a.ndim == 0 or a.shape[0] != n_layers:
+            raise ValueError(f"stacked leaf {key!r} has shape "
+                             f"{tuple(a.shape)}, expected [{n_layers}, ...]")
+        rest = "/".join(parts[1:])
+        for i in range(n_layers):
+            out[f"layers/{i}/{rest}"] = a[i]
+    return out
+
+
+def lm_from_numpy(cfg: ModelConfig, tree, *, device="cuda") -> LM:
+    """A port LM on ``device`` holding the weights of the reference's
+    ``init_lm`` tree (numpy leaves, e.g. ``jax.tree.map(np.asarray,
+    params)``, or an already-flat dict).  Raises on a missing or extra
+    key or a shape mismatch, as :func:`load_state` does."""
+    model = LM(cfg, device=resolve_device(device))
+    load_state(model, unstack_layers(flatten_tree(tree), cfg.n_layers))
     return model.eval()

@@ -21,14 +21,21 @@ from torch import nn
 # ---------------------------------------------------------------------------
 
 def dense_init_(w: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-    """Truncated-normal (±2σ) fan-in init of a ``[d_in, d_out]`` matrix."""
+    """Truncated-normal (±2σ) fan-in init of a ``[d_in, d_out]`` matrix,
+    drawn in f32 and then cast to ``w``'s dtype, as the reference."""
     with torch.no_grad():
+        if w.dtype != torch.float32:
+            return w.copy_(dense_init_(torch.empty_like(w, dtype=torch.float32),
+                                       gen))
         nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
         return w.mul_(1.0 / math.sqrt(w.shape[0]))
 
 
 def embed_init_(w: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     with torch.no_grad():
+        if w.dtype != torch.float32:
+            return w.copy_(embed_init_(torch.empty_like(w, dtype=torch.float32),
+                                       gen))
         return w.normal_(0.0, 1.0 / math.sqrt(w.shape[1]), generator=gen)
 
 
@@ -36,9 +43,11 @@ def embed_init_(w: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
 # modules
 # ---------------------------------------------------------------------------
 
-def param(*shape, device=None) -> nn.Parameter:
-    return nn.Parameter(torch.empty(*shape, dtype=torch.float32,
-                                    device=device), requires_grad=False)
+def param(*shape, device=None, dtype=torch.float32) -> nn.Parameter:
+    """An uninitialised, frozen parameter.  Weights take the model's
+    dtype (``cfg.dtype``); norms stay f32, as in the reference."""
+    return nn.Parameter(torch.empty(*shape, dtype=dtype, device=device),
+                        requires_grad=False)
 
 
 class LayerNorm(nn.Module):
@@ -58,15 +67,37 @@ class LayerNorm(nn.Module):
         return layernorm(self.scale, self.bias, x)
 
 
+class RMSNorm(nn.Module):
+    """Gemma-style RMSNorm, ``x * (1 + scale)`` (zeros at init)."""
+
+    def __init__(self, d: int, *, device=None):
+        super().__init__()
+        self.scale = param(d, device=device)
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.scale.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rmsnorm(self.scale, x)
+
+
+def norm(kind: str, d: int, *, device=None) -> nn.Module:
+    """``cfg.norm``'s module: RMSNorm or LayerNorm."""
+    return RMSNorm(d, device=device) if kind == "rmsnorm" else LayerNorm(
+        d, device=device)
+
+
 class MLP(nn.Module):
     """``gelu(x @ w_up + b_up) @ w_down + b_down``."""
 
-    def __init__(self, d: int, f: int, *, device=None):
+    def __init__(self, d: int, f: int, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
-        self.w_up = param(d, f, device=device)
-        self.b_up = param(f, device=device)
-        self.w_down = param(f, d, device=device)
-        self.b_down = param(d, device=device)
+        self.w_up = param(d, f, device=device, dtype=dtype)
+        self.b_up = param(f, device=device, dtype=dtype)
+        self.w_down = param(f, d, device=device, dtype=dtype)
+        self.b_down = param(d, device=device, dtype=dtype)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         dense_init_(self.w_up, gen)
@@ -77,6 +108,26 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return mlp(self, x)
+
+
+class SwiGLU(nn.Module):
+    """``(act(x @ w_gate) * (x @ w_up)) @ w_down``; ``act`` is SiLU,
+    or tanh-GELU for ``cfg.act == "gelu"``."""
+
+    def __init__(self, d: int, f: int, *, act: str = "silu", device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.act = gelu if act == "gelu" else F.silu
+        self.w_gate = param(d, f, device=device, dtype=dtype)
+        self.w_up = param(d, f, device=device, dtype=dtype)
+        self.w_down = param(f, d, device=device, dtype=dtype)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for w in (self.w_gate, self.w_up, self.w_down):
+            dense_init_(w, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (self.act(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
 
 
 # ---------------------------------------------------------------------------
@@ -92,6 +143,58 @@ def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
     var = x.var(dim=-1, unbiased=False, keepdim=True)
     x = (x - mu) * torch.rsqrt(var + eps)
     return (x * scale + bias).to(dt)
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in f32, gemma-style ``(1 + scale)``, as the reference."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + scale)).to(dt)
+
+
+def rope_angles(positions: torch.Tensor, rotary_dim: int,
+                theta: float = 10000.0, *, heads: bool = True):
+    """(cos, sin) in f32 for ``positions`` [S] or [B, S], shaped to
+    broadcast against the rotated part of [B, S, H, rd] (``heads``) or
+    [B, S, rd]: the reference's ``rope_frequencies`` and angles, which a
+    decode step computes once for all of its layers."""
+    inv = 1.0 / (theta ** (torch.arange(0, rotary_dim, 2, dtype=torch.float32,
+                                        device=positions.device)
+                           / rotary_dim))
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[:, :, None].float() * inv
+    if heads:
+        ang = ang[:, :, None, :]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor,
+           sin: torch.Tensor) -> torch.Tensor:
+    """Rotate the first ``rd = 2 * cos.shape[-1]`` features of ``x`` by
+    INTERLEAVED pairs ``(x[..., 0::2], x[..., 1::2])`` of that part, as
+    the reference's ``apply_rope`` does (not HF's ``rotate_half``); the
+    rest passes through."""
+    rd = 2 * cos.shape[-1]
+    x_rot, x_pass = x[..., :rd], x[..., rd:]
+    x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    rot = torch.stack([r1, r2], dim=-1).reshape(x_rot.shape)
+    return torch.cat([rot.to(x.dtype), x_pass], dim=-1)
+
+
+def apply_rope(x: torch.Tensor, positions, theta: float = 10000.0,
+               rotary_dim: int | None = None) -> torch.Tensor:
+    """Rotate ``x`` ([B, S, H, D] or [B, S, D]) by position; positions
+    [S] or [B, S]; ``rotary_dim`` < D is partial rotary (stablelm's
+    25 %)."""
+    positions = torch.as_tensor(positions, device=x.device)
+    cos, sin = rope_angles(positions, rotary_dim or x.shape[-1], theta,
+                           heads=x.dim() == 4)
+    return rotate(x, cos, sin)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,295 @@
+"""Decoder LM for attention stacks, ported from ``repro.models.transformer``.
+
+One pre-norm residual stack: per layer, GQA attention (``attn``) or
+sliding-window attention (``local_attn``, a ring cache of ``window``
+rows) with partial rotary on interleaved pairs, then a dense channel
+mix (SwiGLU with SiLU or tanh-GELU, or the biased GELU MLP); a final
+norm and a tied or untied unembedding.  Three modes share the layer
+code, as in the reference:
+
+  - ``forward``      full sequence, no cache
+  - ``prefill``      full sequence, writes the decode cache
+  - ``decode_step``  one token per row against the cache, at a scalar
+                     position (lockstep) or a [B] one (continuous)
+
+Attention dispatch (``attn_impl``, the reference's
+``transformer.py:294-296`` rule): on a CUDA tensor ``"auto"`` takes the
+hand-written kernels (flash attention for prefill and forward,
+flash-decode for a decode step), which raise on a card that is not
+sm_90; on a CPU tensor ``"auto"`` takes the model's einsum path,
+bitwise equal to ``"xla"``, as the reference does off the TPU;
+``"ref"`` takes the kernels' plain versions and ``"cuda"`` forces the
+kernels.  A prefix-LM batch would stay on the einsum path.
+
+Parameters keep the reference's names and shapes, one module per layer
+(the reference stacks a homogeneous stack's leaves ``[L, ...]``;
+``convert.lm_from_numpy`` unstacks them).  Weights are ``cfg.dtype``,
+norms f32.  The cache is stacked, k/v [L, B, C, K, hd] and pos
+[L, B, C], and is written in place.
+
+Not in this slice, and raising with the slice that brings them: MLA,
+RG-LRU and SSD layers, MoE, encoder-decoder and prefix-LM models (the
+model-families slice), the paged KV layout (the paged-KV slice), and
+``decode_chunk`` (the speculative-decoding slice).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.runtime import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import nn as nn_
+from repro_torch.models.nn import param
+
+FAMILIES_SLICE = "the model-families slice (ROADMAP queue 1 item 12)"
+PAGED_SLICE = "the paged-KV slice (ROADMAP queue 1 item 8)"
+SPEC_SLICE = "the sampling and speculation slice (ROADMAP queue 1 item 9)"
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what this slice does not port, naming the slice."""
+    kinds = sorted(set(cfg.block_kinds) - {"attn", "local_attn"})
+    if kinds:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: layer kinds {kinds} come with {FAMILIES_SLICE}")
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: MoE comes with {FAMILIES_SLICE}")
+    if cfg.family == "encdec" or cfg.prefix_lm:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: encoder-decoder and prefix-LM models come "
+            f"with {FAMILIES_SLICE}")
+    if cfg.paged_kv:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: kv_block_size={cfg.kv_block_size} (the paged "
+            f"KV pool) comes with {PAGED_SLICE}")
+
+
+class Layer(nn.Module):
+    """One residual block: ``norm1``, ``mix`` (attention), and the
+    channel mix ``norm2`` + ``mlp`` when ``cfg.d_ff`` > 0."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        d, dt = cfg.d_model, torch_dtype(cfg.dtype)
+        self.norm1 = nn_.norm(cfg.norm, d, device=device)
+        self.mix = attn.AttnParams(d, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.head_dim, bias=cfg.qkv_bias,
+                                   device=device, dtype=dt)
+        self.mlp = None
+        if cfg.d_ff:
+            self.norm2 = nn_.norm(cfg.norm, d, device=device)
+            if cfg.act == "gelu_mlp":
+                self.mlp = nn_.MLP(d, cfg.d_ff, device=device, dtype=dt)
+            else:
+                self.mlp = nn_.SwiGLU(d, cfg.d_ff, act=cfg.act,
+                                      device=device, dtype=dt)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for m in (self.norm1, getattr(self, "norm2", None)):
+            if m is not None:
+                m.reset_parameters()
+        self.mix.reset_parameters(gen)
+        if self.mlp is not None:
+            self.mlp.reset_parameters(gen)
+
+
+class Cache:
+    """The decode cache of a homogeneous attention stack: k/v
+    [L, B, C, K, hd] and pos [L, B, C] int32 (-1 = empty), written in
+    place; ``length`` is the number of tokens consumed (a device scalar
+    after a continuous step, so reading it costs no host sync)."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+                 length=0):
+        self.k, self.v, self.pos, self.length = k, v, pos, length
+
+    def layer(self, i: int) -> attn.KVCache:
+        return attn.KVCache(k=self.k[i], v=self.v[i], pos=self.pos[i])
+
+    @property
+    def n_slots(self) -> int:
+        return self.k.shape[1]
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, *, device="cuda",
+               layout: str = "auto") -> Cache:
+    """Contiguous decode cache for ``batch`` slots of up to ``max_seq``
+    tokens, bf16 by default as the reference (``transformer.py:211``);
+    a windowed stack keeps a ring of ``window`` rows."""
+    if layout not in ("auto", "contiguous", "paged"):
+        raise ValueError(f"unknown cache layout {layout!r}")
+    check_supported(cfg.replace(kv_block_size=0, kv_pool_blocks=0))
+    if layout == "paged" or (layout == "auto" and cfg.paged_kv):
+        raise NotImplementedError(f"the paged KV layout comes with "
+                                  f"{PAGED_SLICE}")
+    dev = resolve_device(device)
+    window = cfg.window if cfg.block_kinds[0] == "local_attn" else 0
+    C = min(max_seq, window) if window else max_seq
+    L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    return Cache(
+        k=torch.zeros(L, batch, C, K, hd, dtype=dtype, device=dev),
+        v=torch.zeros(L, batch, C, K, hd, dtype=dtype, device=dev),
+        pos=torch.full((L, batch, C), -1, dtype=torch.int32, device=dev))
+
+
+class LM(nn.Module):
+    """The decoder LM; ``attn_impl`` starts as ``cfg.attn_impl`` and may
+    be switched on a built model (the parity checks do)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.attn_impl = cfg.attn_impl
+        d, V, dt = cfg.d_model, cfg.vocab, torch_dtype(cfg.dtype)
+        self.emb = param(V, d, device=device, dtype=dt)
+        self.final_norm = nn_.norm(cfg.norm, d, device=device)
+        if not cfg.tie_embeddings:
+            self.unemb = param(d, V, device=device, dtype=dt)
+        self.layers = nn.ModuleList(Layer(cfg, device=device)
+                                    for _ in range(cfg.n_layers))
+        self.window = cfg.window if cfg.block_kinds[0] == "local_attn" else 0
+        self.rotary_dim = int(cfg.head_dim * cfg.rope_pct)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        nn_.embed_init_(self.emb, gen)
+        self.final_norm.reset_parameters()
+        if not self.cfg.tie_embeddings:
+            nn_.dense_init_(self.unemb, gen)
+        for layer in self.layers:
+            layer.reset_parameters(gen)
+
+    @property
+    def device(self) -> torch.device:
+        return self.emb.device
+
+    # -- pieces ---------------------------------------------------------------
+    def _use_kernel(self, x: torch.Tensor) -> bool:
+        impl = self.attn_impl
+        return impl != "xla" and (impl != "auto" or x.device.type == "cuda")
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        h = self.emb[tokens]
+        if self.cfg.scale_embeddings:
+            h = h * torch.tensor(self.cfg.d_model ** 0.5, dtype=h.dtype)
+        return h
+
+    def unembed(self, h: torch.Tensor) -> torch.Tensor:
+        h = self.final_norm(h)
+        if self.cfg.tie_embeddings:
+            return h @ self.emb.T
+        return h @ self.unemb
+
+    def _rope(self, positions: torch.Tensor):
+        return nn_.rope_angles(positions, self.rotary_dim,
+                               self.cfg.rope_theta)
+
+    def _attn(self, layer: Layer, x, *, mode, kv, rope, pos=None, cur=None):
+        """Temporal mixing: projections, rotary, attention through the
+        kernels or the einsum path, and the cache write."""
+        cfg, p = self.cfg, layer.mix
+        q, k, v = attn.project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.head_dim)
+        q = nn_.rotate(q, *rope)
+        k = nn_.rotate(k, *rope)
+        kernel = self._use_kernel(x)
+        if mode in ("full", "prefill"):
+            if kernel:
+                o = attn.causal_attention_kernel(q, k, v, window=self.window,
+                                                 impl=self.attn_impl)
+            elif self.window and x.shape[1] > self.window:
+                o = attn.local_attention(q, k, v, window=self.window)
+            else:
+                o = attn.causal_attention(q, k, v, window=self.window)
+            if mode == "prefill":
+                attn.cache_write(kv, k, v, 0)
+        else:
+            attn.cache_write(kv, k, v, pos)
+            if kernel:
+                o = attn.decode_attend_kernel(q, kv, pos=cur,
+                                              window=self.window,
+                                              impl=self.attn_impl)
+            else:
+                o = attn.decode_attend(q, kv, pos=pos, window=self.window)
+        return attn.out_proj(p, o)
+
+    def _stack(self, h, *, mode, cache=None, rope, pos=None, cur=None):
+        for i, layer in enumerate(self.layers):
+            kv = cache.layer(i) if cache is not None else None
+            h = h + self._attn(layer, layer.norm1(h), mode=mode, kv=kv,
+                               rope=rope, pos=pos, cur=cur)
+            if layer.mlp is not None:
+                h = h + layer.mlp(layer.norm2(h))
+        return h
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, device=self.device).long()
+
+    # -- modes ----------------------------------------------------------------
+    @torch.no_grad()
+    def forward(self, tokens):
+        """Full-sequence logits [B, S, V]; returns (logits, aux_loss)."""
+        tokens = self._tokens(tokens)
+        h = self.embed(tokens)
+        rope = self._rope(torch.arange(tokens.shape[1], device=self.device))
+        h = self._stack(h, mode="full", rope=rope)
+        return self.unembed(h), torch.zeros((), device=self.device)
+
+    @torch.no_grad()
+    def prefill(self, tokens, cache: Cache):
+        """Consume the prompt, fill the cache from position 0, and return
+        (last-position logits [B, 1, V], cache)."""
+        tokens = self._tokens(tokens)
+        h = self.embed(tokens)
+        S = tokens.shape[1]
+        rope = self._rope(torch.arange(S, device=self.device))
+        h = self._stack(h, mode="prefill", cache=cache, rope=rope)
+        cache.length = S
+        return self.unembed(h[:, -1:]), cache
+
+    @torch.no_grad()
+    def decode_step(self, token, cache: Cache, pos):
+        """One token per row: token [B, 1]; ``pos`` its absolute position,
+        an int (lockstep) or a [B] tensor (continuous batching).  Returns
+        (logits [B, 1, V], cache)."""
+        token = self._tokens(token)
+        B = token.shape[0]
+        h = self.embed(token)
+        if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+            positions = pos[:, None]                       # [B, 1]
+            cur = pos.to(torch.int32)
+            cache.length = pos.max() + 1
+        else:
+            pos = int(pos)
+            positions = torch.arange(pos, pos + 1, device=self.device)
+            cur = torch.full((B,), pos, dtype=torch.int32,
+                             device=self.device)
+            cache.length = pos + 1
+        h = self._stack(h, mode="decode", cache=cache,
+                        rope=self._rope(positions), pos=pos, cur=cur)
+        return self.unembed(h), cache
+
+    def decode_chunk(self, tokens, cache: Cache, pos):
+        raise NotImplementedError(f"decode_chunk (the speculative verify "
+                                  f"step) comes with {SPEC_SLICE}")
+
+
+def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
+    """A model with weights drawn from ``torch.Generator(seed)`` on
+    ``device`` (the card by default; other numbers than the reference's
+    ``jax.random`` for the same seed, so parity tests carry the
+    reference's weights across with ``convert.lm_from_numpy``)."""
+    dev = resolve_device(device)
+    model = LM(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model.reset_parameters(gen)
+    return model.eval()

@@ -1,2 +1,2 @@
-"""Classify serving (engine, gated step, adapters, the ``Server``
-API), ported from ``repro.serving``."""
+"""Classify and generate serving (engines, the gated step, continuous
+batching, adapters, the ``Server`` API), ported from ``repro.serving``."""

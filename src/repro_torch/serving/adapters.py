@@ -11,6 +11,8 @@
     THE DEVICE from the (tau, e_norm, c_norm) snapshot the admission
     middleware supplies; the mask flows back into the controller's
     statistics.
+  - :class:`ContinuousEngineAdapter` — generation through the slot-pool
+    decoder's incremental session (the generate path).
 
 The invariants are the reference's (virtual time on one monotone
 clock, admission outside the engine, every submitted request in
@@ -28,12 +30,15 @@ from typing import Callable
 import numpy as np
 
 from repro_torch.kernels.runtime import resolve_device, synchronize
-from repro_torch.serving.api import (PATH_DIRECT, PATH_DYNAMIC_BATCH,
-                                     PATH_GATED, Completion,
+from repro_torch.serving.api import (PATH_CONTINUOUS, PATH_DIRECT,
+                                     PATH_DYNAMIC_BATCH, PATH_GATED,
+                                     Completion,
                                      EngineCapabilities, LoadState,
                                      TriageResult, load_pressure)
 from repro_torch.serving.batcher import (Batch, BatchQueue, DirectPath,
                                          DynamicBatcher, ServiceLine)
+from repro_torch.serving.continuous import (ContinuousBatchingEngine,
+                                            GenRequest)
 from repro_torch.serving.engine import ClassifierEngine, bucket_size
 from repro_torch.serving.gated import GateParams, make_gated_classify_step
 from repro_torch.serving.simulator import Oracle
@@ -292,3 +297,126 @@ class GatedEngineAdapter:
             extras={"tau": tau, "e_norm": e_norm, "c_norm": c_norm,
                     "flush": b.reason},
             per_request=[{"entropy": float(e)} for e in ent])
+
+
+# ---------------------------------------------------------------------------
+# continuous-decode backend
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ContinuousEngineAdapter:
+    """Generation through the slot-pool decoder's INCREMENTAL session.
+
+    The engine is built WITHOUT a controller — admission is the server
+    middleware's job.  ``submit`` pushes the prompt into a live
+    :class:`~repro_torch.serving.continuous.DecodeSession`; every
+    ``step`` (each arrival) advances one ``sync_every``-step decode
+    window, so decoding interleaves with the arrival stream and requests
+    that finish mid-stream complete mid-stream.  ``drain`` runs the
+    session dry.  Each window that completes requests is minted as one
+    :class:`Completion` carrying the session's cumulative stats.  A
+    request that asks for sampling at T > 0 raises at submit."""
+    engine: ContinuousBatchingEngine
+    prompt_len: int | None = None
+
+    _session: object = field(default=None, init=False)
+    _by_rid: dict = field(default_factory=dict, init=False)
+    _free_at: float = field(default=0.0, init=False)
+    _pending_dt: float = field(default=0.0, init=False)
+    _win_free_at: float = field(default=0.0, init=False)
+
+    def capabilities(self) -> EngineCapabilities:
+        return EngineCapabilities(name="continuous", kind="generate",
+                                  paths=(PATH_CONTINUOUS,))
+
+    def warmup(self, ctx) -> None:
+        self._session = None
+        self._by_rid.clear()
+        self._free_at = 0.0
+        self._pending_dt = 0.0
+        self._win_free_at = 0.0
+
+    def _ensure_session(self):
+        if self._session is None:
+            self._session = self.engine.start_session(self.prompt_len)
+        return self._session
+
+    def load(self) -> LoadState:
+        if self._session is None:
+            return LoadState()
+        return LoadState(
+            queue_depth=self._session.n_queued,
+            batch_fill=self._session.n_active
+            / max(self.engine.n_slots, 1))
+
+    def pressure(self, now: float) -> float:
+        return (max(self._free_at - now, 0.0)
+                + load_pressure(self.load()))
+
+    def triage(self, req, now, ctx) -> TriageResult:
+        hint = getattr(req, "entropy_hint", None)
+        return TriageResult(L=0.5 if hint is None else float(hint),
+                            proxy_output=[])
+
+    def submit(self, req, path, now, ctx) -> list[Completion]:
+        hint = getattr(req, "entropy_hint", None)
+        meta = getattr(req, "metadata", None) or {}
+        gr = GenRequest(rid=req.rid,
+                        prompt=np.asarray(req.payload, np.int32),
+                        max_new=getattr(req, "max_new", 16),
+                        entropy_hint=(0.5 if hint is None
+                                      else float(hint)),
+                        arrival_t=float(req.arrival_s),
+                        eos_id=meta.get("eos_id"),
+                        sampling=getattr(req, "sampling", None))
+        self._ensure_session().push(gr)
+        self._by_rid[req.rid] = req
+        return []
+
+    def _advance_once(self, now: float, ctx=None) -> list[Completion]:
+        tracer = ctx.tracer if ctx is not None else None
+        trace_on = tracer is not None and tracer.enabled
+        s = self._session
+        if trace_on:
+            syncs0, steps0 = s.host_syncs, s.decode_steps
+        t0 = time.perf_counter()
+        finished = s.advance()
+        dt = time.perf_counter() - t0
+        self._pending_dt += dt
+        if trace_on:
+            # one window = one host sync; reads only counters that
+            # advance() already synced
+            wstart = max(now, self._win_free_at)
+            wfinish = wstart + dt
+            self._win_free_at = wfinish
+            tracer.span("decode.window", wstart, wfinish,
+                        resource="decode.device",
+                        host_syncs=s.host_syncs - syncs0,
+                        decode_steps=s.decode_steps - steps0,
+                        active=s.n_active, finished=len(finished))
+        if not finished:
+            # busy time of windows that completed nothing is folded
+            # into the next completing window's span
+            return []
+        start = max(now, self._free_at)
+        finish = start + self._pending_dt
+        self._free_at = finish
+        self._pending_dt = 0.0
+        reqs = [self._by_rid.pop(g.rid) for g in finished]
+        return [Completion(requests=reqs,
+                           outputs=[list(g.generated) for g in finished],
+                           path=PATH_CONTINUOUS, t_start=start,
+                           t_finish=finish, extras=dict(s.stats()))]
+
+    def step(self, now, ctx) -> list[Completion]:
+        if self._session is None or self._session.idle:
+            return []
+        return self._advance_once(now, ctx)
+
+    def drain(self, now, ctx) -> list[Completion]:
+        if self._session is None:
+            return []
+        out: list[Completion] = []
+        while not self._session.idle:
+            out.extend(self._advance_once(now, ctx))
+        return out

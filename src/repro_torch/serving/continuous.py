@@ -1,0 +1,428 @@
+"""Continuous batching for LM decode, ported from
+``repro.serving.continuous`` (the contiguous KV layout, greedy decode,
+no speculation).
+
+A fixed pool of B slots over one shared KV cache; every decode step
+advances ALL slots (each at its own absolute position, the decoder's
+per-row ``pos`` path), finished slots are refilled from the queue.
+Decode is the regime where energy follows occupied slot-steps, so the
+admission controller (enqueue-time middleware) prunes low-value
+requests before they ever take a slot.
+
+Invariants, as the reference's:
+
+- **Slot ownership.**  A slot belongs to one ``GenRequest`` from the
+  prefill that seats it until the host sync that harvests its
+  completion; only ``DecodeSession`` assigns or clears slots.  Between
+  host syncs all slot state (KV pool, ``cur_tok``, ``pos``, ``active``,
+  ``remaining``, ``eos``) lives on the device.
+- **One host sync per window.**  A window is ``sync_every`` decode
+  steps issued back to back from Python; the done-masks (EOS, budget,
+  the ``max_seq - 1`` stop) are computed on the device as in the
+  reference's ``step_k``, and the tokens, emission masks and live flags
+  come back in ONE copy at the end of the window.  Where the reference
+  donates the pool into a ``lax.scan``, the port updates the cache IN
+  PLACE: ``decode_step`` writes each step's K/V rows into the pool's
+  tensors.
+- **Refill.**  Up to ``n_free`` queued prompts are prefilled in one
+  call into a row cache whose rows are then written into their slots
+  (``slot_write``), with the per-slot decode state set in the same
+  pass.  The reference pads that batch to a power-of-two bucket so
+  each bucket compiles once; PyTorch compiles nothing per shape, so
+  the port prefills only the real rows.  The prompt length keeps the
+  reference's rule (``prompt_len``, or the wave's longest prompt
+  rounded up to a bucket), since positions depend on it.
+
+Not in this slice: the paged block pool, ``insert_prefilled`` (the
+disaggregated hand-off), self-speculative windows, sampling at T > 0
+and the legacy per-step loop.  A configuration or request that asks
+for one of them raises.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.controller import AdmissionController
+from repro_torch.kernels.runtime import resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.serving.engine import SAMPLING_SLICE, bucket_size
+
+
+@dataclass
+class GenRequest:
+    rid: int
+    prompt: np.ndarray               # [S] int32
+    max_new: int = 16
+    entropy_hint: float = 0.5        # L(x) proxy at enqueue time
+    arrival_t: float | None = None   # admission clock (workload arrival_s)
+    eos_id: int | None = None        # stop after emitting this token
+    sampling: Any = None             # SamplingParams-like; None = engine
+                                     # default (greedy only here)
+
+    generated: list = field(default_factory=list)
+    done: bool = False
+    admitted: bool = True
+    slot: int | None = None          # decode slot it occupied (telemetry)
+
+
+@dataclass
+class SlotClock:
+    """The virtual-time core of the slot-pool decode model: ``n_slots``
+    independent free-at lines, new work landing in the earliest-free
+    slot.  ``pressure(now)`` is how long a NEW arrival would wait for a
+    slot (zero while any slot is free), ``busy(now)`` the live
+    occupancy.  Side-effect-free to poll."""
+    n_slots: int = 8
+    free_at: list[float] = field(default_factory=list)
+
+    def __post_init__(self):
+        if not self.free_at:
+            self.free_at = [0.0] * self.n_slots
+
+    def reserve(self, now: float, dur: float) -> tuple[int, float, float]:
+        """Seat ``dur`` seconds of decode in the earliest-free slot."""
+        i = min(range(self.n_slots), key=lambda s: self.free_at[s])
+        start = max(now, self.free_at[i])
+        finish = start + dur
+        self.free_at[i] = finish
+        return i, start, finish
+
+    def pressure(self, now: float) -> float:
+        return max(min(self.free_at) - now, 0.0)
+
+    def busy(self, now: float) -> int:
+        return sum(f > now for f in self.free_at)
+
+    def reset(self) -> None:
+        self.free_at = [0.0] * self.n_slots
+
+
+def slot_write(pool: tfm.Cache, rows: tfm.Cache,
+               slot_idx: np.ndarray) -> None:
+    """Write row i of a batched row cache into pool slot ``slot_idx[i]``,
+    in place.  Rows whose index is out of range (>= n_slots) are
+    dropped, as the reference's ``.at[slot_idx].set(mode="drop")``
+    drops its bucket-padding rows: the valid rows are selected
+    explicitly on the host, since ``index_copy_`` raises on such an
+    index and a scatter with repeated indices has no defined order on
+    the card.  A repeated valid index raises.  The slot's position row
+    is rewritten whole (the prompt's rows, -1 beyond), which retires
+    any validity left by its previous occupant."""
+    slot_idx = np.asarray(slot_idx)
+    if len(slot_idx) != rows.n_slots:
+        raise ValueError(f"{len(slot_idx)} slot indices for a row cache "
+                         f"of {rows.n_slots} rows")
+    if (pool.k.shape[0] != rows.k.shape[0]
+            or pool.k.shape[3:] != rows.k.shape[3:]
+            or rows.k.shape[2] > pool.k.shape[2]):
+        raise ValueError(f"row cache {tuple(rows.k.shape)} does not fit "
+                         f"pool {tuple(pool.k.shape)} — refusing to drop "
+                         f"the prefilled rows")
+    keep = np.nonzero((slot_idx >= 0) & (slot_idx < pool.n_slots))[0]
+    dst = slot_idx[keep]
+    if len(set(dst.tolist())) != len(dst):
+        raise ValueError(f"repeated slot index in {slot_idx.tolist()}")
+    if len(keep) == 0:
+        return
+    dev = pool.k.device
+    src = torch.as_tensor(keep, device=dev)
+    dst = torch.as_tensor(dst, device=dev)
+    Cr, C = rows.k.shape[2], pool.k.shape[2]
+    pool.k[:, dst, :Cr] = rows.k[:, src]
+    pool.v[:, dst, :Cr] = rows.v[:, src]
+    pos = rows.pos[:, src]
+    if Cr < C:
+        pos = torch.cat([pos, pos.new_full((*pos.shape[:2], C - Cr), -1)],
+                        dim=2)
+    pool.pos[:, dst] = pos
+
+
+def _bucket(n: int) -> int:
+    """The serving-wide power-of-two bucket, never below ``n``."""
+    return max(bucket_size(n), n)
+
+
+def _check_greedy(temperature: float, what: str) -> None:
+    if temperature > 0:
+        raise NotImplementedError(f"{what} asks for temperature "
+                                  f"{temperature}: {SAMPLING_SLICE}")
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ContinuousBatchingEngine:
+    cfg: ModelConfig
+    params: tfm.LM
+    n_slots: int = 8
+    max_seq: int = 256
+    controller: AdmissionController | None = None
+    sync_every: int = 8              # decode steps per host sync
+    draft_depth: int = 0             # speculation: not in this slice
+    device: str | torch.device = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.sync_every = max(int(self.sync_every), 1)
+        if self.draft_depth != 0:
+            raise NotImplementedError(
+                f"draft_depth={self.draft_depth}: self-speculative decoding "
+                f"comes with {tfm.SPEC_SLICE}")
+        tfm.check_supported(self.cfg)
+        _check_greedy(self.cfg.temperature, "the engine's config")
+        self.params = self.params.to(self.device).eval()
+
+    def init_cache(self, batch: int) -> tfm.Cache:
+        return tfm.init_cache(self.cfg, batch, self.max_seq,
+                              device=self.device)
+
+    @torch.no_grad()
+    def step_window(self, pool, cur_tok, pos, active, remaining, eos):
+        """``sync_every`` greedy decode steps with the reference's
+        on-device masks (``continuous.py:402-425``); the pool is updated
+        in place.  Returns the new (cur_tok, pos, active, remaining) and
+        the tokens and emission masks, both [k, B], all on the device."""
+        model, last = self.params, self.max_seq - 1
+        toks, emitted = [], []
+        for _ in range(self.sync_every):
+            logits, pool = model.decode_step(cur_tok, pool, pos)
+            nxt = logits[:, 0].argmax(-1)
+            new_pos = torch.where(active, pos + 1, pos)
+            new_rem = torch.where(active, remaining - 1, remaining)
+            alive = (active & (new_rem > 0) & (new_pos < last)
+                     & (nxt != eos))
+            cur_tok = torch.where(active, nxt, cur_tok[:, 0])[:, None]
+            toks.append(nxt)
+            emitted.append(active)
+            pos, remaining, active = new_pos, new_rem, alive
+        return (cur_tok, pos, active, remaining, torch.stack(toks),
+                torch.stack(emitted))
+
+    # -- admission ----------------------------------------------------------
+    def _admit(self, requests: list[GenRequest]) -> list[GenRequest]:
+        """Run the controller over the stream, each request decided at
+        its own arrival time when it has one."""
+        queue: list[GenRequest] = []
+        t = 0.0
+        for r in requests:
+            if self.controller is not None:
+                ta = (float(r.arrival_t) if r.arrival_t is not None
+                      else t)
+                d = self.controller.decide(r.entropy_hint, ta)
+                r.admitted = d.admit
+                t = ta + 0.001
+            if r.admitted:
+                queue.append(r)
+            else:
+                r.done = True                 # skipped (proxy/cache)
+        return queue
+
+    # -- serving ------------------------------------------------------------
+    def start_session(self, prompt_len: int | None = None
+                      ) -> "DecodeSession":
+        return DecodeSession(self, prompt_len=prompt_len)
+
+    def serve(self, requests: list[GenRequest], *,
+              prompt_len: int | None = None) -> dict:
+        """Run all requests to completion; returns summary stats.
+        Prompts are padded/truncated to one prefill length."""
+        wall0 = time.perf_counter()
+        queue = self._admit(list(requests))
+        plen = prompt_len or max((len(r.prompt) for r in queue), default=8)
+        session = self.start_session(plen)
+        for r in queue:
+            session.push(r)
+        while not session.idle:
+            session.advance()
+        stats = session.stats()
+        wall = time.perf_counter() - wall0
+        stats.update(
+            n_requests=len(requests),
+            n_admitted=sum(r.admitted for r in requests),
+            tokens_generated=sum(len(r.generated) for r in requests),
+            wall_s=wall,
+            host_s=max(wall - stats["device_s"], 0.0),
+            host_sync_frac=(max(wall - stats["device_s"], 0.0)
+                            / wall if wall > 0 else 0.0),
+            steps_per_s=(stats["decode_steps"] / wall if wall > 0
+                         else 0.0),
+        )
+        return stats
+
+
+# ---------------------------------------------------------------------------
+# incremental session — what the serving adapter drives
+# ---------------------------------------------------------------------------
+
+class DecodeSession:
+    """One slot-pool decode session.  ``push`` enqueues at any time;
+    ``advance`` refills free slots with one prefill, runs one
+    ``sync_every``-step window, and returns the requests that completed
+    in it.  All decode state between windows lives on the device."""
+
+    def __init__(self, engine: ContinuousBatchingEngine,
+                 prompt_len: int | None = None):
+        self.engine = engine
+        self.prompt_len = prompt_len
+        B, dev = engine.n_slots, engine.device
+        self.queue: list[GenRequest] = []
+        self.slots: list[GenRequest | None] = [None] * B
+        self._pool = engine.init_cache(B)
+        self._cur_tok = torch.zeros(B, 1, dtype=torch.long, device=dev)
+        self._pos = torch.zeros(B, dtype=torch.long, device=dev)
+        self._active = torch.zeros(B, dtype=torch.bool, device=dev)
+        self._remaining = torch.zeros(B, dtype=torch.long, device=dev)
+        self._eos = torch.full((B,), -1, dtype=torch.long, device=dev)
+        self._active_host = np.zeros(B, bool)
+        self._prefill_done: list[GenRequest] = []
+        self.decode_steps = 0
+        self.occupied_slot_steps = 0
+        self.host_syncs = 0
+        self.prefill_calls = 0
+        self.device_s = 0.0             # prefills + windows, host clock
+        self.prefill_s = 0.0            # of which prefills
+
+    # -- state --------------------------------------------------------------
+    @property
+    def idle(self) -> bool:
+        return not self.queue and not self._active_host.any()
+
+    @property
+    def n_active(self) -> int:
+        return int(self._active_host.sum())
+
+    @property
+    def n_queued(self) -> int:
+        return len(self.queue)
+
+    def push(self, r: GenRequest) -> None:
+        if r.sampling is not None:
+            _check_greedy(getattr(r.sampling, "temperature", 0.0),
+                          f"request rid={r.rid}")
+        self.queue.append(r)
+
+    # -- refill -------------------------------------------------------------
+    @torch.no_grad()
+    def _refill(self) -> None:
+        eng = self.engine
+        B, dev = eng.n_slots, eng.device
+        free = [s for s in range(B) if not self._active_host[s]]
+        take = min(len(free), len(self.queue))
+        if take == 0:
+            return
+        reqs = [self.queue.pop(0) for _ in range(take)]
+        # the reference's prompt-length rule: a fixed prompt_len, else the
+        # wave's longest prompt rounded up to a bucket
+        plen = self.prompt_len or min(
+            _bucket(max(max(len(r.prompt) for r in reqs), 1)),
+            eng.max_seq - 1)
+        toks = np.zeros((take, plen), np.int64)
+        rem_new = np.ones(take, np.int64)
+        eos_new = np.full(take, -1, np.int64)
+        for j, r in enumerate(reqs):
+            p = np.asarray(r.prompt[:plen])
+            toks[j, :len(p)] = p
+            rem_new[j] = max(r.max_new - 1, 1)
+            if r.eos_id is not None:
+                eos_new[j] = int(r.eos_id)
+        slot_idx = np.asarray(free[:take])
+        t0 = time.perf_counter()
+        rows = eng.init_cache(take)
+        logits, rows = eng.params.prefill(torch.from_numpy(toks).to(dev),
+                                          rows)
+        first = logits[:, -1].argmax(-1)
+        slot_write(self._pool, rows, slot_idx)
+        idx = torch.as_tensor(slot_idx, device=dev)
+        eos_t = torch.as_tensor(eos_new, device=dev)
+        self._cur_tok[idx, 0] = first
+        self._pos[idx] = plen
+        # a slot whose PREFILL token already hits EOS never decodes
+        self._active[idx] = first != eos_t
+        self._remaining[idx] = torch.as_tensor(rem_new, device=dev)
+        self._eos[idx] = eos_t
+        first_h = first.cpu().numpy()
+        dt = time.perf_counter() - t0
+        self.device_s += dt
+        self.prefill_s += dt
+        self.prefill_calls += 1
+        self._seat_prefilled(reqs, slot_idx, first_h)
+
+    def _seat_prefilled(self, reqs, slots_for, first_h) -> None:
+        """Append each request's first token and seat it in its slot —
+        or, when that token IS its EOS, complete it straight away."""
+        for j, r in enumerate(reqs):
+            s = int(slots_for[j])
+            r.generated.append(int(first_h[j]))
+            if r.eos_id is not None and first_h[j] == r.eos_id:
+                r.done = True            # EOS straight out of prefill
+                self._prefill_done.append(r)
+                continue
+            r.slot = s
+            self.slots[s] = r
+            self._active_host[s] = True
+
+    # -- advance ------------------------------------------------------------
+    def advance(self) -> list[GenRequest]:
+        """Refill free slots, run one ``sync_every``-step window,
+        harvest.  Returns the requests COMPLETED by this window."""
+        eng = self.engine
+        self._refill()
+        done_at_prefill, self._prefill_done = self._prefill_done, []
+        if not self._active_host.any():
+            return done_at_prefill
+        t0 = time.perf_counter()
+        (self._cur_tok, self._pos, self._active, self._remaining, toks,
+         emitted) = eng.step_window(self._pool, self._cur_tok, self._pos,
+                                    self._active, self._remaining,
+                                    self._eos)
+        # ONE host sync per window: tokens, emission masks and live flags
+        # come back in a single copy
+        k = toks.shape[0]
+        packed = torch.cat([toks, emitted.long(),
+                            self._active[None].long()]).cpu().numpy()
+        self.device_s += time.perf_counter() - t0
+        toks_h = packed[:k]
+        emit_h = packed[k:2 * k].astype(bool)
+        active_h = packed[2 * k].astype(bool)
+        self.host_syncs += 1
+        self.decode_steps += int(emit_h.any(axis=1).sum())
+        self.occupied_slot_steps += int(emit_h.sum())
+        completed: list[GenRequest] = list(done_at_prefill)
+        for s in range(eng.n_slots):
+            r = self.slots[s]
+            if r is None:
+                continue
+            r.generated.extend(int(x) for x in toks_h[emit_h[:, s], s])
+            if not active_h[s]:
+                r.done = True
+                completed.append(r)
+                self.slots[s] = None
+        self._active_host = active_h
+        return completed
+
+    # -- reporting ----------------------------------------------------------
+    def stats(self) -> dict:
+        eng = self.engine
+        B = eng.n_slots
+        return {
+            "mode": "fused",
+            "sync_every": eng.sync_every,
+            "decode_steps": self.decode_steps,
+            "occupied_slot_steps": self.occupied_slot_steps,
+            "occupancy": (self.occupied_slot_steps
+                          / (self.decode_steps * B)
+                          if self.decode_steps else 0.0),
+            "host_syncs": self.host_syncs,
+            "prefill_calls": self.prefill_calls,
+            "insert_calls": 0,
+            "device_s": self.device_s,
+            "prefill_s": self.prefill_s,
+        }

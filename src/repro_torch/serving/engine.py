@@ -1,4 +1,4 @@
-"""Model execution engine for classify serving, ported from
+"""Model execution engines for serving, ported from
 ``repro.serving.engine``.
 
 ``ClassifierEngine`` — the ablation/dual-path workhorse: a DistilBERT
@@ -6,6 +6,9 @@ classifier with a cheap early-exit proxy head.  Calls are padded to
 the reference's power-of-two buckets so both run the same shapes.  The
 proxy head's entropy goes through ``kernels.ops.entropy_stats``: the
 CUDA kernel on the card, its plain version on the CPU.
+
+``GenerationEngine`` — LM serving: prefill + lockstep greedy decode
+against the decoder LM's contiguous cache.
 """
 from __future__ import annotations
 
@@ -15,9 +18,16 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.runtime import resolve_device, synchronize
+from repro_torch.models import transformer as tfm
 from repro_torch.models.distilbert import DistilBERT
+
+SAMPLING_SLICE = ("sampling at T > 0 needs the reference's threefry "
+                  "fold_in and Gumbel bits reproduced exactly; it comes "
+                  "with the sampling and speculation slice (ROADMAP queue "
+                  "1 item 9)")
 
 
 def bucket_size(n: int, buckets=(1, 2, 4, 8, 16, 32, 64, 128)) -> int:
@@ -106,3 +116,37 @@ class ClassifierEngine:
                 self.classify(toks)
             self.step_times[b] = (time.perf_counter() - t0) / iters
         return dict(self.step_times)
+
+
+@dataclass
+class GenerationEngine:
+    cfg: ModelConfig
+    params: tfm.LM
+    max_seq: int = 512
+    device: str | torch.device = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.params = self.params.to(self.device).eval()
+
+    def generate(self, prompts: np.ndarray, n_new: int, *,
+                 greedy: bool = True) -> np.ndarray:
+        """prompts [B, S] int -> [B, n_new] generated ids (lockstep,
+        greedy).  The tokens stay on the device until the end: one host
+        sync per call."""
+        if not greedy:
+            raise NotImplementedError(SAMPLING_SLICE)
+        B, S = prompts.shape
+        model = self.params
+        cache = tfm.init_cache(self.cfg, B, self.max_seq,
+                               device=self.device)
+        logits, cache = model.prefill(prompts, cache)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        out = []
+        for i in range(n_new):
+            out.append(tok[:, 0])
+            logits, cache = model.decode_step(tok, cache, S + i)
+            tok = logits[:, -1].argmax(-1)[:, None]
+        if not out:
+            return np.zeros((B, 0), np.int32)
+        return torch.stack(out, 1).cpu().numpy().astype(np.int32)

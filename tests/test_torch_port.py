@@ -15,10 +15,12 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import convert, distilbert  # noqa: E402
-from repro_torch.serving import engine, gated  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.serving import continuous, engine, gated  # noqa: E402
 from repro_torch.serving.adapters import GatedEngineAdapter  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -52,7 +54,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         [sys.executable, "-c", _HYGIENE, str(ROOT / "src"), str(ROOT)],
         capture_output=True, text=True, timeout=120, env=_env(), check=True)
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 30                       # every module was imported
+    assert int(n) >= 45                       # every module was imported
     assert bad.strip() == "[]"
 
 
@@ -72,16 +74,39 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: GatedEngineAdapter(cfg, model),
         lambda: tserve.serve_classifier(tserve.parser().parse_args([])),
     ]
+    lm_cfg = get_smoke_config("stablelm-3b")
+    lm = tfm.init_lm(lm_cfg, 0, device="cpu")
+    lm_tree = {k.replace(".", "/"): v.float().numpy()
+               for k, v in lm.state_dict().items()}
+    gen_args = tserve.parser().parse_args(["--mode", "generate", "--smoke"])
+    calls += [
+        lambda: tfm.init_lm(lm_cfg),
+        lambda: tfm.init_cache(lm_cfg, 2, 16),
+        lambda: convert.lm_from_numpy(lm_cfg, lm_tree),
+        lambda: engine.GenerationEngine(lm_cfg, lm),
+        lambda: continuous.ContinuousBatchingEngine(lm_cfg, lm),
+        lambda: tserve.serve_generate(gen_args),
+    ]
     for call in calls:
         with pytest.raises(RuntimeError, match="needs CUDA"):
             call()
     assert tserve.parser().parse_args([]).device == "cuda"
+    assert gen_args.device == "cuda" and gen_args.attn_impl == "auto"
     x = torch.zeros(3, 2)
     with pytest.raises(ValueError, match="CUDA tensor"):
         ops.entropy_stats(x, impl="cuda")
+    q = torch.zeros(1, 2, 4, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.flash_attention(q, q, q, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.decode_attention(q[:, :, 0], q, q,
+                             torch.zeros(1, 4, dtype=torch.int32),
+                             torch.zeros(1, dtype=torch.int32), impl="cuda")
     # the CPU runs only when asked for
     assert engine.ClassifierEngine(cfg, model,
                                    device="cpu").device.type == "cpu"
+    assert continuous.ContinuousBatchingEngine(
+        lm_cfg, lm, device="cpu").device.type == "cpu"
 
 
 def _run_smoke(cwd, env):
