@@ -23,11 +23,14 @@ not 0.  Phases:
   5. parity  — the proxy entropy from the kernel against the plain version,
                and full-model logits on the card against the CPU (1e-3);
   6. breakdown — the gated step's parts at batch 64, timed on the card;
-  7. attention — the flash-attention and flash-decode kernels against
-               their plain versions at the generate path's shapes, long
-               shapes and a GQA + window case, timed beside their bounds
-               and ``scaled_dot_product_attention`` with the same mask
-               (a yardstick only: the port never calls it);
+  7. attention — the flash-attention, flash-decode and paged
+               flash-decode kernels against their plain versions at the
+               generate path's shapes, long shapes and a GQA + window
+               case, timed beside their bounds and
+               ``scaled_dot_product_attention`` with the same mask (a
+               yardstick only: the port never calls it; for the paged
+               kernel on the pre-gathered view, the gather left out); the
+               paged kernel also against its gather shim, byte for byte;
   8. serve_generate — stablelm-3b at published width (32 layers, bf16,
                seeded weights) through the launcher's ``serve_generate``:
                32 requests x 16 new tokens over 8 slots, bio controller;
@@ -38,9 +41,23 @@ not 0.  Phases:
                within 1e-3 and 8 greedy tokens equal; the served model at
                full depth in bf16, kernel path against ``attn_impl="xla"``;
  10. breakdown_generate — one decode step at 8 slots: attention kernels,
-               products and the rest, beside the weight-bytes bound;
- 11. kernels — one line with every kernel's numbers;
- 12. the last line: ``{"ok": true, "device": {...}}``.
+               products and the rest, beside the weight-bytes bound; and
+               the same step over a paged pool (breakdown_generate_paged);
+ 11. serve_generate_paged — the same launcher run on a paged pool of 13
+               blocks of 16 rows (``--kv-block-size 16 --kv-pool-blocks
+               13``: 12 allocatable blocks seat at most 6 of the 8 slots;
+               at the launcher's arrivals, 1 ms apart with one window
+               each, about 2 requests are in flight, so the wait for
+               blocks is exercised by parity_paged); the paged kernel
+               launched, the contiguous decode kernel not, every block
+               given back;
+ 12. parity_paged — the served model on one trace (mixed prompt lengths
+               and budgets, one EOS, a pool small enough that requests
+               wait) through the paged engine and the contiguous engine
+               fed the same prefill waves, no controller: the same
+               tokens for every request;
+ 13. kernels — one line with every kernel's numbers;
+ 14. the last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero without CUDA or without the repo.
 """
@@ -68,6 +85,7 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import distilbert  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.serving import continuous as cont  # noqa: E402
 from repro_torch.serving.engine import GenerationEngine  # noqa: E402
 from repro_torch.serving.gated import make_gated_classify_step  # noqa: E402
 from repro_torch.training.data import ClassificationData  # noqa: E402
@@ -381,6 +399,8 @@ def attention_bound_ms(kind, case, valid_pairs, peaks):
         rows = valid_pairs                # valid cache rows over all slots
         nbytes = (2 * B * H * hd * isq + 2 * rows * K * hd * iskv
                   + B * case["S"] * 4 + B * 4)
+        if kind == "paged":               # the table of the logical extent
+            nbytes += B * (case["S"] // case["bs"]) * 4
         ops_ = 4 * hd * H * rows
     rate = peaks["bf16" if case["kvdt"] == torch.bfloat16 else "f32"]
     t_bytes, t_ops = nbytes / peaks["hbm"], ops_ / rate
@@ -412,7 +432,45 @@ ATTN_CASES = [
     dict(name="decode_gqa_window", kind="decode", B=8, H=32, K=8, S=1024,
          hd=128, qdt=torch.float32, kvdt=torch.float32, window=256,
          lengths=[1500 + 37 * b for b in range(8)], ring=True, iters=50),
+    # the paged pool: S is the logical extent, the pool holds every slot's
+    # blocks in shuffled order plus the trash block 0; a slot's table
+    # entries past its rows point at the trash block
+    dict(name="paged_main", kind="paged", B=8, H=32, K=32, S=128, hd=80,
+         bs=16, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         lengths=list(range(17, 33, 2)), iters=200),
+    dict(name="paged_long", kind="paged", B=8, H=32, K=32, S=4096, hd=80,
+         bs=16, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         lengths=[4096] * 8, iters=20),
+    dict(name="paged_gqa_window", kind="paged", B=8, H=32, K=8, S=1024,
+         hd=128, bs=32, qdt=torch.float32, kvdt=torch.float32, window=256,
+         lengths=[600 + 37 * b for b in range(8)], iters=50),
 ]
+
+
+def _paged_inputs(case, gen):
+    """q, the k/v pool [1 + B*S/bs, bs, K, hd] with the trash block 0
+    filled with 1e3 (a row read through a wrong entry is loud), a
+    shuffled table mapping each slot's used blocks (trash past them),
+    and a valid prefix of ``lengths[b]`` rows per slot."""
+    B, H, K, S, hd, bs = (case[k] for k in ("B", "H", "K", "S", "hd", "bs"))
+    mb = S // bs
+    nb = 1 + B * mb
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(case["qdt"])
+    pools = []
+    for _ in range(2):
+        x = torch.randn(nb, bs, K, hd, generator=gen, device="cuda")
+        x[0] = 1e3
+        pools.append(x.to(case["kvdt"]))
+    perm = torch.randperm(nb - 1, generator=gen, device="cuda") + 1
+    table = torch.zeros(B, mb, dtype=torch.int32, device="cuda")
+    lengths = torch.as_tensor(case["lengths"], device="cuda")
+    for b, n in enumerate(case["lengths"]):
+        used = -(-n // bs)
+        table[b, :used] = perm[b * mb:b * mb + used].int()
+    col = torch.arange(S, device="cuda")[None]
+    kv_pos = torch.where(col < lengths[:, None], col, -1).to(torch.int32)
+    cur = (lengths - 1).to(torch.int32)
+    return q, pools[0], pools[1], table, kv_pos, cur
 
 
 def _library_call(kind, q, k, v, mask, causal_square):
@@ -439,7 +497,8 @@ def phase_attention(peaks):
     times, bounds and the library yardstick; -> {kernel: summary}."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = {"flash_attention": {"max_err": 0.0, "main": None},
-           "decode_attention": {"max_err": 0.0, "main": None}}
+           "decode_attention": {"max_err": 0.0, "main": None},
+           "paged_decode_attention": {"max_err": 0.0, "main": None}}
     for case in ATTN_CASES:
         kind, B, H, K, S, hd = (case[k] for k in ("kind", "B", "H", "K",
                                                   "S", "hd"))
@@ -460,6 +519,21 @@ def phase_attention(peaks):
             lib = _library_call(kind, q, k, v, mask, window == 0)
             rows_ok = None
             name = "flash_attention"
+        elif kind == "paged":
+            q, kp, vp, tbl, kv_pos, cur = _paged_inputs(case, gen)
+            mask = da_mod.valid_rows(kv_pos, cur, window)
+            valid = int(mask.sum())
+            rows_ok = mask.any(dim=1)
+            kern = lambda: da_mod.paged_decode_attention_cuda(  # noqa: E731
+                q, kp, vp, tbl, kv_pos, cur, window=window)
+            plain = lambda: da_mod.paged_decode_attention_plain(  # noqa: E731
+                q, kp, vp, tbl, kv_pos, cur, window=window)
+            shim = lambda: da_mod.paged_decode_attention_shim(  # noqa: E731
+                q, kp, vp, tbl, kv_pos, cur, window=window)
+            kg, vg = da_mod.gather_block_views(kp, vp, tbl, S)
+            lib = _library_call("decode", q, kg.transpose(1, 2),
+                                vg.transpose(1, 2), mask, False)
+            name = "paged_decode_attention"
         else:
             q = torch.randn(B, H, hd, generator=gen,
                             device="cuda").to(case["qdt"])
@@ -477,6 +551,9 @@ def phase_attention(peaks):
             lib = _library_call(kind, q, k, v, mask, False)
             name = "decode_attention"
         got, want = kern(), plain()
+        if kind == "paged":
+            fail_unless(torch.equal(got, shim()),
+                        f"{case['name']}: paged kernel != gather shim")
         torch.cuda.synchronize()
         fail_unless(rows_ok is None or bool(rows_ok.all()),
                     f"{case['name']}: every slot has a valid row")
@@ -496,6 +573,9 @@ def phase_attention(peaks):
                 time_ms(lib, 2)
                 lib_ms = graph_ms(lib, it)
                 lib_what = "scaled_dot_product_attention, same mask"
+                if kind == "paged":
+                    lib_what += (" (on the pre-gathered view: the "
+                                 "gather is not in its time)")
             except Exception as e:
                 lib_what = f"none: {type(e).__name__}: {e}"[:200]
         row = dict(phase="attention", kernel=name, case=case["name"],
@@ -507,12 +587,18 @@ def phase_attention(peaks):
                    plain_ms=graph_ms(plain, max(it // 4, 2)),
                    library_ms=lib_ms, library_computes=lib_what,
                    library_max_abs_err=lib_err)
+        if kind == "paged":
+            row.update(bs=case["bs"], pool_blocks=kp.shape[0],
+                       pool_bytes=2 * kp.numel() * kp.element_size(),
+                       shim_equal=True, shim_ms=graph_ms(shim, it),
+                       shim_call_ms=time_ms(shim, it))
         row["bound_ms"], row["bound_by"] = attention_bound_ms(
             kind, case, valid, peaks)
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         emit(**row)
         out[name]["max_err"] = max(out[name]["max_err"], err)
-        if case["name"] in ("prefill_main", "decode_main_bf16q"):
+        if case["name"] in ("prefill_main", "decode_main_bf16q",
+                            "paged_main"):
             out[name]["main"] = row
     return out
 
@@ -525,13 +611,15 @@ def phase_serve_generate():
          "--requests", "32", "--new-tokens", "16", "--slots", "8",
          "--controller", "bio"])
     fa_mod.launches = 0
-    da_mod.launches = 0
+    da_mod.launches = da_mod.paged_launches = 0
     t0 = time.perf_counter()
     summary, server = serve.serve_generate(args)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {"flash_attention": fa_mod.launches,
                 "decode_attention": da_mod.launches}
+    fail_unless(da_mod.paged_launches == 0,
+                "generate: the contiguous pool runs no paged kernel")
     vocab = get_config(ARCH).vocab
     resp = server.responses
     fail_unless(sorted(r.rid for r in resp) == list(range(args.requests)),
@@ -705,6 +793,189 @@ def phase_breakdown_generate(model, peaks):
          rest_ms=step_dev - attn - prod,
          weight_bytes=wbytes, weight_bytes_bound_ms=wbytes / peaks["hbm"] * 1e3,
          profiler=prof if prof is not None else "no device time recorded")
+    # the same step over a paged pool: each slot maps 8 blocks of 16 rows,
+    # the first 16 rows valid (the prompt), as the paged serve phase holds
+    pcfg = cfg.replace(kv_block_size=PAGED_BS)
+    pool = tfm.init_cache(pcfg, B, 128, device="cuda")
+    mb = pool.block_table.shape[1]
+    pool.block_table.copy_(1 + torch.arange(B * mb, device="cuda").reshape(
+        B, mb).to(torch.int32))
+    pool.pos[:, :, :16] = torch.arange(16, device="cuda", dtype=torch.int32)
+
+    def paged_step():
+        model.decode_step(tok, pool, pos)
+
+    paged_call = time_ms(paged_step, 10)
+    paged_dev = graph_ms(paged_step, 1, replays=10)
+    try:
+        pprof = _profile_step(paged_step)
+    except Exception as e:          # the profiler is untried on the card
+        pprof = {"error": repr(e)[:200]}
+    emit(phase="breakdown_generate_paged", slots=B, layers=cfg.n_layers,
+         bs=PAGED_BS, step_ms=paged_dev, step_call_ms=paged_call,
+         device_busy_share_of_call=paged_dev / paged_call,
+         contiguous_step_ms=step_dev, contiguous_step_call_ms=step_call,
+         profiler=pprof if pprof is not None else "no device time recorded")
+
+
+PAGED_BS, PAGED_POOL = 16, 13      # 12 allocatable blocks of 16 rows
+
+
+def phase_serve_generate_paged():
+    """The launcher's generate run on the paged pool; -> the paged
+    kernel's launches over the run."""
+    args = serve.parser().parse_args(
+        ["--device", "cuda", "--mode", "generate", "--arch", ARCH,
+         "--requests", "32", "--new-tokens", "16", "--slots", "8",
+         "--controller", "bio", "--kv-block-size", str(PAGED_BS),
+         "--kv-pool-blocks", str(PAGED_POOL)])
+    fa_mod.launches = 0
+    da_mod.launches = da_mod.paged_launches = 0
+    t0 = time.perf_counter()
+    summary, server = serve.serve_generate(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"flash_attention": fa_mod.launches,
+                "paged_decode_attention": da_mod.paged_launches,
+                "decode_attention": da_mod.launches}
+    vocab = get_config(ARCH).vocab
+    resp = server.responses
+    fail_unless(sorted(r.rid for r in resp) == list(range(args.requests)),
+                "paged: every request answered once")
+    admitted = [r for r in resp if r.admitted]
+    fail_unless(len(admitted) > 0 and all(
+        isinstance(r.output, list) and 1 <= len(r.output) <= args.new_tokens
+        and all(0 <= t < vocab for t in r.output) for r in admitted),
+        "paged: 1..16 token ids inside the vocabulary each")
+    fail_unless(launches["paged_decode_attention"] > 0
+                and launches["flash_attention"] > 0,
+                f"paged: flash and paged decode kernels launched: {launches}")
+    fail_unless(launches["decode_attention"] == 0,
+                f"paged: the contiguous decode kernel (the shim's) was not "
+                f"the serving path: {launches}")
+    fail_unless(summary["mode"] == "paged"
+                and summary["blocks_allocated"] == summary["blocks_freed"]
+                and summary["free_blocks"] == PAGED_POOL - 1,
+                f"paged: every block given back: {summary}")
+    fail_unless(summary["peak_blocks_in_use"] <= PAGED_POOL - 1
+                and summary["occupancy"] <= 0.75,
+                f"paged: at most 12 blocks, 6 of 8 slots: {summary}")
+    cfg = serve.generate_config(args)
+    steps_run = summary["host_syncs"] * server.engine.engine.sync_every
+    decode_s = summary["device_s"] - summary["prefill_s"]
+    emit(phase="serve_generate_paged", seconds=secs, launches=launches,
+         admitted=len(admitted),
+         tokens_per_busy_s=summary["tokens_generated"] / summary["busy_s"],
+         decode_ms_per_step=decode_s / steps_run * 1e3,
+         prefill_ms_per_call=(summary["prefill_s"]
+                              / summary["prefill_calls"] * 1e3),
+         pool_hbm_bytes={
+             "paged": cont.pool_hbm_bytes(cfg, args.slots,
+                                          serve.GEN_MAX_SEQ),
+             "contiguous": cont.pool_hbm_bytes(
+                 cfg.replace(kv_block_size=0, kv_pool_blocks=0),
+                 args.slots, serve.GEN_MAX_SEQ)},
+         **summary)
+    return launches["paged_decode_attention"]
+
+
+def _drive(engine, reqs, prompt_len, waves=None):
+    """Run ``reqs`` through a fresh session: all queued at once, or,
+    given ``waves`` (the rids another run seated at each advance), each
+    pushed just before the advance that seated it there.  -> (session,
+    the rids seated at each advance, refills that left a request queued
+    while a slot was free: it waited for blocks)."""
+    sess = engine.start_session(prompt_len)
+    by_rid = {r.rid: r for r in reqs}
+    if waves is None:
+        for r in reqs:
+            sess.push(r)
+    seated, waits = [], 0
+    while not sess.idle or (waves is not None and len(seated) < len(waves)):
+        if waves is not None and len(seated) < len(waves):
+            for rid in waves[len(seated)]:
+                sess.push(by_rid[rid])
+        queued = [r.rid for r in sess.queue]
+        free = engine.n_slots - sess.n_active
+        sess.advance()
+        left = {r.rid for r in sess.queue}
+        seated.append([rid for rid in queued if rid not in left])
+        waits += len(seated[-1]) < min(free, len(queued))
+    return sess, seated, waits
+
+
+def phase_parity_paged(model):
+    """The served model (full width, bf16) on one trace through the
+    paged and the contiguous engine, no controller: the same tokens for
+    every request.  12 prompts of 4-16 tokens padded to 16, budgets of
+    2-30 tokens, an EOS for request 5 taken from a first paged run, and
+    an 11-block pool (10 allocatable: 3 to 5 requests at a time, so
+    requests wait for blocks).  cuBLAS picks its products by their row
+    count, so one prompt prefilled in waves of different sizes may round
+    differently in bf16: the contiguous engine therefore replays the
+    paged run's waves (each request pushed just before the advance that
+    seated it there), which it can only seat the same way if every
+    token so far was equal.  A contiguous run with the whole queue
+    pushed at once is reported beside it, not checked."""
+    cfg = model.cfg
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(4, 17, size=12)]
+    budgets = [int(n) for n in rng.integers(2, 31, size=12)]
+
+    def trace(eos=None):
+        return [cont.GenRequest(rid=i, prompt=p, max_new=m,
+                                eos_id=(eos or {}).get(i))
+                for i, (p, m) in enumerate(zip(prompts, budgets))]
+
+    contiguous = cont.ContinuousBatchingEngine(cfg, model, n_slots=8,
+                                               max_seq=128, device="cuda")
+    paged = cont.ContinuousBatchingEngine(
+        cfg.replace(kv_block_size=PAGED_BS, kv_pool_blocks=11), model,
+        n_slots=8, max_seq=128, device="cuda")
+    probe = trace()
+    _drive(paged, probe, 16)
+    g5 = probe[5].generated
+    eos = {5: next((t for j, t in enumerate(g5) if j and t not in g5[:j]),
+                   g5[0])}
+    t0 = time.perf_counter()
+    da_mod.launches = da_mod.paged_launches = 0
+    rp = trace(eos)
+    sp, waves, waits = _drive(paged, rp, 16)
+    paged_launches = (da_mod.launches, da_mod.paged_launches)
+    da_mod.launches = da_mod.paged_launches = 0
+    rc = trace(eos)
+    sc, waves_c, _ = _drive(contiguous, rc, 16, waves)
+    contiguous_launches = (da_mod.launches, da_mod.paged_launches)
+    secs = time.perf_counter() - t0
+    free_run = trace(eos)
+    _drive(contiguous, free_run, 16)
+    fail_unless(contiguous_launches[0] > 0 and contiguous_launches[1] == 0
+                and paged_launches[0] == 0 and paged_launches[1] > 0,
+                f"parity_paged: each engine ran its own decode kernel: "
+                f"{contiguous_launches}, {paged_launches}")
+    fail_unless(waves_c == waves, f"parity_paged: the contiguous engine "
+                                  f"seated the paged run's waves: {waves}, "
+                                  f"{waves_c}")
+    same = [a.generated == b.generated for a, b in zip(rc, rp)]
+    fail_unless(all(r.done for r in rc + rp) and all(same),
+                f"parity_paged: tokens per request equal: {same}")
+    fail_unless(waits > 0, "parity_paged: a request waited for blocks")
+    fail_unless(rp[5].generated.index(eos[5]) == len(rp[5].generated) - 1,
+                "parity_paged: request 5 stopped on its EOS")
+    st = sp.stats()
+    fail_unless(st["blocks_allocated"] == st["blocks_freed"]
+                and st["peak_blocks_in_use"] <= 10,
+                f"parity_paged: blocks balanced: {st}")
+    emit(phase="parity_paged", seconds=secs, requests=len(rp),
+         tokens=sum(len(r.generated) for r in rp), tokens_equal=True,
+         waves=[w for w in waves if w], waits=waits,
+         eos_stop_len=len(rp[5].generated),
+         contiguous_decode_launches=contiguous_launches[0],
+         paged_decode_launches=paged_launches[1],
+         contiguous_whole_queue_requests_equal=sum(
+             a.generated == b.generated for a, b in zip(free_run, rp)),
+         **st)
 
 
 def kernel_entry(name, src, replaces, tpu_kernel, launches, max_err, main):
@@ -738,6 +1009,8 @@ def main() -> int:
     gen_launches, lm = phase_serve_generate()
     phase_parity_generate(lm)
     phase_breakdown_generate(lm, peaks)
+    paged_launches = phase_serve_generate_paged()
+    phase_parity_paged(lm)
     entropy = {
         "name": "entropy_stats",
         "route": "cuda",
@@ -773,6 +1046,16 @@ def main() -> int:
                      gen_launches["decode_attention"],
                      attn["decode_attention"]["max_err"],
                      attn["decode_attention"]["main"]),
+        dict(kernel_entry(
+            "paged_decode_attention", "decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:167",
+            "src/repro/kernels/decode_attention.py:_paged_kernel",
+            paged_launches, attn["paged_decode_attention"]["max_err"],
+            attn["paged_decode_attention"]["main"]),
+            shim_ms=attn["paged_decode_attention"]["main"]["shim_ms"],
+            oracle="paged_decode_attention_shim (src/repro/kernels/"
+                   "decode_attention.py:291): gather + decode_attention, "
+                   "torch.equal in every paged case"),
     ])
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Flash-decode — one new token per slot against a contiguous KV cache.
+"""Flash-decode — one new token per slot against a contiguous KV cache
+or a paged block pool.
 
 ``decode_attention(q, k, v, kv_pos, cur_pos, window=)``: q [B,H,hd];
 k/v [B,K,S,hd]; kv_pos [B,S] int32 (absolute position of each cache
@@ -20,9 +21,29 @@ read through its strides, so the model's BSHD cache [B,C,K,hd] goes in
 as a transposed view, read in place.  A slot with no valid row gives
 0 here, the mean of its rows in the TPU kernel and of all rows in the
 plain version: nothing reads such a row's output, and comparisons skip
-it.  The contiguous entry point only: the paged pool and its gather
-shim come with the paged-KV slice.  There is no fall back: a build or
-launch failure raises.
+it.  There is no fall back: a build or launch failure raises.
+
+``paged_decode_attention(q, k_pool, v_pool, block_table, kv_pos,
+cur_pos, window=)``: the same function over a shared pool
+k/v [NB, bs, K, hd], where ``block_table`` [B, MB] int32 maps slot b's
+logical block j to a pool block and kv_pos [B, C] (C = n * bs,
+n <= MB) holds the positions of the logical rows; the port of
+``repro.kernels.decode_attention.paged_decode_attention``:
+
+  - on CUDA tensors it launches the same kernel body with the paged row
+    address (the pool read in place through the table, no gathered
+    copy) and adds one to ``paged_launches``;
+  - on CPU tensors it runs ``paged_decode_attention_plain``:
+    ``gather_block_views`` then ``decode_attention_plain``, what
+    ``repro.kernels.ops.paged_decode_attention`` computes off the TPU.
+
+``paged_decode_attention_shim`` is the gather followed by the
+contiguous kernel, the table-native kernel's parity oracle: the two
+walk the same logical rows with the same arithmetic, so they give the
+same bytes for any block size (the reference's native == shim at
+``k_blk == bs``).  Table entries are not range-checked on the card
+(that would cost a host sync): the allocator keeps them in range, and
+the plain version raises on one that is not.
 """
 from __future__ import annotations
 
@@ -35,9 +56,11 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.runtime import check_kernel_tensors
 
-# kernel launches since the last reset; ``chip_smoke.py`` zeroes it
-# before it drives the main path and reads it after
+# kernel launches since the last reset, contiguous and paged;
+# ``chip_smoke.py`` zeroes them before it drives the main path and reads
+# them after
 launches = 0
+paged_launches = 0
 
 NEG_INF = -2.0 ** 30     # repro.kernels.ref's mask value
 _TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -80,6 +103,12 @@ def _library() -> ctypes.CDLL:
         for tkv in _TYPES.values():
             fn = getattr(lib, f"decode_attention_{tq}_{tkv}")
             fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                           + [ctypes.c_int64] * 12 + [ctypes.c_float,
+                                                      ctypes.c_int,
+                                                      ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"paged_decode_attention_{tq}_{tkv}")
+            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                            + [ctypes.c_int64] * 12 + [ctypes.c_float,
                                                       ctypes.c_int,
                                                       ctypes.c_void_p])
@@ -148,3 +177,145 @@ def decode_attention(q, k, v, kv_pos, cur_pos, *,
         return decode_attention_plain(q, k, v, kv_pos, cur_pos,
                                       window=window)
     return decode_attention_cuda(q, k, v, kv_pos, cur_pos, window=window)
+
+
+# ---------------------------------------------------------------------------
+# the paged pool
+# ---------------------------------------------------------------------------
+
+def gather_block_views(k_pool, v_pool, block_table, n_ctx: int):
+    """Each slot's mapped blocks as its contiguous logical view: pool
+    [NB, bs, K, hd] + table [B, MB] -> k/v [B, n_ctx, K, hd] (BSHD).
+    The ONE implementation of the table gather in the port: the plain
+    version, the shim and the model's ``attention.paged_gather`` all
+    go through it.  Raises, with the reference's messages, when n_ctx
+    is not a multiple of bs or needs more blocks than the table maps."""
+    B = block_table.shape[0]
+    bs = k_pool.shape[1]
+    if n_ctx % bs != 0:
+        raise ValueError(
+            f"paged gather: logical extent n_ctx={n_ctx} is not a "
+            f"multiple of the pool block size bs={bs} (pool "
+            f"{tuple(k_pool.shape)}, table {tuple(block_table.shape)}) "
+            f"— the trailing n_ctx % bs = {n_ctx % bs} rows would be "
+            f"silently truncated")
+    n_blocks = n_ctx // bs
+    if n_blocks > block_table.shape[1]:
+        raise ValueError(
+            f"paged gather: n_ctx={n_ctx} needs {n_blocks} blocks of "
+            f"bs={bs} rows but the block table maps only "
+            f"{block_table.shape[1]} per slot (table "
+            f"{tuple(block_table.shape)})")
+    tb = block_table[:, :n_blocks].long()
+    k = k_pool[tb].reshape(B, n_ctx, *k_pool.shape[2:])
+    v = v_pool[tb].reshape(B, n_ctx, *v_pool.shape[2:])
+    return k, v
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, block_table, kv_pos,
+                                 cur_pos, *, window: int = 0) -> torch.Tensor:
+    """The gather, then ``decode_attention_plain`` on the gathered view."""
+    k, v = gather_block_views(k_pool, v_pool, block_table, kv_pos.shape[1])
+    return decode_attention_plain(q, k.transpose(1, 2), v.transpose(1, 2),
+                                  kv_pos, cur_pos, window=window)
+
+
+def paged_decode_attention_shim(q, k_pool, v_pool, block_table, kv_pos,
+                                cur_pos, *, window: int = 0) -> torch.Tensor:
+    """The gather, then the contiguous CUDA kernel (which counts its
+    launch in ``launches``): the parity oracle of the paged kernel, one
+    extra pass over the mapped rows."""
+    k, v = gather_block_views(k_pool, v_pool, block_table, kv_pos.shape[1])
+    return decode_attention_cuda(q, k.transpose(1, 2), v.transpose(1, 2),
+                                 kv_pos, cur_pos, window=window)
+
+
+def paged_decode_attention_cuda(q, k_pool, v_pool, block_table, kv_pos,
+                                cur_pos, *, window: int = 0) -> torch.Tensor:
+    """The CUDA kernel over the pool in place; raises unless every tensor
+    lies on one sm_90 card, q and the pools are f32 or bf16 with
+    16-byte aligned rows laid out block after block, the table, kv_pos
+    and cur_pos are int32, hd is a multiple of 8 up to 256, H a
+    multiple of K, and the logical extent a multiple of the block size
+    that the table covers."""
+    global paged_launches
+    what = "paged decode attention"
+    check_kernel_tensors(what, {"q": q, "k_pool": k_pool, "v_pool": v_pool},
+                         dtypes=_TYPES, align=True)
+    check_kernel_tensors(what, {"block_table": block_table,
+                                "kv_pos": kv_pos, "cur_pos": cur_pos},
+                         dtypes={torch.int32}, align=False, device=q.device)
+    if q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
+        raise ValueError(f"{what} needs q [B,H,hd] and k/v pools "
+                         f"[NB,bs,K,hd], got {tuple(q.shape)}, "
+                         f"{tuple(k_pool.shape)}, {tuple(v_pool.shape)}")
+    B, H, hd = q.shape
+    _, bs, K, _ = k_pool.shape
+    if k_pool.shape[3] != hd or K == 0 or H % K:
+        raise ValueError(f"q {tuple(q.shape)} and pool "
+                         f"{tuple(k_pool.shape)} do not agree on head_dim "
+                         f"or heads (H % K)")
+    NB = k_pool.shape[0]
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if NB > 1 and t.stride(0) != bs * t.stride(1):
+            raise ValueError(f"{what}: {name}'s blocks must lie back to "
+                             f"back (stride(0) == bs * stride(1)), got "
+                             f"strides {t.stride()}")
+    if NB * bs >= 2 ** 31:
+        raise ValueError(f"{what}: a pool of {NB} x {bs} rows needs row "
+                         f"indices past int32")
+    if block_table.dim() != 2 or block_table.shape[0] != B:
+        raise ValueError(f"block_table must be [B, MB] with B = {B}, got "
+                         f"{tuple(block_table.shape)}")
+    C = kv_pos.shape[1] if kv_pos.dim() == 2 else -1
+    if tuple(kv_pos.shape) != (B, C) or tuple(cur_pos.shape) != (B,):
+        raise ValueError(f"kv_pos must be [B, C] with B = {B} and cur_pos "
+                         f"[B], got {tuple(kv_pos.shape)}, "
+                         f"{tuple(cur_pos.shape)}")
+    if bs == 0 or C % bs != 0:
+        raise ValueError(
+            f"paged decode: kv_pos extent C={C} is not a multiple of "
+            f"the pool block size bs={bs} — the paged layout is "
+            f"block-aligned by construction, so this is a caller bug")
+    if C // bs > block_table.shape[1]:
+        raise ValueError(
+            f"paged decode: kv_pos extent C={C} needs {C // bs} blocks of "
+            f"bs={bs} rows but the block table maps only "
+            f"{block_table.shape[1]} per slot")
+    if hd % 8 or not 0 < hd <= 256:
+        raise ValueError(f"head_dim must be a multiple of 8 in [8, 256], "
+                         f"got {hd}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    cur_pos = cur_pos.contiguous()
+    out = torch.empty(B, H, hd, dtype=q.dtype, device=q.device)
+    if B == 0 or H == 0:
+        return out
+    lib = _library()
+    fn = getattr(lib, f"paged_decode_attention_{_TYPES[q.dtype]}_"
+                      f"{_TYPES[k_pool.dtype]}")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 block_table.data_ptr(), kv_pos.data_ptr(),
+                 cur_pos.data_ptr(), out.data_ptr(), B, H, K, C, hd, bs,
+                 *q.stride()[:2], *k_pool.stride()[1:3],
+                 *v_pool.stride()[1:3], *block_table.stride(),
+                 *kv_pos.stride(), *out.stride()[:2],
+                 1.0 / math.sqrt(hd), int(window), stream)
+    if err != 0:
+        raise RuntimeError(f"paged decode attention kernel launch failed: "
+                           f"{lib.decode_attention_error_string(err).decode()}")
+    paged_launches += 1
+    return out
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_table, kv_pos, cur_pos,
+                           *, window: int = 0) -> torch.Tensor:
+    """The paged CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, block_table,
+                                            kv_pos, cur_pos, window=window)
+    return paged_decode_attention_cuda(q, k_pool, v_pool, block_table,
+                                       kv_pos, cur_pos, window=window)

@@ -7,11 +7,14 @@ Dispatch policy (``impl=``), the port of ``repro.kernels.ops``:
     quietly to the plain version.
   - ``"ref"``  — always the plain PyTorch version.
   - ``"cuda"`` — the CUDA kernel, or raise (a CPU tensor raises).
+  - ``"shim"``  — ``paged_decode_attention`` only: the table gather then
+    the contiguous CUDA kernel, the paged kernel's parity oracle (a CPU
+    tensor raises), as the reference's ``_PAGED_IMPLS``.
 
 ``entropy_stats`` carries the classify path; ``flash_attention`` (every
 prefill) and ``decode_attention`` (every decode step) carry the
-generate path.  The paged decode kernel and the SSD scan of
-``repro.kernels`` come with their slices.
+generate path, and ``paged_decode_attention`` every decode step over
+the paged pool.  The SSD scan of ``repro.kernels`` comes with its slice.
 """
 from __future__ import annotations
 
@@ -20,11 +23,12 @@ from repro_torch.kernels import entropy as _ent
 from repro_torch.kernels import flash_attention as _fa
 
 IMPLS = ("auto", "ref", "cuda")
+PAGED_IMPLS = ("auto", "ref", "cuda", "shim")
 
 
-def _check(impl: str) -> None:
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+def _check(impl: str, impls: tuple[str, ...] = IMPLS) -> None:
+    if impl not in impls:
+        raise ValueError(f"impl must be one of {impls}, got {impl!r}")
 
 
 def entropy_stats(logits, *, impl: str = "auto"):
@@ -61,3 +65,20 @@ def decode_attention(q, k, v, kv_pos, cur_pos, *, window=0,
         return _da.decode_attention_cuda(q, k, v, kv_pos, cur_pos,
                                          window=window)
     return _da.decode_attention(q, k, v, kv_pos, cur_pos, window=window)
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_table, kv_pos, cur_pos,
+                           *, window=0, impl: str = "auto"):
+    """q [B,H,hd]; k/v pool [NB,bs,K,hd]; block_table [B,MB];
+    kv_pos [B,MB*bs]; cur_pos [B] -> [B,H,hd].  Validity rides on
+    kv_pos alone: unmapped table entries point at the trash block, whose
+    rows are never valid."""
+    _check(impl, PAGED_IMPLS)
+    args = (q, k_pool, v_pool, block_table, kv_pos, cur_pos)
+    if impl == "ref":
+        return _da.paged_decode_attention_plain(*args, window=window)
+    if impl == "cuda":
+        return _da.paged_decode_attention_cuda(*args, window=window)
+    if impl == "shim":
+        return _da.paged_decode_attention_shim(*args, window=window)
+    return _da.paged_decode_attention(*args, window=window)

@@ -32,11 +32,19 @@ controller as admission middleware, and the reference's request stream:
 16-token prompts from ``default_rng(seed)``, arrivals 1 ms apart, a
 uniform entropy hint, ``--new-tokens`` each.  On the card, prefill runs
 through the flash-attention kernel and every decode step through the
-flash-decode kernel (``--attn-impl``).
+flash-decode kernel (``--attn-impl``).  ``--kv-block-size N`` serves
+from a paged pool of ``N``-row blocks instead (``--kv-pool-blocks M``
+blocks, trash block included; 0 sizes it for every slot's full
+extent), whose decode steps run the paged flash-decode kernel; a
+request waits in the queue while the pool cannot hold its budget.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode generate
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode generate \
+        --kv-block-size 16 --kv-pool-blocks 13
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --mode generate --smoke --requests 8 --runs /tmp/runs
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mode generate --smoke --kv-block-size 8 --kv-pool-blocks 9
 """
 from __future__ import annotations
 
@@ -61,7 +69,8 @@ from repro_torch.serving.api import (PATH_CONTINUOUS, PATH_GATED,
                                      Server, ServerConfig,
                                      TelemetryMiddleware, canonical_path)
 from repro_torch.serving.batcher import DirectPath, DynamicBatcher
-from repro_torch.serving.continuous import ContinuousBatchingEngine, GenRequest
+from repro_torch.serving.continuous import (ContinuousBatchingEngine,
+                                            GenRequest, pool_hbm_bytes)
 from repro_torch.serving.engine import ClassifierEngine
 from repro_torch.serving.simulator import Oracle
 from repro_torch.serving.workload import bursty_arrivals, poisson_arrivals
@@ -208,13 +217,21 @@ def serve_classifier(args):
 
 GEN_MAX_SEQ = 128      # the reference launcher's decode pool extent
 GEN_PROMPT_LEN = 16
+# the session's stats carried into the summary (the paged ones when paged)
+DECODE_STATS = ("mode", "decode_steps", "occupancy", "host_syncs",
+                "prefill_calls", "device_s", "prefill_s", "pool_blocks",
+                "blocks_allocated", "blocks_freed", "peak_blocks_in_use",
+                "free_blocks")
 
 
 def generate_config(args):
     """``--arch`` at published width (``--smoke``: its smoke config),
-    depth cut by ``--layers``, attention dispatch ``--attn-impl``."""
+    depth cut by ``--layers``, attention dispatch ``--attn-impl``, the
+    KV layout ``--kv-block-size`` / ``--kv-pool-blocks``."""
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
-    cfg = cfg.replace(attn_impl=args.attn_impl)
+    cfg = cfg.replace(attn_impl=args.attn_impl,
+                      kv_block_size=args.kv_block_size,
+                      kv_pool_blocks=args.kv_pool_blocks)
     if args.layers is not None:
         cfg = cfg.replace(n_layers=args.layers)
     return cfg
@@ -255,15 +272,14 @@ def serve_generate(args):
     for r in reversed(responses):
         if "decode_steps" in r.telemetry:
             decode_stats = {k: r.telemetry[k]
-                            for k in ("decode_steps", "occupancy",
-                                      "host_syncs", "prefill_calls",
-                                      "device_s", "prefill_s")
-                            if k in r.telemetry}
+                            for k in DECODE_STATS if k in r.telemetry}
             break
     lat = np.array([r.latency_s for r in responses])
     summary.update(
         arch=cfg.arch_id, path=PATH_CONTINUOUS, controller=args.controller,
-        attn_impl=args.attn_impl,
+        attn_impl=args.attn_impl, kv_block_size=cfg.kv_block_size,
+        kv_pool_bytes=pool_hbm_bytes(cfg, args.slots,
+                                     GEN_MAX_SEQ)["total_bytes"],
         device=(torch.cuda.get_device_name(device)
                 if device.type == "cuda" else "cpu"),
         n_layers=cfg.n_layers, d_model=cfg.d_model, slots=args.slots,
@@ -294,6 +310,13 @@ def parser() -> argparse.ArgumentParser:
                          "CUDA kernels on the card, the einsum path on the "
                          "CPU; 'xla': the einsum path; 'ref': the kernels' "
                          "plain versions; 'cuda': the kernels or raise)")
+    ap.add_argument("--kv-block-size", type=int, default=0,
+                    help="generate mode: paged KV pool block size in "
+                         "rows (0 = contiguous per-slot cache)")
+    ap.add_argument("--kv-pool-blocks", type=int, default=0,
+                    help="generate mode: blocks in the paged pool, the "
+                         "trash block included (0 = every slot's full "
+                         "extent)")
     ap.add_argument("--path",
                     choices=["direct", "batched", "dynamic-batch",
                              "gated", "gated-in-graph", "auto"],

@@ -11,13 +11,22 @@ operands' own dtype, an additive f32 bias, an f32 softmax, and the
 weights cast DOWN to v's dtype before an f32-accumulated weighted sum.
 
 Unlike the reference, whose caches are immutable and rebuilt by every
-write, the port writes a cache IN PLACE: ``cache_write`` updates the
-tensors it is given and returns the same cache.
+write, the port writes a cache IN PLACE: ``cache_write`` and
+``paged_cache_write`` update the tensors they are given and return the
+same cache.
+
+The paged pool (``init_paged_kv_cache``): k/v [NB, bs, K, hd] shared by
+every slot, a per-slot LOGICAL pos [B, C] with the contiguous layout's
+semantics, and a block table [B, MB] (carried on the model's
+``Cache``) mapping slot b's logical block j to a pool block; unmapped
+entries point at the trash block 0 and are excluded by pos, never by
+the table.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -288,3 +297,116 @@ def decode_attend(q: torch.Tensor, cache: KVCache, *, pos,
         valid = valid & (pos - k_pos < window)
     bias = torch.where(valid, 0.0, NEG_INF).float()[:, None, None, None, :]
     return attend(q, cache.k, cache.v, bias, scale)
+
+
+# ---------------------------------------------------------------------------
+# the paged pool (ref attention.py:343-421)
+# ---------------------------------------------------------------------------
+
+def init_paged_kv_cache(batch: int, logical_len: int, n_kv: int,
+                        head_dim: int, *, n_blocks: int, block_size: int,
+                        dtype=torch.bfloat16, device=None) -> KVCache:
+    """Pool-layout cache: ``n_blocks`` x ``block_size`` rows shared by
+    ``batch`` slots whose logical extent is ``logical_len`` rows."""
+    shape = (n_blocks, block_size, n_kv, head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        pos=torch.full((batch, logical_len), -1, dtype=torch.int32,
+                       device=device))
+
+
+class PagedRows(NamedTuple):
+    """Where one token per slot goes in a paged pool (``paged_locate``):
+    slot b writes pool row ``(blk[b], off[b])`` and, when ``inside[b]``,
+    ``pos[b, col[b]] = posv[b]``."""
+    b: torch.Tensor
+    blk: torch.Tensor
+    off: torch.Tensor
+    col: torch.Tensor
+    posv: torch.Tensor
+    inside: torch.Tensor
+
+
+def paged_locate(block_table: torch.Tensor, pos, block_size: int,
+                 logical_len: int) -> PagedRows:
+    """The rows of one decode step: ``pos`` scalar or [B]; the physical
+    row is ``(block_table[b, pos_b // bs], pos_b % bs)``.  As the
+    reference's gather, a logical block past the table is clamped to
+    its last entry, and as its ``mode="drop"`` a position ``>= C`` is
+    not written to ``pos`` (``inside`` is False there)."""
+    dev = block_table.device
+    B = block_table.shape[0]
+    posv = torch.as_tensor(pos, device=dev)
+    posv = (posv.expand(B) if posv.dim() == 0 else posv).long()
+    b = torch.arange(B, device=dev)
+    col = (posv // block_size).clamp(max=block_table.shape[1] - 1)
+    return PagedRows(b=b, blk=block_table[b, col].long(),
+                     off=posv % block_size,
+                     col=posv.clamp(max=logical_len - 1),
+                     posv=posv.to(torch.int32), inside=posv < logical_len)
+
+
+def paged_write_rows(k_pool, v_pool, k_new, v_new, rows: PagedRows) -> None:
+    """One token per slot into the pool, in place: k_new/v_new
+    [B, 1, K, hd].  Retired slots still stepped inside a window point
+    at the trash block, so several slots may write one row of it: a
+    plain indexed write, whichever lands, since nothing reads it."""
+    k_pool[rows.blk, rows.off] = k_new[:, 0].to(k_pool.dtype)
+    v_pool[rows.blk, rows.off] = v_new[:, 0].to(v_pool.dtype)
+
+
+def paged_write_pos(pos: torch.Tensor, rows: PagedRows) -> None:
+    """The step's positions into pos [..., B, C] (one layer, or every
+    layer of a stacked cache at once), in place.  A dropped entry is
+    rewritten with its own value, which needs no host sync."""
+    old = pos[..., rows.b, rows.col]
+    pos[..., rows.b, rows.col] = torch.where(rows.inside, rows.posv, old)
+
+
+def paged_cache_write(cache: KVCache, k_new: torch.Tensor,
+                      v_new: torch.Tensor, pos, block_table: torch.Tensor,
+                      block_size: int) -> KVCache:
+    """Write ONE token per slot at its own absolute position, IN PLACE,
+    and return ``cache`` (ref ``attention.py:355-374``): k_new/v_new
+    [B, 1, K, hd]; ``pos`` scalar or [B]; see :func:`paged_locate`.
+    The decoder locates a step's rows once and writes ``pos`` for all
+    its layers at once, with the same functions."""
+    rows = paged_locate(block_table, pos, block_size, cache.pos.shape[1])
+    paged_write_rows(cache.k, cache.v, k_new, v_new, rows)
+    paged_write_pos(cache.pos, rows)
+    return cache
+
+
+def paged_gather(cache: KVCache, block_table: torch.Tensor) -> KVCache:
+    """Each slot's logical [B, C, K, hd] view of the pool as a
+    contiguous-layout cache, through the kernels' one table gather."""
+    from repro_torch.kernels.decode_attention import gather_block_views
+    k, v = gather_block_views(cache.k, cache.v, block_table,
+                              cache.pos.shape[1])
+    return KVCache(k=k, v=v, pos=cache.pos)
+
+
+def paged_decode_attend(q: torch.Tensor, cache: KVCache,
+                        block_table: torch.Tensor, *, pos, window: int = 0,
+                        scale: float | None = None) -> torch.Tensor:
+    """One-token attention over the slot's mapped blocks on the einsum
+    path: the gathered view through :func:`decode_attend`."""
+    return decode_attend(q, paged_gather(cache, block_table), pos=pos,
+                         window=window, scale=scale)
+
+
+def paged_decode_attend_kernel(q, cache: KVCache, block_table, *, pos,
+                               window: int = 0,
+                               impl: str = "auto") -> torch.Tensor:
+    """One-token paged attention through ``ops.paged_decode_attention``:
+    on the card the table-native kernel reads the pool in place;
+    ``impl="shim"`` keeps the gather oracle reachable."""
+    from repro_torch.kernels import ops
+    B = q.shape[0]
+    cur = torch.as_tensor(pos, device=q.device)
+    if cur.dtype != torch.int32 or cur.dim() == 0:
+        cur = cur.to(torch.int32).expand(B).contiguous()
+    o = ops.paged_decode_attention(q[:, 0], cache.k, cache.v, block_table,
+                                   cache.pos, cur, window=window, impl=impl)
+    return o[:, None]

@@ -25,12 +25,18 @@ Parameters keep the reference's names and shapes, one module per layer
 (the reference stacks a homogeneous stack's leaves ``[L, ...]``;
 ``convert.lm_from_numpy`` unstacks them).  Weights are ``cfg.dtype``,
 norms f32.  The cache is stacked, k/v [L, B, C, K, hd] and pos
-[L, B, C], and is written in place.
+[L, B, C], and is written in place.  The paged layout
+(``init_cache(layout="paged")``, a homogeneous ``attn`` stack only)
+stacks one pool per layer, k/v [L, NB, bs, K, hd] and pos [L, B, C],
+with one block table [B, MB] on the cache shared by every layer; it is
+decode-only, as the reference's: a prompt is prefilled into a
+contiguous row cache and scattered into the pool
+(``serving.continuous.paged_slot_write``).
 
 Not in this slice, and raising with the slice that brings them: MLA,
 RG-LRU and SSD layers, MoE, encoder-decoder and prefix-LM models (the
-model-families slice), the paged KV layout (the paged-KV slice), and
-``decode_chunk`` (the speculative-decoding slice).
+model-families slice), and ``decode_chunk`` (the speculative-decoding
+slice).
 """
 from __future__ import annotations
 
@@ -44,7 +50,6 @@ from repro_torch.models import nn as nn_
 from repro_torch.models.nn import param
 
 FAMILIES_SLICE = "the model-families slice (ROADMAP queue 1 item 12)"
-PAGED_SLICE = "the paged-KV slice (ROADMAP queue 1 item 8)"
 SPEC_SLICE = "the sampling and speculation slice (ROADMAP queue 1 item 9)"
 
 
@@ -66,10 +71,33 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.arch_id}: encoder-decoder and prefix-LM models come "
             f"with {FAMILIES_SLICE}")
-    if cfg.paged_kv:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: kv_block_size={cfg.kv_block_size} (the paged "
-            f"KV pool) comes with {PAGED_SLICE}")
+
+
+def paged_geometry(cfg: ModelConfig, batch: int,
+                   max_seq: int) -> tuple[int, int, int]:
+    """(blocks_per_slot, logical_len, pool_blocks) of a paged cache:
+    ``cfg.kv_pool_blocks`` when set, else capacity parity with the
+    contiguous layout (every slot maps its full extent) plus the trash
+    block 0."""
+    bs = cfg.kv_block_size
+    if bs <= 0:
+        raise ValueError(
+            "paged cache geometry needs cfg.kv_block_size > 0 "
+            f"(got {bs}) — set it, or use the contiguous layout")
+    mb = -(-max_seq // bs)
+    nb = cfg.kv_pool_blocks or (batch * mb + 1)
+    return mb, mb * bs, nb
+
+
+def _check_paged_supported(cfg: ModelConfig) -> None:
+    kinds = set(cfg.block_kinds)
+    if kinds != {"attn"} or cfg.family == "encdec":
+        raise ValueError(
+            f"paged KV pool (kv_block_size={cfg.kv_block_size}) only "
+            f"supports homogeneous full-attention stacks; got block "
+            f"kinds {sorted(kinds)} (family={cfg.family!r}).  Windowed "
+            f"ring caches and recurrent states are constant-size per "
+            f"slot already — run them on the contiguous layout.")
 
 
 class Layer(nn.Module):
@@ -105,36 +133,50 @@ class Cache:
     """The decode cache of a homogeneous attention stack: k/v
     [L, B, C, K, hd] and pos [L, B, C] int32 (-1 = empty), written in
     place; ``length`` is the number of tokens consumed (a device scalar
-    after a continuous step, so reading it costs no host sync)."""
+    after a continuous step, so reading it costs no host sync).  A
+    paged pool holds k/v [L, NB, bs, K, hd] and ``block_table``
+    [B, MB] int32; ``block_table`` is None on the contiguous layout."""
 
     def __init__(self, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
-                 length=0):
+                 length=0, block_table: torch.Tensor | None = None):
         self.k, self.v, self.pos, self.length = k, v, pos, length
+        self.block_table = block_table
 
     def layer(self, i: int) -> attn.KVCache:
         return attn.KVCache(k=self.k[i], v=self.v[i], pos=self.pos[i])
 
     @property
     def n_slots(self) -> int:
-        return self.k.shape[1]
+        return self.pos.shape[1]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, *, device="cuda",
                layout: str = "auto") -> Cache:
-    """Contiguous decode cache for ``batch`` slots of up to ``max_seq``
-    tokens, bf16 by default as the reference (``transformer.py:211``);
-    a windowed stack keeps a ring of ``window`` rows."""
+    """Decode cache for ``batch`` slots of up to ``max_seq`` tokens,
+    bf16 by default as the reference (``transformer.py:211``).
+    ``layout="auto"`` follows ``cfg.kv_block_size`` (paged when > 0);
+    ``"contiguous"`` / ``"paged"`` force it (the continuous engine
+    prefills contiguous ROW caches even when its pool is paged).  A
+    windowed stack keeps a ring of ``window`` rows."""
     if layout not in ("auto", "contiguous", "paged"):
         raise ValueError(f"unknown cache layout {layout!r}")
-    check_supported(cfg.replace(kv_block_size=0, kv_pool_blocks=0))
-    if layout == "paged" or (layout == "auto" and cfg.paged_kv):
-        raise NotImplementedError(f"the paged KV layout comes with "
-                                  f"{PAGED_SLICE}")
+    check_supported(cfg)
     dev = resolve_device(device)
+    L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    if cfg.paged_kv if layout == "auto" else layout == "paged":
+        _check_paged_supported(cfg)
+        mb, logical, nb = paged_geometry(cfg, batch, max_seq)
+        bs = cfg.kv_block_size
+        return Cache(
+            k=torch.zeros(L, nb, bs, K, hd, dtype=dtype, device=dev),
+            v=torch.zeros(L, nb, bs, K, hd, dtype=dtype, device=dev),
+            pos=torch.full((L, batch, logical), -1, dtype=torch.int32,
+                           device=dev),
+            block_table=torch.zeros(batch, mb, dtype=torch.int32,
+                                    device=dev))
     window = cfg.window if cfg.block_kinds[0] == "local_attn" else 0
     C = min(max_seq, window) if window else max_seq
-    L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     return Cache(
         k=torch.zeros(L, batch, C, K, hd, dtype=dtype, device=dev),
         v=torch.zeros(L, batch, C, K, hd, dtype=dtype, device=dev),
@@ -193,9 +235,12 @@ class LM(nn.Module):
         return nn_.rope_angles(positions, self.rotary_dim,
                                self.cfg.rope_theta)
 
-    def _attn(self, layer: Layer, x, *, mode, kv, rope, pos=None, cur=None):
+    def _attn(self, layer: Layer, x, *, mode, kv, rope, pos=None, cur=None,
+              table=None, rows=None):
         """Temporal mixing: projections, rotary, attention through the
-        kernels or the einsum path, and the cache write."""
+        kernels or the einsum path, and the cache write (into the paged
+        pool through ``table`` at the step's ``rows`` when they are
+        given; the step has written ``pos`` already)."""
         cfg, p = self.cfg, layer.mix
         q, k, v = attn.project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads,
                                    cfg.head_dim)
@@ -212,6 +257,15 @@ class LM(nn.Module):
                 o = attn.causal_attention(q, k, v, window=self.window)
             if mode == "prefill":
                 attn.cache_write(kv, k, v, 0)
+        elif table is not None:
+            attn.paged_write_rows(kv.k, kv.v, k, v, rows)
+            if kernel:
+                o = attn.paged_decode_attend_kernel(q, kv, table, pos=cur,
+                                                    window=self.window,
+                                                    impl=self.attn_impl)
+            else:
+                o = attn.paged_decode_attend(q, kv, table, pos=pos,
+                                             window=self.window)
         else:
             attn.cache_write(kv, k, v, pos)
             if kernel:
@@ -223,10 +277,20 @@ class LM(nn.Module):
         return attn.out_proj(p, o)
 
     def _stack(self, h, *, mode, cache=None, rope, pos=None, cur=None):
+        table = cache.block_table if cache is not None else None
+        rows = None
+        if table is not None and mode == "decode":
+            # one step's rows, located once: the block size is the pool's
+            # own (a model built without paging serves any pool), and pos
+            # is written for every layer in one go
+            rows = attn.paged_locate(table, pos, cache.k.shape[2],
+                                     cache.pos.shape[2])
+            attn.paged_write_pos(cache.pos, rows)
         for i, layer in enumerate(self.layers):
             kv = cache.layer(i) if cache is not None else None
             h = h + self._attn(layer, layer.norm1(h), mode=mode, kv=kv,
-                               rope=rope, pos=pos, cur=cur)
+                               rope=rope, pos=pos, cur=cur, table=table,
+                               rows=rows)
             if layer.mlp is not None:
                 h = h + layer.mlp(layer.norm2(h))
         return h
@@ -247,7 +311,13 @@ class LM(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens, cache: Cache):
         """Consume the prompt, fill the cache from position 0, and return
-        (last-position logits [B, 1, V], cache)."""
+        (last-position logits [B, 1, V], cache).  A paged pool is
+        refused: prefill a contiguous row cache and scatter it."""
+        if cache.block_table is not None:
+            raise ValueError(
+                "prefill into a paged pool is not supported — prefill a "
+                "contiguous row cache and scatter it into the pool blocks "
+                "(see repro_torch.serving.continuous.paged_slot_write)")
         tokens = self._tokens(tokens)
         h = self.embed(tokens)
         S = tokens.shape[1]
@@ -279,6 +349,10 @@ class LM(nn.Module):
         return self.unembed(h), cache
 
     def decode_chunk(self, tokens, cache: Cache, pos):
+        if cache is not None and cache.block_table is not None:
+            raise ValueError(
+                "decode_chunk supports the contiguous KV layout only; run "
+                "the paged pool with draft_depth == 0")
         raise NotImplementedError(f"decode_chunk (the speculative verify "
                                   f"step) comes with {SPEC_SLICE}")
 

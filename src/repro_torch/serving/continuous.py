@@ -1,6 +1,6 @@
 """Continuous batching for LM decode, ported from
-``repro.serving.continuous`` (the contiguous KV layout, greedy decode,
-no speculation).
+``repro.serving.continuous`` (the contiguous KV layout and the paged
+block pool, greedy decode, no speculation).
 
 A fixed pool of B slots over one shared KV cache; every decode step
 advances ALL slots (each at its own absolute position, the decoder's
@@ -32,11 +32,29 @@ Invariants, as the reference's:
   the port prefills only the real rows.  The prompt length keeps the
   reference's rule (``prompt_len``, or the wave's longest prompt
   rounded up to a bucket), since positions depend on it.
+- **Block ownership (paged pool, ``cfg.kv_block_size > 0``).**  KV
+  rows live in one shared pool of ``pool_blocks`` x ``kv_block_size``
+  rows per layer; a request owns the blocks of its slot's table row
+  from its prefill until the host sync that completes it.
+  ``DecodeSession`` is the ONLY allocator: a request's whole budget
+  (``blocks_for_request``) is reserved before it is seated, so a window
+  never runs out of blocks; blocks are freed at completion (and at an
+  EOS straight out of prefill); the queue is FIFO and its head WAITS
+  while the pool cannot cover its budget — never dropped, never
+  overtaken; a request no pool state could serve raises before any
+  block is taken.  Block 0 is the trash block, never allocated:
+  retired slots still stepped inside a window write there, and the
+  per-slot ``pos`` keeps those rows invalid.  The host table is copied
+  to the device table before every window that follows a change, so a
+  freed (and maybe reallocated) block is never written by its old
+  slot.  The prefill goes through a contiguous row cache of the
+  prompt's block multiple, scattered block by block
+  (``paged_slot_write``).  The contiguous layout stays the parity
+  oracle: the same greedy tokens.
 
-Not in this slice: the paged block pool, ``insert_prefilled`` (the
-disaggregated hand-off), self-speculative windows, sampling at T > 0
-and the legacy per-step loop.  A configuration or request that asks
-for one of them raises.
+Not in this slice: ``insert_prefilled`` (the disaggregated hand-off),
+self-speculative windows, sampling at T > 0 and the legacy per-step
+loop.  A configuration or request that asks for one of them raises.
 """
 from __future__ import annotations
 
@@ -143,9 +161,127 @@ def slot_write(pool: tfm.Cache, rows: tfm.Cache,
     pool.pos[:, dst] = pos
 
 
+def paged_slot_write(pool: tfm.Cache, rows: tfm.Cache, slot_idx,
+                     table_rows, *, block_size: int,
+                     n_pref_blocks: int) -> None:
+    """Scatter a contiguous prefill ROW cache into paged pool blocks, in
+    place (ref ``continuous.py:228-263``).  ``rows`` has one row per
+    entry of ``slot_idx``, its first ``n_pref_blocks * block_size`` rows
+    holding the prompt; ``table_rows`` [n, MB] is each row's FULL table
+    row (prompt and decode-budget blocks, trash-padded).  The K/V
+    scatter is block-granular: the first ``n_pref_blocks`` entries of
+    each table row receive the row cache's blocks.  As the reference's
+    ``mode="drop"``, a slot index >= n_slots or a table entry >= the
+    pool's block count is not written (selected on the host); a
+    repeated destination block raises, since one indexed write with
+    repeated indices has no defined order on the card.  The slot's pos
+    row is rewritten whole (the prompt's rows, -1 beyond), which
+    retires any validity left by its previous occupant, and its device
+    table row is set."""
+    slot_idx = np.asarray(slot_idx)
+    table_rows = np.asarray(table_rows)
+    L, NB, bs = pool.k.shape[:3]
+    B, C = pool.pos.shape[1:]
+    P = n_pref_blocks * block_size
+    if bs != block_size:
+        raise ValueError(f"block_size {block_size} is not the pool's {bs}")
+    if len(slot_idx) != rows.n_slots or table_rows.shape != (
+            len(slot_idx), pool.block_table.shape[1]):
+        raise ValueError(f"{len(slot_idx)} slot indices and table rows "
+                         f"{table_rows.shape} for a row cache of "
+                         f"{rows.n_slots} rows and a table "
+                         f"{tuple(pool.block_table.shape)}")
+    if (rows.k.shape[0] != L or rows.k.shape[3:] != pool.k.shape[3:]
+            or rows.k.shape[2] < P or P > C):
+        raise ValueError(f"row cache {tuple(rows.k.shape)} does not fit "
+                         f"{n_pref_blocks} blocks of pool "
+                         f"{tuple(pool.k.shape)} — refusing to drop the "
+                         f"prefilled rows")
+    dev = pool.k.device
+    tb = table_rows[:, :n_pref_blocks]
+    j, i = np.nonzero((tb >= 0) & (tb < NB))
+    dst = tb[j, i]
+    if len(set(dst.tolist())) != len(dst):
+        raise ValueError(f"repeated pool block in {tb.tolist()}")
+    if len(dst):
+        nr = rows.n_slots
+        src_k = rows.k[:, :, :P].reshape(L, nr, n_pref_blocks, bs,
+                                         *rows.k.shape[3:])
+        src_v = rows.v[:, :, :P].reshape(L, nr, n_pref_blocks, bs,
+                                         *rows.v.shape[3:])
+        jt = torch.as_tensor(j, device=dev)
+        it = torch.as_tensor(i, device=dev)
+        dt = torch.as_tensor(dst, device=dev)
+        pool.k[:, dt] = src_k[:, jt, it].to(pool.k.dtype)
+        pool.v[:, dt] = src_v[:, jt, it].to(pool.v.dtype)
+    keep = np.nonzero((slot_idx >= 0) & (slot_idx < B))[0]
+    if len(keep) == 0:
+        return
+    slots = slot_idx[keep]
+    if len(set(slots.tolist())) != len(slots):
+        raise ValueError(f"repeated slot index in {slot_idx.tolist()}")
+    src = torch.as_tensor(keep, device=dev)
+    st = torch.as_tensor(slots, device=dev)
+    pos = rows.pos[:, src, :P]
+    pool.pos[:, st] = torch.cat(
+        [pos, pos.new_full((*pos.shape[:2], C - P), -1)], dim=2)
+    pool.block_table[st] = torch.as_tensor(
+        table_rows[keep], dtype=torch.int32, device=dev)
+
+
+def blocks_for_request(plen: int, max_new: int, max_seq: int,
+                       block_size: int) -> int:
+    """Pool blocks a request needs for its WHOLE lifetime: the padded
+    prompt's rows plus one per decode step, plus the frozen-position
+    row a retired slot keeps rewriting inside a window (hence
+    ``max(max_new, 2)``), clamped by the ``max_seq`` stop.  Reserving
+    it up front makes pool exhaustion a queue-time condition."""
+    rows = min(plen + max(max_new, 2), max_seq)
+    return -(-rows // block_size)
+
+
+def pool_hbm_bytes(cfg: ModelConfig, n_slots: int, max_seq: int,
+                   dtype=torch.bfloat16) -> dict:
+    """Device bytes of the decode cache the engine would hold, from the
+    geometry alone (nothing is allocated): ``kv_bytes`` (the K/V rows,
+    the part paging shrinks), ``meta_bytes`` (positions, the block
+    table and the reference's per-layer and cache-wide length scalars,
+    counted as it counts them) and their sum, for the layout that
+    ``cfg.kv_block_size`` selects."""
+    tfm.check_supported(cfg)
+    L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    item = torch.empty((), dtype=dtype).element_size()
+    if cfg.paged_kv:
+        tfm._check_paged_supported(cfg)
+        mb, C, nb = tfm.paged_geometry(cfg, n_slots, max_seq)
+        rows, table = nb * cfg.kv_block_size, n_slots * mb
+    else:
+        window = cfg.window if cfg.block_kinds[0] == "local_attn" else 0
+        C = min(max_seq, window) if window else max_seq
+        rows, table = n_slots * C, 0
+    kv = 2 * L * rows * K * hd * item
+    meta = 4 * (L * n_slots * C + L + 1 + table)
+    return {"kv_bytes": kv, "meta_bytes": meta, "total_bytes": kv + meta}
+
+
 def _bucket(n: int) -> int:
     """The serving-wide power-of-two bucket, never below ``n``."""
     return max(bucket_size(n), n)
+
+
+def _wave_arrays(reqs: list[GenRequest], plen: int):
+    """A refill wave's prompts padded (or cut) to ``plen``, its decode
+    budgets after the prefill's token, and its EOS ids (-1 = none)."""
+    toks = np.zeros((len(reqs), plen), np.int64)
+    rem_new = np.ones(len(reqs), np.int64)
+    eos_new = np.full(len(reqs), -1, np.int64)
+    for j, r in enumerate(reqs):
+        p = np.asarray(r.prompt[:plen])
+        toks[j, :len(p)] = p
+        rem_new[j] = max(r.max_new - 1, 1)
+        if r.eos_id is not None:
+            eos_new[j] = int(r.eos_id)
+    return toks, rem_new, eos_new
 
 
 def _check_greedy(temperature: float, what: str) -> None:
@@ -179,10 +315,17 @@ class ContinuousBatchingEngine:
         tfm.check_supported(self.cfg)
         _check_greedy(self.cfg.temperature, "the engine's config")
         self.params = self.params.to(self.device).eval()
+        self.paged = self.cfg.paged_kv
+        if self.paged:
+            tfm._check_paged_supported(self.cfg)
+            (self.blocks_per_slot, self.logical_len,
+             self.pool_blocks) = tfm.paged_geometry(self.cfg, self.n_slots,
+                                                    self.max_seq)
 
-    def init_cache(self, batch: int) -> tfm.Cache:
-        return tfm.init_cache(self.cfg, batch, self.max_seq,
-                              device=self.device)
+    def init_cache(self, batch: int, max_seq: int | None = None, *,
+                   layout: str = "auto") -> tfm.Cache:
+        return tfm.init_cache(self.cfg, batch, max_seq or self.max_seq,
+                              device=self.device, layout=layout)
 
     @torch.no_grad()
     def step_window(self, pool, cur_tok, pos, active, remaining, eos):
@@ -283,6 +426,16 @@ class DecodeSession:
         self._eos = torch.full((B,), -1, dtype=torch.long, device=dev)
         self._active_host = np.zeros(B, bool)
         self._prefill_done: list[GenRequest] = []
+        # paged pool: the host-side block allocator; the device sees only
+        # the table it is handed.  Block 0 is the trash block.
+        if engine.paged:
+            self._free_blocks = list(range(1, engine.pool_blocks))
+            self._slot_blocks: dict[int, list[int]] = {}
+            self._table_h = np.zeros((B, engine.blocks_per_slot), np.int32)
+            self._table_dirty = False
+        self.blocks_allocated = 0
+        self.blocks_freed = 0
+        self.peak_blocks_in_use = 0
         self.decode_steps = 0
         self.occupied_slot_steps = 0
         self.host_syncs = 0
@@ -318,28 +471,34 @@ class DecodeSession:
         take = min(len(free), len(self.queue))
         if take == 0:
             return
+        if eng.paged:
+            self._refill_paged(free, take)
+            return
         reqs = [self.queue.pop(0) for _ in range(take)]
         # the reference's prompt-length rule: a fixed prompt_len, else the
         # wave's longest prompt rounded up to a bucket
         plen = self.prompt_len or min(
             _bucket(max(max(len(r.prompt) for r in reqs), 1)),
             eng.max_seq - 1)
-        toks = np.zeros((take, plen), np.int64)
-        rem_new = np.ones(take, np.int64)
-        eos_new = np.full(take, -1, np.int64)
-        for j, r in enumerate(reqs):
-            p = np.asarray(r.prompt[:plen])
-            toks[j, :len(p)] = p
-            rem_new[j] = max(r.max_new - 1, 1)
-            if r.eos_id is not None:
-                eos_new[j] = int(r.eos_id)
+        toks, rem_new, eos_new = _wave_arrays(reqs, plen)
         slot_idx = np.asarray(free[:take])
         t0 = time.perf_counter()
         rows = eng.init_cache(take)
         logits, rows = eng.params.prefill(torch.from_numpy(toks).to(dev),
                                           rows)
-        first = logits[:, -1].argmax(-1)
         slot_write(self._pool, rows, slot_idx)
+        first_h = self._start_slots(logits, slot_idx, plen, rem_new, eos_new)
+        dt = time.perf_counter() - t0
+        self.device_s += dt
+        self.prefill_s += dt
+        self.prefill_calls += 1
+        self._seat_prefilled(reqs, slot_idx, first_h)
+
+    def _start_slots(self, logits, slot_idx, plen, rem_new, eos_new):
+        """The prefill's greedy first tokens and the seated slots'
+        decode state, on the device; -> the first tokens on the host."""
+        dev = self.engine.device
+        first = logits[:, -1].argmax(-1)
         idx = torch.as_tensor(slot_idx, device=dev)
         eos_t = torch.as_tensor(eos_new, device=dev)
         self._cur_tok[idx, 0] = first
@@ -348,26 +507,108 @@ class DecodeSession:
         self._active[idx] = first != eos_t
         self._remaining[idx] = torch.as_tensor(rem_new, device=dev)
         self._eos[idx] = eos_t
-        first_h = first.cpu().numpy()
-        dt = time.perf_counter() - t0
-        self.device_s += dt
-        self.prefill_s += dt
-        self.prefill_calls += 1
-        self._seat_prefilled(reqs, slot_idx, first_h)
+        return first.cpu().numpy()
 
-    def _seat_prefilled(self, reqs, slots_for, first_h) -> None:
+    def _seat_prefilled(self, reqs, slots_for, first_h, *,
+                        on_prefill_eos=None) -> None:
         """Append each request's first token and seat it in its slot —
-        or, when that token IS its EOS, complete it straight away."""
+        or, when that token IS its EOS, complete it straight away
+        (``on_prefill_eos`` lets the paged layout free its blocks)."""
         for j, r in enumerate(reqs):
             s = int(slots_for[j])
             r.generated.append(int(first_h[j]))
             if r.eos_id is not None and first_h[j] == r.eos_id:
                 r.done = True            # EOS straight out of prefill
                 self._prefill_done.append(r)
+                if on_prefill_eos is not None:
+                    on_prefill_eos(s)
                 continue
             r.slot = s
             self.slots[s] = r
             self._active_host[s] = True
+
+    def _free_slot_blocks(self, s: int) -> None:
+        """Return slot ``s``'s blocks to the pool and point its table row
+        at the trash block (copied to the device before the next
+        window)."""
+        blocks = self._slot_blocks.pop(s, [])
+        self._free_blocks.extend(blocks)
+        self.blocks_freed += len(blocks)
+        self._table_h[s] = 0
+        self._table_dirty = True
+
+    def _refill_paged(self, free: list[int], take: int) -> None:
+        """Paged refill (ref ``continuous.py:1174-1270``): reserve each
+        request's WHOLE block budget before seating it.  FIFO: the head
+        waits while the pool cannot cover its budget.  The wave, and its
+        shared padded prompt length, is decided first without touching
+        the pool; blocks are popped only once it is final, so the
+        can-never-be-served error leaves the state clean.  The wave's
+        plen grows only with the members actually taken, so a long
+        prompt deeper in the queue never inflates an earlier request's
+        budget (that error is judged at the request's own padding)."""
+        eng = self.engine
+        dev = eng.device
+        bs = eng.cfg.kv_block_size
+        allocatable = eng.pool_blocks - 1           # block 0 = trash
+        wave: list[GenRequest] = []
+        needs: list[int] = []
+        plen_wave = self.prompt_len or 0
+        for r in self.queue[:take]:
+            solo_plen = self.prompt_len or min(
+                _bucket(max(len(r.prompt), 1)), eng.max_seq - 1)
+            solo_need = blocks_for_request(solo_plen, r.max_new,
+                                           eng.max_seq, bs)
+            if solo_need > allocatable:
+                raise ValueError(
+                    f"request rid={r.rid} needs {solo_need} KV blocks "
+                    f"(prompt {solo_plen} + max_new {r.max_new} rows "
+                    f"at block_size {bs}) but the pool has only "
+                    f"{allocatable} allocatable blocks — it can never "
+                    f"be served; raise kv_pool_blocks or shrink the "
+                    f"request budget")
+            new_plen = max(plen_wave, solo_plen)
+            # a longer prompt re-pads the whole wave: re-budget every
+            # member at the grown plen before committing to it
+            new_needs = [blocks_for_request(new_plen, x.max_new,
+                                            eng.max_seq, bs)
+                         for x in (*wave, r)]
+            if sum(new_needs) > len(self._free_blocks):
+                break                    # pool exhausted: the head waits
+            wave.append(r)
+            needs = new_needs
+            plen_wave = new_plen
+        if not wave:
+            return
+        plen = plen_wave
+        assigned = [[self._free_blocks.pop() for _ in range(n)]
+                    for n in needs]
+        reqs = [self.queue.pop(0) for _ in wave]
+        n, npb = len(reqs), -(-plen // bs)
+        toks, rem_new, eos_new = _wave_arrays(reqs, plen)
+        table_rows = np.zeros((n, eng.blocks_per_slot), np.int32)
+        for j, blocks in enumerate(assigned):        # trash-padded
+            table_rows[j, :len(blocks)] = blocks
+        slot_idx = np.asarray(free[:n])
+        self.blocks_allocated += sum(needs)
+        self.peak_blocks_in_use = max(self.peak_blocks_in_use,
+                                      allocatable - len(self._free_blocks))
+        t0 = time.perf_counter()
+        rows = eng.init_cache(n, npb * bs, layout="contiguous")
+        logits, rows = eng.params.prefill(torch.from_numpy(toks).to(dev),
+                                          rows)
+        paged_slot_write(self._pool, rows, slot_idx, table_rows,
+                         block_size=bs, n_pref_blocks=npb)
+        first_h = self._start_slots(logits, slot_idx, plen, rem_new, eos_new)
+        dt = time.perf_counter() - t0
+        self.device_s += dt
+        self.prefill_s += dt
+        self.prefill_calls += 1
+        for j, s in enumerate(slot_idx):
+            self._table_h[s] = table_rows[j]
+            self._slot_blocks[int(s)] = assigned[j]
+        self._seat_prefilled(reqs, slot_idx, first_h,
+                             on_prefill_eos=self._free_slot_blocks)
 
     # -- advance ------------------------------------------------------------
     def advance(self) -> list[GenRequest]:
@@ -378,6 +619,11 @@ class DecodeSession:
         done_at_prefill, self._prefill_done = self._prefill_done, []
         if not self._active_host.any():
             return done_at_prefill
+        if eng.paged and self._table_dirty:
+            # retired slots' rows now point at the trash block: a freed,
+            # maybe reallocated, block is never written by its old slot
+            self._pool.block_table.copy_(torch.from_numpy(self._table_h))
+            self._table_dirty = False
         t0 = time.perf_counter()
         (self._cur_tok, self._pos, self._active, self._remaining, toks,
          emitted) = eng.step_window(self._pool, self._cur_tok, self._pos,
@@ -405,6 +651,8 @@ class DecodeSession:
                 r.done = True
                 completed.append(r)
                 self.slots[s] = None
+                if eng.paged:
+                    self._free_slot_blocks(s)
         self._active_host = active_h
         return completed
 
@@ -412,8 +660,8 @@ class DecodeSession:
     def stats(self) -> dict:
         eng = self.engine
         B = eng.n_slots
-        return {
-            "mode": "fused",
+        out = {
+            "mode": "paged" if eng.paged else "fused",
             "sync_every": eng.sync_every,
             "decode_steps": self.decode_steps,
             "occupied_slot_steps": self.occupied_slot_steps,
@@ -426,3 +674,12 @@ class DecodeSession:
             "device_s": self.device_s,
             "prefill_s": self.prefill_s,
         }
+        if eng.paged:
+            out.update(
+                kv_block_size=eng.cfg.kv_block_size,
+                pool_blocks=eng.pool_blocks,
+                blocks_allocated=self.blocks_allocated,
+                blocks_freed=self.blocks_freed,
+                peak_blocks_in_use=self.peak_blocks_in_use,
+                free_blocks=len(self._free_blocks))
+        return out

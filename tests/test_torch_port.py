@@ -79,13 +79,19 @@ def test_entry_points_default_to_the_card(monkeypatch):
     lm_tree = {k.replace(".", "/"): v.float().numpy()
                for k, v in lm.state_dict().items()}
     gen_args = tserve.parser().parse_args(["--mode", "generate", "--smoke"])
+    paged_args = tserve.parser().parse_args(
+        ["--mode", "generate", "--smoke", "--kv-block-size", "8"])
+    paged_cfg = lm_cfg.replace(kv_block_size=8)
     calls += [
         lambda: tfm.init_lm(lm_cfg),
         lambda: tfm.init_cache(lm_cfg, 2, 16),
+        lambda: tfm.init_cache(lm_cfg, 2, 16, layout="paged"),
         lambda: convert.lm_from_numpy(lm_cfg, lm_tree),
         lambda: engine.GenerationEngine(lm_cfg, lm),
         lambda: continuous.ContinuousBatchingEngine(lm_cfg, lm),
+        lambda: continuous.ContinuousBatchingEngine(paged_cfg, lm),
         lambda: tserve.serve_generate(gen_args),
+        lambda: tserve.serve_generate(paged_args),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="needs CUDA"):
@@ -102,11 +108,19 @@ def test_entry_points_default_to_the_card(monkeypatch):
         ops.decode_attention(q[:, :, 0], q, q,
                              torch.zeros(1, 4, dtype=torch.int32),
                              torch.zeros(1, dtype=torch.int32), impl="cuda")
+    for impl in ("cuda", "shim"):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            ops.paged_decode_attention(
+                q[:, :, 0], q, q, torch.zeros(1, 2, dtype=torch.int32),
+                torch.zeros(1, 4, dtype=torch.int32),
+                torch.zeros(1, dtype=torch.int32), impl=impl)
     # the CPU runs only when asked for
     assert engine.ClassifierEngine(cfg, model,
                                    device="cpu").device.type == "cpu"
     assert continuous.ContinuousBatchingEngine(
         lm_cfg, lm, device="cpu").device.type == "cpu"
+    assert continuous.ContinuousBatchingEngine(
+        paged_cfg, lm, device="cpu").paged
 
 
 def _run_smoke(cwd, env):

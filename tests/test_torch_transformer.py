@@ -206,9 +206,10 @@ def test_bf16_weights_carry_across_exactly():
 def test_other_families_raise_with_their_slice(arch, what):
     with pytest.raises(NotImplementedError, match="model-families slice"):
         ttfm.LM(tget(arch), device="cpu")
-    paged = tget(ARCH).replace(kv_block_size=16)
-    with pytest.raises(NotImplementedError, match="paged-KV slice"):
-        ttfm.LM(paged, device="cpu")
+    # the paged pool serves homogeneous full attention only
+    paged_local = tget(ARCH).replace(kv_block_size=16, window=16)
+    with pytest.raises(ValueError, match="paged KV pool"):
+        ttfm.init_cache(paged_local, 2, 64, device="cpu")
     model = ttfm.init_lm(tget(ARCH), 0, device="cpu")
     with pytest.raises(NotImplementedError, match="speculation slice"):
         model.decode_chunk(np.zeros((1, 2), np.int32), None, 0)
