@@ -56,8 +56,27 @@ not 0.  Phases:
                wait) through the paged engine and the contiguous engine
                fed the same prefill waves, no controller: the same
                tokens for every request;
- 13. kernels — one line with every kernel's numbers;
- 14. the last line: ``{"ok": true, "device": {...}}``.
+ 13. ssd     — the SSD scan kernel, both entry points (``ssd_scan``: zero
+               state, y; ``ssd_chunked``: from h0, y and h_last), against
+               their plain versions (the per-token recurrence; the chunked
+               algorithm) at the serving prefill's shape, at S = 4096, at a
+               ragged S = 1000 and from a nonzero h0, in f32 and bf16, timed
+               beside its bound (no one PyTorch call computes the scan);
+ 14. serve_generate_ssm — mamba2-780m at published width (48 layers, d
+               1536, bf16, seeded weights) through the launcher: 32
+               requests x 16 new tokens over 8 slots, bio controller; the
+               SSD kernel's launch counter zeroed just before and read just
+               after, and it must have launched; the attention kernels not;
+ 15. parity_generate_ssm — published width at depth 2 in f32, a 300-token
+               prompt (more than one 256-token chunk): prefill logits on the
+               card (kernel path) against the CPU (the model's chunked
+               path) within 1e-3 and 8 greedy tokens equal; the served model
+               at full depth in bf16, kernel path against
+               ``attn_impl="xla"``;
+ 16. breakdown_generate_ssm — one mamba2 decode step at 8 slots, device
+               time and time from Python, beside its bytes bound;
+ 17. kernels — one line with every kernel's numbers;
+ 18. the last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero without CUDA or without the repo.
 """
@@ -82,6 +101,7 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
 from repro_torch.kernels import entropy as ent_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import distilbert  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -98,6 +118,7 @@ LOGITS_TOL = 1e-3       # CUDA vs CPU full model: other sum orders over d_ff
 PEAKS = {"sxm": {"hbm": 3.35e12, "f32": 67e12, "bf16": 989e12},
          "pcie": {"hbm": 2.0e12, "f32": 51e12, "bf16": 756e12}}
 ARCH = "stablelm-3b"
+SSM_ARCH = "mamba2-780m"
 ENTROPY_OPS_PER_ELEMENT = 6   # compare, subtract, exp, 2 mul-adds, add
 
 
@@ -978,6 +999,288 @@ def phase_parity_paged(model):
          **st)
 
 
+# ---------------------------------------------------------------------------
+# the SSD (mamba2) generate path: scan kernel, serve, parity, breakdown
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(case, gen):
+    """The scan's inputs as the model makes them: x, Bm and Cm views into
+    one [B, S, H*hd + 2N] conv output (the kernel reads their strides), dt
+    softplus'd, A mamba2's decay rates -(1..16); h0 zero (a fresh decode
+    cache) or random."""
+    B, S, H, hd, N, dt_ = (case[k] for k in ("B", "S", "H", "hd", "N",
+                                             "dtype"))
+    xbc = torch.randn(B, S, H * hd + 2 * N, generator=gen,
+                      device="cuda").to(dt_)
+    x = xbc[..., :H * hd].reshape(B, S, H, hd)
+    Bm, Cm = xbc[..., H * hd:H * hd + N], xbc[..., H * hd + N:]
+    dt = torch.nn.functional.softplus(torch.randn(
+        B, S, H, generator=gen, device="cuda")).to(dt_)
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    h0 = (torch.randn(B, H, hd, N, generator=gen, device="cuda")
+          if case["h0"] == "random" else
+          torch.zeros(B, H, hd, N, device="cuda"))
+    return x, dt, A, Bm, Cm, h0
+
+
+def ssd_kernel_chunk(S: int) -> int:
+    """The chunk length ``csrc/ssd_scan.cu`` takes for a sequence of S."""
+    return 16 if S <= 16 else 32 if S <= 32 else 64
+
+
+def ssd_bound_ms(case, peaks):
+    """Least time for the work: x, dt, Bm, Cm (and h0) read once, y (and
+    h_last) written once over HBM bandwidth, or the chunked algorithm's
+    operations at the kernel's chunk Q (``ssd_kernel_chunk``) over the
+    peak of the inputs' type: per (b, chunk of q rows) 2 q^2 N for C.B^T,
+    and per head q (q + 1) hd for the causal att.x, 2 q hd N for the
+    state update and 2 q hd N for the inter-chunk term (not on the first
+    chunk of the zero-state entry); whichever is larger."""
+    B, S, H, hd, N = (case[k] for k in ("B", "S", "H", "hd", "N"))
+    item = case["dtype"].itemsize
+    nbytes = (2 * B * S * H * hd + B * S * H + 2 * B * S * N) * item + 4 * H
+    state = case["entry"] == "chunked"
+    if state:
+        nbytes += 2 * 4 * B * H * hd * N
+    Q = ssd_kernel_chunk(S)
+    ops_ = 0
+    for c in range(-(-S // Q)):
+        q = min(Q, S - c * Q)
+        inter = 2 * q * hd * N if (state or c > 0) else 0
+        ops_ += 2 * q * q * N + H * (q * (q + 1) * hd + 2 * q * hd * N
+                                     + inter)
+    ops_ *= B
+    rate = peaks["bf16" if case["dtype"] == torch.bfloat16 else "f32"]
+    t_bytes, t_ops = nbytes / peaks["hbm"], ops_ / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", Q)
+
+
+SSD_CASES = [
+    # the serving prefill: up to 8 prompts of 16 tokens, mamba2's 48 heads
+    # of 64 and state 128, into a fresh (zero) decode cache
+    dict(name="prefill_main", entry="chunked", B=8, S=16, h0="zero",
+         dtype=torch.float32, iters=200),
+    dict(name="scan_main", entry="scan", B=8, S=16, h0="zero",
+         dtype=torch.float32, iters=200),
+    dict(name="prefill_main_state", entry="chunked", B=8, S=16, h0="random",
+         dtype=torch.float32, iters=200),
+    dict(name="scan_main_bf16", entry="scan", B=8, S=16, h0="zero",
+         dtype=torch.bfloat16, iters=200),
+    # 16 of the reference's 256-token chunks, 64 of the kernel's
+    dict(name="scan_long", entry="scan", B=1, S=4096, h0="zero",
+         dtype=torch.float32, iters=10),
+    dict(name="chunked_long_state", entry="chunked", B=1, S=4096,
+         h0="random", dtype=torch.float32, iters=10),
+    dict(name="chunked_long_bf16", entry="chunked", B=1, S=4096, h0="zero",
+         dtype=torch.bfloat16, iters=10),
+    # a ragged tail: 1000 = 15 x 64 + 40
+    dict(name="scan_ragged", entry="scan", B=2, S=1000, h0="zero",
+         dtype=torch.float32, iters=20),
+    dict(name="chunked_ragged_state_bf16", entry="chunked", B=2, S=1000,
+         h0="random", dtype=torch.bfloat16, iters=20),
+]
+
+
+def phase_ssd(peaks):
+    """The SSD scan kernel on the card against its plain versions, both
+    entry points; -> {"max_err", "main"}.  Tolerances are relative to
+    the plain output's largest magnitude: f32 to 1e-4 and bf16 to 3e-2,
+    since the kernel sums over N and over a chunk's rows in another order
+    and with another chunk length than the plain versions (bf16: the
+    output is rounded to bf16 on both sides, one ulp is 4e-3)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cfg = get_config(SSM_ARCH)
+    H = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
+    out = {"max_err": 0.0, "max_rel_err": 0.0, "main": None}
+    for case in SSD_CASES:
+        case = dict(case, H=H, hd=cfg.ssm_headdim, N=cfg.ssm_state)
+        x, dt, A, Bm, Cm, h0 = _ssd_inputs(case, gen)
+        if case["entry"] == "scan":
+            kern = lambda: ssd_mod.ssd_scan_cuda(  # noqa: E731
+                x, dt, A, Bm, Cm)
+            plain = lambda: ssd_mod.ssd_scan_plain(  # noqa: E731
+                x, dt, A, Bm, Cm)
+            got, want = kern(), plain()
+            h_err = None
+        else:
+            kern = lambda: ssd_mod.ssd_chunked_cuda(  # noqa: E731
+                x, dt, A, Bm, Cm, h0)
+            plain = lambda: ssd_mod.ssd_chunked_plain(  # noqa: E731
+                x, dt, A, Bm, Cm, h0, cfg.ssm_chunk)
+            (got, h_got), (want, h_want) = kern(), plain()
+        torch.cuda.synchronize()
+        tol = F32_TOL if case["dtype"] == torch.float32 else BF16_TOL
+        fail_unless(bool(torch.isfinite(got.float()).all())
+                    and got.dtype == x.dtype and got.shape == x.shape,
+                    f"ssd {case['name']}: finite y of x's shape and dtype")
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        fail_unless(err <= tol * scale, f"ssd {case['name']}: kernel vs "
+                                        f"plain {err} > {tol} x {scale}")
+        if case["entry"] == "chunked":
+            h_scale = h_want.abs().max().item()
+            h_err = (h_got - h_want).abs().max().item()
+            fail_unless(bool(torch.isfinite(h_got).all())
+                        and h_err <= F32_TOL * h_scale,
+                        f"ssd {case['name']}: h_last {h_err} > "
+                        f"{F32_TOL} x {h_scale}")
+        it = case["iters"]
+        # the per-token plain version over thousands of tokens is a loop of
+        # tens of thousands of launches: timed from Python, once
+        short = case["S"] <= 64 or case["entry"] == "chunked"
+        bound, bound_by, q = ssd_bound_ms(case, peaks)
+        row = dict(phase="ssd", kernel="ssd_scan", case=case["name"],
+                   entry=case["entry"], B=case["B"], S=case["S"], H=H,
+                   hd=case["hd"], N=case["N"], h0=case["h0"],
+                   dtype=str(case["dtype"]).replace("torch.", ""),
+                   kernel_chunk=q, max_abs_err=err, max_rel_err=err / scale,
+                   tol=tol, h_last_max_abs_err=h_err,
+                   ms=graph_ms(kern, it), call_ms=time_ms(kern, it),
+                   plain_ms=(graph_ms(plain, max(it // 4, 2)) if short
+                             else time_ms(plain, 1)),
+                   plain_timing="graph replay" if short else "one call",
+                   library_ms=None,
+                   library_computes="none: no one PyTorch call computes "
+                                    "the SSD scan",
+                   bound_ms=bound, bound_by=bound_by,
+                   bound_chunk=f"operations counted at the kernel's chunk "
+                               f"of {q} rows")
+        row["share_of_bound"] = bound / row["ms"]
+        emit(**row)
+        out["max_err"] = max(out["max_err"], err)
+        out["max_rel_err"] = max(out["max_rel_err"], err / scale)
+        if case["name"] == "prefill_main":
+            out["main"] = row
+    return out
+
+
+def phase_serve_generate_ssm():
+    """mamba2-780m at published width through the launcher; -> (the SSD
+    kernel's launches over the run, the served model)."""
+    args = serve.parser().parse_args(
+        ["--device", "cuda", "--mode", "generate", "--arch", SSM_ARCH,
+         "--requests", "32", "--new-tokens", "16", "--slots", "8",
+         "--controller", "bio"])
+    ssd_mod.launches = fa_mod.launches = 0
+    da_mod.launches = da_mod.paged_launches = 0
+    t0 = time.perf_counter()
+    summary, server = serve.serve_generate(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ssd_mod.launches
+    attention = {"flash_attention": fa_mod.launches,
+                 "decode_attention": da_mod.launches,
+                 "paged_decode_attention": da_mod.paged_launches}
+    cfg = get_config(SSM_ARCH)
+    resp = server.responses
+    fail_unless(sorted(r.rid for r in resp) == list(range(args.requests)),
+                "ssm: every request answered once")
+    admitted = [r for r in resp if r.admitted]
+    fail_unless(len(admitted) > 0 and all(
+        isinstance(r.output, list) and 1 <= len(r.output) <= args.new_tokens
+        and all(0 <= t < cfg.vocab for t in r.output) for r in admitted),
+        "ssm: 1..16 token ids inside the vocabulary each")
+    fail_unless(launches > 0, "ssm: the SSD scan kernel launched")
+    fail_unless(not any(attention.values()),
+                f"ssm: no attention kernel on an SSD stack: {attention}")
+    model = server.engine.engine.params
+    fail_unless(model.cfg.n_layers == 48 and model.cfg.d_model == 1536
+                and model.emb.dtype == torch.bfloat16,
+                "ssm: published width, 48 layers, bf16")
+    fail_unless(summary["kv_pool_bytes"] == 619_315_204,
+                f"ssm: pool bytes {summary['kv_pool_bytes']}")
+    steps_run = summary["host_syncs"] * server.engine.engine.sync_every
+    decode_s = summary["device_s"] - summary["prefill_s"]
+    emit(phase="serve_generate_ssm", seconds=secs, launches=launches,
+         attention_launches=attention, admitted=len(admitted),
+         parameters=sum(p.numel() for p in model.parameters()),
+         weight_bytes=sum(p.numel() * p.element_size()
+                          for p in model.parameters()),
+         tokens_per_busy_s=summary["tokens_generated"] / summary["busy_s"],
+         decode_ms_per_step=decode_s / steps_run * 1e3,
+         prefill_ms_per_call=(summary["prefill_s"]
+                              / summary["prefill_calls"] * 1e3),
+         **summary)
+    return launches, model
+
+
+def phase_parity_generate_ssm(model):
+    cfg = get_config(SSM_ARCH)
+    rng = np.random.default_rng(6)
+    # published width, depth 2, f32, a 300-token prompt: card (kernel) vs
+    # CPU (the model's chunked path)
+    cfg2 = cfg.replace(n_layers=2, dtype="float32")
+    m_gpu = tfm.init_lm(cfg2, 0, device="cuda")
+    m_cpu = tfm.LM(cfg2, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
+    prompts = rng.integers(0, cfg.vocab, (2, 300)).astype(np.int32)
+    ssd_mod.launches = 0
+    lg, tg = _greedy_f32_cache(m_gpu, prompts, 8)
+    fail_unless(ssd_mod.launches > 0, "ssm parity: the card's run went "
+                                      "through the SSD kernel")
+    lc, tc = _greedy_f32_cache(m_cpu.eval(), prompts, 8)
+    err = (lg - lc).abs().max().item()
+    fail_unless(bool(torch.isfinite(lg).all()) and err <= LOGITS_TOL,
+                f"ssm depth-2 f32 prefill logits card vs CPU: {err}")
+    fail_unless(torch.equal(tg, tc), "ssm depth-2 f32 greedy tokens card "
+                                     "vs CPU")
+    del m_gpu, m_cpu
+    # the served model, full depth, bf16: the kernel vs the model's path
+    prompts = rng.integers(0, cfg.vocab, (8, 300)).astype(np.int32)
+    res = {}
+    for impl in ("auto", "xla"):
+        model.attn_impl = impl
+        c = tfm.init_cache(model.cfg, 8, 512, device="cuda")
+        logits, _ = model.prefill(prompts, c)
+        toks = GenerationEngine(model.cfg, model, max_seq=512,
+                                device="cuda").generate(prompts, 16)
+        res[impl] = (logits.float(), toks)
+    model.attn_impl = "auto"
+    full_err = (res["auto"][0] - res["xla"][0]).abs().max().item()
+    fail_unless(bool(torch.isfinite(res["auto"][0]).all()),
+                "ssm full-depth bf16 logits finite")
+    emit(phase="parity_generate_ssm", prompt_len=300,
+         depth2_f32_prefill_logits_card_vs_cpu_max_abs_err=err,
+         depth2_f32_greedy_tokens_equal=True,
+         full_bf16_prefill_logits_kernel_vs_xla_max_abs_err=full_err,
+         full_bf16_greedy_token_agreement=float(
+             (res["auto"][1] == res["xla"][1]).mean()),
+         full_bf16_first_tokens_equal=bool(
+             (res["auto"][1][:, 0] == res["xla"][1][:, 0]).all()))
+
+
+def phase_breakdown_generate_ssm(model, peaks):
+    """One mamba2 decode step at 8 slots of the served model: device time
+    (graph replay) and time from Python, beside the least bytes it must
+    move (the weights read once, the f32 state read and written once)."""
+    cfg = model.cfg
+    B = 8
+    cache = tfm.init_cache(cfg, B, 128, device="cuda")
+    model.prefill(np.random.default_rng(3).integers(0, cfg.vocab, (B, 16)),
+                  cache)
+    tok = torch.zeros(B, 1, dtype=torch.long, device="cuda")
+    pos = torch.full((B,), 16, dtype=torch.long, device="cuda")
+
+    def step():
+        model.decode_step(tok, cache, pos)
+
+    step_call = time_ms(step, 10)
+    step_dev = graph_ms(step, 1, replays=10)
+    wbytes = sum(t.numel() * t.element_size() for t in model.parameters())
+    sbytes = (cache.h.numel() + cache.conv.numel()) * 4
+    try:
+        prof = _profile_step(step)
+    except Exception as e:          # the profiler is untried on the card
+        prof = {"error": repr(e)[:200]}
+    emit(phase="breakdown_generate_ssm", slots=B, layers=cfg.n_layers,
+         step_ms=step_dev, step_call_ms=step_call,
+         device_busy_share_of_call=step_dev / step_call,
+         weight_bytes=wbytes, state_bytes=sbytes,
+         bytes_bound_ms=(wbytes + 2 * sbytes) / peaks["hbm"] * 1e3,
+         profiler=prof if prof is not None else "no device time recorded")
+
+
 def kernel_entry(name, src, replaces, tpu_kernel, launches, max_err, main):
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -1011,6 +1314,11 @@ def main() -> int:
     phase_breakdown_generate(lm, peaks)
     paged_launches = phase_serve_generate_paged()
     phase_parity_paged(lm)
+    del lm
+    ssd = phase_ssd(peaks)
+    ssd_launches, ssm = phase_serve_generate_ssm()
+    phase_parity_generate_ssm(ssm)
+    phase_breakdown_generate_ssm(ssm, peaks)
     entropy = {
         "name": "entropy_stats",
         "route": "cuda",
@@ -1056,6 +1364,13 @@ def main() -> int:
             oracle="paged_decode_attention_shim (src/repro/kernels/"
                    "decode_attention.py:291): gather + decode_attention, "
                    "torch.equal in every paged case"),
+        dict(kernel_entry("ssd_scan", "ssd_scan.cu",
+                          "src/repro/kernels/ssd_scan.py:31",
+                          "src/repro/kernels/ssd_scan.py:_ssd_kernel",
+                          ssd_launches, ssd["max_err"], ssd["main"]),
+             max_rel_err=ssd["max_rel_err"],
+             entries="ssd_scan (zero state, y) and ssd_chunked (h0 -> y, "
+                     "h_last); the serving prefill runs ssd_chunked"),
     ])
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

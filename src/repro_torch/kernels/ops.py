@@ -14,13 +14,15 @@ Dispatch policy (``impl=``), the port of ``repro.kernels.ops``:
 ``entropy_stats`` carries the classify path; ``flash_attention`` (every
 prefill) and ``decode_attention`` (every decode step) carry the
 generate path, and ``paged_decode_attention`` every decode step over
-the paged pool.  The SSD scan of ``repro.kernels`` comes with its slice.
+the paged pool; ``ssd_scan`` and ``ssd_chunked`` every prefill of an
+SSD (Mamba-2) stack.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import entropy as _ent
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ssd_scan as _ssd
 
 IMPLS = ("auto", "ref", "cuda")
 PAGED_IMPLS = ("auto", "ref", "cuda", "shim")
@@ -82,3 +84,28 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, kv_pos, cur_pos,
     if impl == "shim":
         return _da.paged_decode_attention_shim(*args, window=window)
     return _da.paged_decode_attention(*args, window=window)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk=128, impl: str = "auto"):
+    """x [B,S,H,hd], dt [B,S,H], A [H], Bm/Cm [B,S,N] -> y [B,S,H,hd]
+    from a zero state: the Mamba-2 SSD chunked scan.  ``chunk`` keeps
+    the reference's signature and changes nothing: the plain version is
+    per token and the kernel takes its own chunk length."""
+    _check(impl)
+    if impl == "ref":
+        return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm)
+    if impl == "cuda":
+        return _ssd.ssd_scan_cuda(x, dt, A, Bm, Cm)
+    return _ssd.ssd_scan(x, dt, A, Bm, Cm)
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, h0, *, chunk: int, impl: str = "auto"):
+    """The SSD scan from the state h0 [B,H,hd,N] f32 -> (y, h_last):
+    what an SSD layer's prefill runs.  ``chunk`` is the plain version's
+    chunk length."""
+    _check(impl)
+    if impl == "ref":
+        return _ssd.ssd_chunked_plain(x, dt, A, Bm, Cm, h0, chunk)
+    if impl == "cuda":
+        return _ssd.ssd_chunked_cuda(x, dt, A, Bm, Cm, h0)
+    return _ssd.ssd_chunked(x, dt, A, Bm, Cm, h0, chunk)

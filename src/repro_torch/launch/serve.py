@@ -37,6 +37,10 @@ from a paged pool of ``N``-row blocks instead (``--kv-pool-blocks M``
 blocks, trash block included; 0 sizes it for every slot's full
 extent), whose decode steps run the paged flash-decode kernel; a
 request waits in the queue while the pool cannot hold its budget.
+``--arch mamba2-780m`` serves the attention-free SSD stack (48 layers,
+d 1536, state 128 per head): its pool is the f32 recurrent state of
+every slot, prefill runs the CUDA SSD scan kernel in every layer and a
+decode step updates the state in place.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode generate
     PYTHONPATH=src python -m repro_torch.launch.serve --mode generate \
@@ -45,6 +49,8 @@ request waits in the queue while the pool cannot hold its budget.
         --mode generate --smoke --requests 8 --runs /tmp/runs
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --mode generate --smoke --kv-block-size 8 --kv-pool-blocks 9
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mode generate --arch mamba2-780m --smoke --requests 8
 """
 from __future__ import annotations
 
@@ -306,10 +312,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--attn-impl", choices=["auto", "xla", "ref", "cuda"],
                     default="auto",
-                    help="generate mode: attention dispatch ('auto': the "
-                         "CUDA kernels on the card, the einsum path on the "
-                         "CPU; 'xla': the einsum path; 'ref': the kernels' "
-                         "plain versions; 'cuda': the kernels or raise)")
+                    help="generate mode: attention dispatch, and the SSD "
+                         "scan's on an SSD stack ('auto': the CUDA kernels "
+                         "on the card, the model's own path on the CPU; "
+                         "'xla': the model's own path (einsum attention, "
+                         "chunked SSD); 'ref': the kernels' plain versions; "
+                         "'cuda': the kernels or raise)")
     ap.add_argument("--kv-block-size", type=int, default=0,
                     help="generate mode: paged KV pool block size in "
                          "rows (0 = contiguous per-slot cache)")

@@ -1,9 +1,11 @@
-"""Decoder LM for attention stacks, ported from ``repro.models.transformer``.
+"""Decoder LM for attention and SSD stacks, ported from
+``repro.models.transformer``.
 
 One pre-norm residual stack: per layer, GQA attention (``attn``) or
 sliding-window attention (``local_attn``, a ring cache of ``window``
-rows) with partial rotary on interleaved pairs, then a dense channel
-mix (SwiGLU with SiLU or tanh-GELU, or the biased GELU MLP); a final
+rows) with partial rotary on interleaved pairs, or the Mamba-2 SSD
+block (``ssd``, ``models.ssd``), then a dense channel mix (SwiGLU with
+SiLU or tanh-GELU, or the biased GELU MLP) when ``d_ff`` > 0; a final
 norm and a tied or untied unembedding.  Three modes share the layer
 code, as in the reference:
 
@@ -19,7 +21,11 @@ flash-decode for a decode step), which raise on a card that is not
 sm_90; on a CPU tensor ``"auto"`` takes the model's einsum path,
 bitwise equal to ``"xla"``, as the reference does off the TPU;
 ``"ref"`` takes the kernels' plain versions and ``"cuda"`` forces the
-kernels.  A prefix-LM batch would stay on the einsum path.
+kernels.  A prefix-LM batch would stay on the einsum path.  The same
+field and rule route an SSD stack's chunked scan (prefill and forward):
+the CUDA SSD kernel on the card, the model's own chunked algorithm on
+the CPU under ``"auto"`` and ``"xla"``; a decode step's single-step
+state update is plain PyTorch everywhere.
 
 Parameters keep the reference's names and shapes, one module per layer
 (the reference stacks a homogeneous stack's leaves ``[L, ...]``;
@@ -31,12 +37,15 @@ stacks one pool per layer, k/v [L, NB, bs, K, hd] and pos [L, B, C],
 with one block table [B, MB] on the cache shared by every layer; it is
 decode-only, as the reference's: a prompt is prefilled into a
 contiguous row cache and scattered into the pool
-(``serving.continuous.paged_slot_write``).
+(``serving.continuous.paged_slot_write``).  An SSD stack's cache is its
+recurrent state, stacked and written in place: conv [L, B, W-1, ch]
+and h [L, B, H, hd, N], both f32; ``forward`` starts from a zero
+state, as the reference's ``full`` mode.
 
-Not in this slice, and raising with the slice that brings them: MLA,
-RG-LRU and SSD layers, MoE, encoder-decoder and prefix-LM models (the
-model-families slice), and ``decode_chunk`` (the speculative-decoding
-slice).
+Not in this slice, and raising with the slice that brings them: MLA
+and RG-LRU layers, mixed stacks, MoE, encoder-decoder and prefix-LM
+models (the model-families slice), and ``decode_chunk`` (the
+speculative-decoding slice).
 """
 from __future__ import annotations
 
@@ -47,6 +56,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import nn as nn_
+from repro_torch.models import ssd
 from repro_torch.models.nn import param
 
 FAMILIES_SLICE = "the model-families slice (ROADMAP queue 1 item 12)"
@@ -60,10 +70,14 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice does not port, naming the slice."""
-    kinds = sorted(set(cfg.block_kinds) - {"attn", "local_attn"})
+    kinds = sorted(set(cfg.block_kinds) - {"attn", "local_attn", "ssd"})
     if kinds:
         raise NotImplementedError(
             f"{cfg.arch_id}: layer kinds {kinds} come with {FAMILIES_SLICE}")
+    if "ssd" in cfg.block_kinds and not cfg.homogeneous:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: a stack mixing SSD and attention layers comes "
+            f"with {FAMILIES_SLICE}")
     if cfg.is_moe:
         raise NotImplementedError(
             f"{cfg.arch_id}: MoE comes with {FAMILIES_SLICE}")
@@ -101,16 +115,24 @@ def _check_paged_supported(cfg: ModelConfig) -> None:
 
 
 class Layer(nn.Module):
-    """One residual block: ``norm1``, ``mix`` (attention), and the
-    channel mix ``norm2`` + ``mlp`` when ``cfg.d_ff`` > 0."""
+    """One residual block: ``norm1``, ``mix`` (attention, or the SSD
+    block for an ``ssd`` stack), and the channel mix ``norm2`` + ``mlp``
+    when ``cfg.d_ff`` > 0."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         d, dt = cfg.d_model, torch_dtype(cfg.dtype)
         self.norm1 = nn_.norm(cfg.norm, d, device=device)
-        self.mix = attn.AttnParams(d, cfg.n_heads, cfg.n_kv_heads,
-                                   cfg.head_dim, bias=cfg.qkv_bias,
-                                   device=device, dtype=dt)
+        if cfg.block_kinds[0] == "ssd":
+            self.mix = ssd.SSDParams(d, expand=cfg.ssm_expand,
+                                     headdim=cfg.ssm_headdim,
+                                     d_state=cfg.ssm_state,
+                                     conv_width=cfg.ssm_conv, device=device,
+                                     dtype=dt)
+        else:
+            self.mix = attn.AttnParams(d, cfg.n_heads, cfg.n_kv_heads,
+                                       cfg.head_dim, bias=cfg.qkv_bias,
+                                       device=device, dtype=dt)
         self.mlp = None
         if cfg.d_ff:
             self.norm2 = nn_.norm(cfg.norm, d, device=device)
@@ -130,24 +152,35 @@ class Layer(nn.Module):
 
 
 class Cache:
-    """The decode cache of a homogeneous attention stack: k/v
-    [L, B, C, K, hd] and pos [L, B, C] int32 (-1 = empty), written in
-    place; ``length`` is the number of tokens consumed (a device scalar
-    after a continuous step, so reading it costs no host sync).  A
-    paged pool holds k/v [L, NB, bs, K, hd] and ``block_table``
-    [B, MB] int32; ``block_table`` is None on the contiguous layout."""
+    """The decode cache of a homogeneous stack, written in place.  An
+    attention stack holds k/v [L, B, C, K, hd] and pos [L, B, C] int32
+    (-1 = empty); a paged pool holds k/v [L, NB, bs, K, hd] and
+    ``block_table`` [B, MB] int32 (None on the contiguous layout).  An
+    SSD stack holds its recurrent state instead, conv [L, B, W-1, ch]
+    and h [L, B, H, hd, N] f32, and no k/v/pos.  ``length`` is the
+    number of tokens consumed (a device scalar after a continuous step,
+    so reading it costs no host sync)."""
 
-    def __init__(self, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
-                 length=0, block_table: torch.Tensor | None = None):
+    def __init__(self, k=None, v=None, pos=None, length=0,
+                 block_table: torch.Tensor | None = None, *, conv=None,
+                 h=None):
         self.k, self.v, self.pos, self.length = k, v, pos, length
         self.block_table = block_table
+        self.conv, self.h = conv, h
 
-    def layer(self, i: int) -> attn.KVCache:
+    @property
+    def recurrent(self) -> bool:
+        return self.h is not None
+
+    def layer(self, i: int):
+        """Layer i's views: an ``attn.KVCache`` or an ``ssd.SSDState``."""
+        if self.recurrent:
+            return ssd.SSDState(conv=self.conv[i], h=self.h[i])
         return attn.KVCache(k=self.k[i], v=self.v[i], pos=self.pos[i])
 
     @property
     def n_slots(self) -> int:
-        return self.pos.shape[1]
+        return (self.h if self.recurrent else self.pos).shape[1]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -158,7 +191,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     ``layout="auto"`` follows ``cfg.kv_block_size`` (paged when > 0);
     ``"contiguous"`` / ``"paged"`` force it (the continuous engine
     prefills contiguous ROW caches even when its pool is paged).  A
-    windowed stack keeps a ring of ``window`` rows."""
+    windowed stack keeps a ring of ``window`` rows.  An SSD stack's
+    state is f32 whatever ``dtype``, and its size does not depend on
+    ``max_seq``."""
     if layout not in ("auto", "contiguous", "paged"):
         raise ValueError(f"unknown cache layout {layout!r}")
     check_supported(cfg)
@@ -175,6 +210,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                            device=dev),
             block_table=torch.zeros(batch, mb, dtype=torch.int32,
                                     device=dev))
+    if cfg.block_kinds[0] == "ssd":
+        st = ssd.init_ssd_state(L * batch, cfg.d_model,
+                                expand=cfg.ssm_expand,
+                                headdim=cfg.ssm_headdim,
+                                d_state=cfg.ssm_state,
+                                conv_width=cfg.ssm_conv, device=dev)
+        return Cache(conv=st.conv.reshape(L, batch, *st.conv.shape[1:]),
+                     h=st.h.reshape(L, batch, *st.h.shape[1:]))
     window = cfg.window if cfg.block_kinds[0] == "local_attn" else 0
     C = min(max_seq, window) if window else max_seq
     return Cache(
@@ -199,6 +242,7 @@ class LM(nn.Module):
             self.unemb = param(d, V, device=device, dtype=dt)
         self.layers = nn.ModuleList(Layer(cfg, device=device)
                                     for _ in range(cfg.n_layers))
+        self.recurrent = cfg.block_kinds[0] == "ssd"
         self.window = cfg.window if cfg.block_kinds[0] == "local_attn" else 0
         self.rotary_dim = int(cfg.head_dim * cfg.rope_pct)
 
@@ -232,6 +276,8 @@ class LM(nn.Module):
         return h @ self.unemb
 
     def _rope(self, positions: torch.Tensor):
+        if self.recurrent:        # no attention, so no rotary tables
+            return None
         return nn_.rope_angles(positions, self.rotary_dim,
                                self.cfg.rope_theta)
 
@@ -276,6 +322,15 @@ class LM(nn.Module):
                 o = attn.decode_attend(q, kv, pos=pos, window=self.window)
         return attn.out_proj(p, o)
 
+    def _ssd(self, layer: Layer, x, *, mode, state):
+        """Temporal mixing of an SSD layer: the chunked scan (through
+        the kernel dispatch on ``attn_impl``'s rule) for prefill and
+        forward, the single-step update for decode; ``state`` (None in
+        ``full`` mode) is updated in place."""
+        impl = self.attn_impl if self._use_kernel(x) else None
+        return ssd.ssd_block(layer.mix, x, state, chunk=self.cfg.ssm_chunk,
+                             single_step=mode == "decode", impl=impl)
+
     def _stack(self, h, *, mode, cache=None, rope, pos=None, cur=None):
         table = cache.block_table if cache is not None else None
         rows = None
@@ -287,10 +342,13 @@ class LM(nn.Module):
                                      cache.pos.shape[2])
             attn.paged_write_pos(cache.pos, rows)
         for i, layer in enumerate(self.layers):
-            kv = cache.layer(i) if cache is not None else None
-            h = h + self._attn(layer, layer.norm1(h), mode=mode, kv=kv,
-                               rope=rope, pos=pos, cur=cur, table=table,
-                               rows=rows)
+            lc = cache.layer(i) if cache is not None else None
+            if self.recurrent:
+                h = h + self._ssd(layer, layer.norm1(h), mode=mode, state=lc)
+            else:
+                h = h + self._attn(layer, layer.norm1(h), mode=mode, kv=lc,
+                                   rope=rope, pos=pos, cur=cur, table=table,
+                                   rows=rows)
             if layer.mlp is not None:
                 h = h + layer.mlp(layer.norm2(h))
         return h

@@ -1,6 +1,7 @@
 """Continuous batching for LM decode, ported from
-``repro.serving.continuous`` (the contiguous KV layout and the paged
-block pool, greedy decode, no speculation).
+``repro.serving.continuous`` (the contiguous KV layout, the paged
+block pool and the recurrent state of an SSD stack, greedy decode, no
+speculation).
 
 A fixed pool of B slots over one shared KV cache; every decode step
 advances ALL slots (each at its own absolute position, the decoder's
@@ -23,7 +24,10 @@ Invariants, as the reference's:
   come back in ONE copy at the end of the window.  Where the reference
   donates the pool into a ``lax.scan``, the port updates the cache IN
   PLACE: ``decode_step`` writes each step's K/V rows into the pool's
-  tensors.
+  tensors.  An SSD stack's pool is its per-slot recurrent state (conv
+  tail and SSD state), stepped in place the same way; a slot that is
+  not active keeps stepping inside a window, as in the reference, and
+  its state is overwritten whole when the slot is next seated.
 - **Refill.**  Up to ``n_free`` queued prompts are prefilled in one
   call into a row cache whose rows are then written into their slots
   (``slot_write``), with the per-slot decode state set in the same
@@ -131,12 +135,22 @@ def slot_write(pool: tfm.Cache, rows: tfm.Cache,
     index and a scatter with repeated indices has no defined order on
     the card.  A repeated valid index raises.  The slot's position row
     is rewritten whole (the prompt's rows, -1 beyond), which retires
-    any validity left by its previous occupant."""
+    any validity left by its previous occupant; on an SSD stack the
+    slot's conv tail and SSD state are written whole, which retires the
+    state left by its previous occupant."""
     slot_idx = np.asarray(slot_idx)
     if len(slot_idx) != rows.n_slots:
         raise ValueError(f"{len(slot_idx)} slot indices for a row cache "
                          f"of {rows.n_slots} rows")
-    if (pool.k.shape[0] != rows.k.shape[0]
+    if pool.recurrent != rows.recurrent:
+        raise ValueError("a recurrent-state cache and a KV cache do not mix")
+    if pool.recurrent:
+        fits = all(p.shape[0] == r.shape[0] and p.shape[2:] == r.shape[2:]
+                   for p, r in ((pool.conv, rows.conv), (pool.h, rows.h)))
+        if not fits:
+            raise ValueError(f"row state {tuple(rows.h.shape)} does not "
+                             f"fit pool {tuple(pool.h.shape)}")
+    elif (pool.k.shape[0] != rows.k.shape[0]
             or pool.k.shape[3:] != rows.k.shape[3:]
             or rows.k.shape[2] > pool.k.shape[2]):
         raise ValueError(f"row cache {tuple(rows.k.shape)} does not fit "
@@ -148,9 +162,13 @@ def slot_write(pool: tfm.Cache, rows: tfm.Cache,
         raise ValueError(f"repeated slot index in {slot_idx.tolist()}")
     if len(keep) == 0:
         return
-    dev = pool.k.device
+    dev = (pool.h if pool.recurrent else pool.k).device
     src = torch.as_tensor(keep, device=dev)
     dst = torch.as_tensor(dst, device=dev)
+    if pool.recurrent:
+        pool.conv[:, dst] = rows.conv[:, src]
+        pool.h[:, dst] = rows.h[:, src]
+        return
     Cr, C = rows.k.shape[2], pool.k.shape[2]
     pool.k[:, dst, :Cr] = rows.k[:, src]
     pool.v[:, dst, :Cr] = rows.v[:, src]
@@ -247,12 +265,21 @@ def pool_hbm_bytes(cfg: ModelConfig, n_slots: int, max_seq: int,
     the part paging shrinks), ``meta_bytes`` (positions, the block
     table and the reference's per-layer and cache-wide length scalars,
     counted as it counts them) and their sum, for the layout that
-    ``cfg.kv_block_size`` selects."""
+    ``cfg.kv_block_size`` selects.  An SSD stack's pool is its f32
+    recurrent state, which the reference counts whole, its cache-wide
+    length scalar included, as ``kv_bytes``, with no ``meta_bytes``."""
     tfm.check_supported(cfg)
+    if cfg.paged_kv:
+        tfm._check_paged_supported(cfg)
+    if cfg.block_kinds[0] == "ssd":
+        d_inner = cfg.ssm_expand * cfg.d_model
+        conv = (cfg.ssm_conv - 1) * (d_inner + 2 * cfg.ssm_state)
+        state = (d_inner // cfg.ssm_headdim) * cfg.ssm_headdim * cfg.ssm_state
+        total = 4 * cfg.n_layers * n_slots * (conv + state) + 4
+        return {"kv_bytes": total, "meta_bytes": 0, "total_bytes": total}
     L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     item = torch.empty((), dtype=dtype).element_size()
     if cfg.paged_kv:
-        tfm._check_paged_supported(cfg)
         mb, C, nb = tfm.paged_geometry(cfg, n_slots, max_seq)
         rows, table = nb * cfg.kv_block_size, n_slots * mb
     else:

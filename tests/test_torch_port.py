@@ -18,7 +18,7 @@ import numpy as np  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
-from repro_torch.models import convert, distilbert  # noqa: E402
+from repro_torch.models import convert, distilbert, ssd  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving import continuous, engine, gated  # noqa: E402
 from repro_torch.serving.adapters import GatedEngineAdapter  # noqa: E402
@@ -82,6 +82,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
     paged_args = tserve.parser().parse_args(
         ["--mode", "generate", "--smoke", "--kv-block-size", "8"])
     paged_cfg = lm_cfg.replace(kv_block_size=8)
+    ssm_cfg = get_smoke_config("mamba2-780m")
+    ssm = tfm.init_lm(ssm_cfg, 0, device="cpu")
+    ssm_tree = {k.replace(".", "/"): v.float().numpy()
+                for k, v in ssm.state_dict().items()}
+    ssm_args = tserve.parser().parse_args(
+        ["--mode", "generate", "--smoke", "--arch", "mamba2-780m"])
     calls += [
         lambda: tfm.init_lm(lm_cfg),
         lambda: tfm.init_cache(lm_cfg, 2, 16),
@@ -92,6 +98,14 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: continuous.ContinuousBatchingEngine(paged_cfg, lm),
         lambda: tserve.serve_generate(gen_args),
         lambda: tserve.serve_generate(paged_args),
+        lambda: tfm.init_lm(ssm_cfg),
+        lambda: tfm.init_cache(ssm_cfg, 2, 16),
+        lambda: ssd.init_ssd_state(2, 128, expand=2, headdim=32, d_state=16,
+                                   conv_width=4),
+        lambda: convert.lm_from_numpy(ssm_cfg, ssm_tree),
+        lambda: engine.GenerationEngine(ssm_cfg, ssm),
+        lambda: continuous.ContinuousBatchingEngine(ssm_cfg, ssm),
+        lambda: tserve.serve_generate(ssm_args),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="needs CUDA"):
@@ -114,6 +128,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
                 q[:, :, 0], q, q, torch.zeros(1, 2, dtype=torch.int32),
                 torch.zeros(1, 4, dtype=torch.int32),
                 torch.zeros(1, dtype=torch.int32), impl=impl)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.ssd_scan(q, q[..., 0], q[0, :, 0, 0], q[..., 0], q[..., 0],
+                     impl="cuda")
     # the CPU runs only when asked for
     assert engine.ClassifierEngine(cfg, model,
                                    device="cpu").device.type == "cpu"

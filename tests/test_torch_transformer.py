@@ -200,7 +200,7 @@ def test_bf16_weights_carry_across_exactly():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("mamba2-780m", "ssd"), ("granite-moe-3b-a800m", "MoE"),
+    ("recurrentgemma-2b", "rglru"), ("granite-moe-3b-a800m", "MoE"),
     ("whisper-medium", "encoder-decoder"), ("minicpm3-4b", "mla"),
 ])
 def test_other_families_raise_with_their_slice(arch, what):
