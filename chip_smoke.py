@@ -8,7 +8,10 @@ not 0.  Phases:
 
   1. device  — the card's name, capability, power limit and idle power;
   2. build   — every CUDA kernel, built from ``src/repro_torch/kernels/csrc``
-               (one ``nvcc`` per source, all at once), with the seconds taken;
+               (one ``nvcc`` per source, all at once), with the seconds taken
+               in all and by each library, and the count of ``HGMMA``
+               (tensor-core ``wgmma``) instructions in the flash library's
+               SASS (``cuobjdump``);
   3. kernel  — each kernel on the card against its plain PyTorch version on
                the same inputs (f32 to 1e-4, bf16 to 3e-2, argmax exact, the
                first index winning ties), timed with CUDA events beside its
@@ -25,12 +28,16 @@ not 0.  Phases:
   6. breakdown — the gated step's parts at batch 64, timed on the card;
   7. attention — the flash-attention, flash-decode and paged
                flash-decode kernels against their plain versions at the
-               generate path's shapes, long shapes and a GQA + window
-               case, timed beside their bounds and
-               ``scaled_dot_product_attention`` with the same mask (a
-               yardstick only: the port never calls it; for the paged
-               kernel on the pre-gathered view, the gather left out); the
-               paged kernel also against its gather shim, byte for byte;
+               generate path's shapes, long shapes (one user's 8192-row
+               context among them), ragged and GQA + window cases, timed
+               beside their bounds and ``scaled_dot_product_attention``
+               with the same mask (a yardstick only: the port never calls
+               it; for the paged kernel on the pre-gathered view, the
+               gather left out); the paged kernel also against its gather
+               shim, byte for byte; a decode call's spans and span-merge
+               launches; then ``decode_invariance``: the serving case's
+               valid rows in a 128-row and in a mostly empty 4096-row
+               cache, contiguous and paged, all equal byte for byte;
   8. serve_generate — stablelm-3b at published width (32 layers, bf16,
                seeded weights) through the launcher's ``serve_generate``:
                32 requests x 16 new tokens over 8 slots, bio controller;
@@ -43,6 +50,10 @@ not 0.  Phases:
  10. breakdown_generate — one decode step at 8 slots: attention kernels,
                products and the rest, beside the weight-bytes bound; and
                the same step over a paged pool (breakdown_generate_paged);
+               prefill_long_generate — one 2048-token prompt through the
+               served model into a 2064-row cache: ms per call, flash
+               launches, flash's share of the call's device time, and the
+               first 8 greedy tokens against ``attn_impl="xla"``;
  11. serve_generate_paged — the same launcher run on a paged pool of 13
                blocks of 16 rows (``--kv-block-size 16 --kv-pool-blocks
                13``: 12 allocatable blocks seat at most 6 of the 8 slots;
@@ -199,6 +210,33 @@ def phase_device():
     return name, smi
 
 
+def _cuobjdump():
+    """The CUDA toolkit's ``cuobjdump``, or the one Triton carries; None
+    where neither exists."""
+    for d in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if d and os.path.isfile(os.path.join(d, "bin", "cuobjdump")):
+            return os.path.join(d, "bin", "cuobjdump")
+    try:
+        import triton
+    except ImportError:
+        return None
+    tool = os.path.join(os.path.dirname(triton.__file__), "backends",
+                        "nvidia", "bin", "cuobjdump")
+    return tool if os.path.isfile(tool) else None
+
+
+def sass_count(lib: str, opcode: str):
+    """How many ``opcode`` instructions the library's SASS holds, or
+    "not available" without a ``cuobjdump``."""
+    tool = _cuobjdump()
+    if tool is None:
+        return "not available"
+    sass = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    return sum(ln.split()[1].startswith(opcode) for ln in sass.splitlines()
+               if ln.strip().startswith("/*") and len(ln.split()) > 1)
+
+
 def phase_build():
     t0 = time.perf_counter()
     paths = build.build_all()
@@ -210,9 +248,14 @@ def phase_build():
             with open(log) as f:
                 ptxas[name] = [ln.strip() for ln in f
                                if "registers" in ln or "spill" in ln]
+    flash = str(paths["flash_attention"])
+    hgmma = sass_count(flash, "HGMMA")
+    fail_unless(hgmma == "not available" or hgmma > 0,
+                "flash_attention: the tensor-core body holds HGMMA")
     emit(phase="build", seconds=secs,
+         library_seconds=dict(build.build_seconds),
          libraries={n: os.path.relpath(p, ROOT) for n, p in paths.items()},
-         ptxas=ptxas)
+         flash_sass_hgmma=hgmma, ptxas=ptxas)
 
 
 def _tied_rows(dev) -> torch.Tensor:
@@ -465,6 +508,22 @@ ATTN_CASES = [
     dict(name="paged_gqa_window", kind="paged", B=8, H=32, K=8, S=1024,
          hd=128, bs=32, qdt=torch.float32, kvdt=torch.float32, window=256,
          lengths=[600 + 37 * b for b in range(8)], iters=50),
+    # the tensor-core flash body: GQA + window, a ragged prompt, hd 64
+    dict(name="prefill_gqa_window_bf16", kind="flash", B=2, H=32, K=8,
+         S=512, hd=128, qdt=torch.bfloat16, kvdt=torch.bfloat16,
+         window=128, iters=20),
+    dict(name="prefill_ragged_bf16", kind="flash", B=2, H=32, K=32, S=1000,
+         hd=80, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0, iters=10),
+    dict(name="prefill_long_hd64_bf16", kind="flash", B=1, H=16, K=16,
+         S=2048, hd=64, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         iters=10),
+    # one user's long context: 32 (slot, head) pairs, split into spans
+    dict(name="decode_long_b1", kind="decode", B=1, H=32, K=32, S=8192,
+         hd=80, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         lengths=[8192], ring=False, iters=20),
+    dict(name="paged_long_b1", kind="paged", B=1, H=32, K=32, S=8192, hd=80,
+         bs=16, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         lengths=[8192], iters=20),
 ]
 
 
@@ -571,7 +630,9 @@ def phase_attention(peaks):
                 q, k, v, kv_pos, cur, window=window)
             lib = _library_call(kind, q, k, v, mask, False)
             name = "decode_attention"
+        da_mod.combine_launches = 0
         got, want = kern(), plain()
+        combines = da_mod.combine_launches
         if kind == "paged":
             fail_unless(torch.equal(got, shim()),
                         f"{case['name']}: paged kernel != gather shim")
@@ -608,6 +669,12 @@ def phase_attention(peaks):
                    plain_ms=graph_ms(plain, max(it // 4, 2)),
                    library_ms=lib_ms, library_computes=lib_what,
                    library_max_abs_err=lib_err)
+        if kind != "flash":
+            plan = da_mod.decode_span_plan(B, H, S, hd)
+            fail_unless(combines == plan.combine,
+                        f"{case['name']}: {combines} span merges for "
+                        f"{plan.spans} spans")
+            row.update(spans=plan.spans, combine_launches=combines)
         if kind == "paged":
             row.update(bs=case["bs"], pool_blocks=kp.shape[0],
                        pool_bytes=2 * kp.numel() * kp.element_size(),
@@ -621,7 +688,47 @@ def phase_attention(peaks):
         if case["name"] in ("prefill_main", "decode_main_bf16q",
                             "paged_main"):
             out[name]["main"] = row
+    phase_decode_invariance(gen)
     return out
+
+
+def phase_decode_invariance(gen):
+    """The serving decode case (8 slots, 17-31 valid rows, bf16) in a
+    128-row cache (one span) and with the same rows in a 4096-row cache
+    whose other rows are empty (several spans, the span merge), both
+    layouts (paged at bs 16): four results, equal byte for byte."""
+    B, H, K, hd, bs = 8, 32, 32, 80, PAGED_BS
+    lengths = list(range(17, 33, 2))
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    rows = [torch.randn(B, 128, K, hd, generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2)]
+    outs, spans = {}, {}
+    for S in (128, 4096):
+        kc, vc = (torch.zeros(B, S, K, hd, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(2))
+        kc[:, :128], vc[:, :128] = rows
+        kv_pos, cur = _decode_positions(B, S, lengths, ring=False)
+        outs[f"contiguous_{S}"] = da_mod.decode_attention_cuda(
+            q, kc.transpose(1, 2), vc.transpose(1, 2), kv_pos, cur)
+        # the same logical rows in a pool of shuffled blocks
+        mb = S // bs
+        perm = torch.randperm(B * mb, generator=gen, device="cuda") + 1
+        table = perm.reshape(B, mb).to(torch.int32)
+        pools = []
+        for x in (kc, vc):
+            pool = torch.full((1 + B * mb, bs, K, hd), 1e3, device="cuda",
+                              dtype=torch.bfloat16)
+            pool[table.long()] = x.reshape(B, mb, bs, K, hd)
+            pools.append(pool)
+        outs[f"paged_{S}"] = da_mod.paged_decode_attention_cuda(
+            q, pools[0], pools[1], table, kv_pos, cur)
+        spans[S] = da_mod.decode_span_plan(B, H, S, hd).spans
+    torch.cuda.synchronize()
+    ref = outs["contiguous_128"]
+    equal = {k: bool(torch.equal(v, ref)) for k, v in outs.items()}
+    fail_unless(all(equal.values()), f"decode_invariance: {equal}")
+    emit(phase="decode_invariance", B=B, H=H, K=K, hd=hd, bs=bs,
+         valid_rows=lengths, spans=spans, equal_to_contiguous_128=equal)
 
 
 def phase_serve_generate():
@@ -729,10 +836,11 @@ def phase_parity_generate(model):
              (res["auto"][1][:, 0] == res["xla"][1][:, 0]).all()))
 
 
-def _profile_step(step):
+def _profile_step(step, attention="decode_kernel"):
     """Kernels and device time of one call, by the profiler, split by
-    name into the attention kernel, matrix products and the rest; None
-    where the profiler records no device time here."""
+    name into the attention kernel (names holding ``attention``),
+    matrix products and the rest; None where the profiler records no
+    device time here."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -748,7 +856,7 @@ def _profile_step(step):
         if t is None:
             t = getattr(e, "cuda_time", 0.0)
         name = e.name.lower()
-        if "decode_kernel" in name:
+        if attention in name:
             parts["attention"] += t / 1e3
         elif any(w in name for w in ("gemm", "gemv", "cutlass", "xmma",
                                      "nvjet", "splitk")):
@@ -840,6 +948,61 @@ def phase_breakdown_generate(model, peaks):
 
 
 PAGED_BS, PAGED_POOL = 16, 13      # 12 allocatable blocks of 16 rows
+LONG_PROMPT, LONG_MAX_SEQ = 2048, 2064
+
+
+def phase_prefill_long_generate(model):
+    """One 2048-token prompt through the served stablelm-3b (full width,
+    32 layers, bf16) into a contiguous cache of 2064 rows (676 MB of
+    K/V): the prefill's time from the host around a synchronised call
+    after a warm one, its flash launches, flash's share of its device
+    time, and the first 8 greedy tokens against ``attn_impl="xla"``
+    (printed, not checked: full-depth bf16 differs by rounding)."""
+    cfg = model.cfg
+    prompt = np.random.default_rng(7).integers(
+        0, cfg.vocab, (1, LONG_PROMPT)).astype(np.int32)
+    cache = tfm.init_cache(cfg, 1, LONG_MAX_SEQ, device="cuda")
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for t in (cache.layer(0).k, cache.layer(0).v)) * cfg.n_layers
+
+    def prefill():
+        return model.prefill(prompt, cache)
+
+    prefill()
+    torch.cuda.synchronize()
+    fa_mod.launches = 0
+    t0 = time.perf_counter()
+    logits, _ = prefill()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = fa_mod.launches
+    fail_unless(launches == cfg.n_layers,
+                f"long prefill: {launches} flash launches, one per layer")
+    fail_unless(bool(torch.isfinite(logits.float()).all()),
+                "long prefill: finite logits")
+    try:
+        prof = _profile_step(prefill, attention="flash_tc_kernel")
+    except Exception as e:          # the profiler is untried on the card
+        prof = {"error": repr(e)[:200]}
+    toks = {}
+    for impl in ("auto", "xla"):
+        model.attn_impl = impl
+        toks[impl] = GenerationEngine(cfg, model, max_seq=LONG_MAX_SEQ,
+                                      device="cuda").generate(prompt, 8)
+    model.attn_impl = "auto"
+    agree = float((toks["auto"] == toks["xla"]).mean())
+    device_ms = (None if prof is None or "error" in prof else
+                 prof["attention_ms"] + prof["products_ms"] + prof["rest_ms"])
+    emit(phase="prefill_long_generate", prompt_tokens=LONG_PROMPT,
+         max_seq=LONG_MAX_SEQ, kv_cache_bytes=kv_bytes, prefill_ms=ms,
+         flash_launches=launches,
+         flash_device_share=(prof["attention_ms"] / device_ms if device_ms
+                             else prof or "no device time recorded"),
+         flash_device_ms=prof["attention_ms"] if device_ms else None,
+         device_ms=device_ms,
+         greedy_tokens_kernel=np.asarray(toks["auto"]).tolist(),
+         greedy_tokens_xla=np.asarray(toks["xla"]).tolist(),
+         greedy_token_agreement_vs_xla=agree)
 
 
 def phase_serve_generate_paged():
@@ -1312,6 +1475,7 @@ def main() -> int:
     gen_launches, lm = phase_serve_generate()
     phase_parity_generate(lm)
     phase_breakdown_generate(lm, peaks)
+    phase_prefill_long_generate(lm)
     paged_launches = phase_serve_generate_paged()
     phase_parity_paged(lm)
     del lm

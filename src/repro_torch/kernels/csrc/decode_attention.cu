@@ -24,42 +24,56 @@
 // whose rows are never valid by kv_pos; the table entry of a row is read
 // only when the row is valid.
 //
-// Design: one block of 256 threads (8 warps) per (slot, kv head, group of up
-// to 4 query heads of that kv head), so a K/V row read from memory serves
-// every query head of its group.  The TPU kernel's sequential grid axis over
-// S becomes a loop inside the block: warp w takes the 32-key groups
-// w, w + 8, ...; each lane reads one kv_pos of the group (coalesced), and on
-// the paged layout that row's table entry beside it; a ballot gives the valid
-// keys, and the warp walks them two at a time (both rows loaded before either
-// is used, so two loads are in flight); on the paged layout each lane works
-// out its row's pool row once, and the walk takes it from that lane with
-// one shuffle.  For a key the lanes split hd into
-// 4-element chunks (16-byte f32 or 8-byte bf16 loads), a shuffle reduction
-// gives the score, and each lane keeps an online (max, sum, acc) for its
-// chunks.  The 8 warps' states are merged through shared memory at the end.
-// The layout enters only through the row a key is read from (the template
-// flag kPaged): the schedule depends on logical row indices and values
-// alone, so the paged kernel and the contiguous kernel run over the gathered
-// rows (the gather shim) give the same bytes for any block size.  Masked keys
-// are skipped, not loaded: a row of the cache that no query may see is never
-// read, and a slot with no valid key (an empty slot, whose output nothing
-// reads) gives 0, where the TPU kernel gives the mean of its masked rows;
-// both are finite.
+// Design: split-span flash-decode, one body for both layouts.  The logical
+// rows are cut into spans of kSpan rows; one block of 256 threads (8 warps)
+// runs per (slot, kv head, group of up to 4 query heads of that kv head,
+// span), so a K/V row read from memory serves every query head of its group
+// and a long cache spreads over many SMs even for one slot.  Inside a span
+// the rows are interleaved finely over the warps: of every 32 rows, warp w
+// takes rows 4w .. 4w + 3, its four 8-lane subgroups one row each, so the 17
+// to 31 valid rows of a served slot land on all 8 warps.  A warp works a tile
+// of two such groups at once (8 rows; one group, 4 rows, at hd > 128):
+// each lane reads its rows' kv_pos (and on the paged layout works out the
+// pool row from the table, once per row), skips the tile when no row is
+// valid, loads
+// every valid row's K and V chunks before using any (16-byte loads: a hd-80
+// bf16 row is 10 chunks over 8 lanes), reduces each row's score over its
+// subgroup, and folds the tile into its online (max, sum, acc) with ONE max
+// and ONE rescale per tile, not per key.  Each subgroup keeps a partial acc
+// over its own rows (the tile's max and sum are shared by the warp); the
+// partials are summed at the end, then the 8 warps' states are merged through
+// shared memory in warp order.  A span whose cache is one span long writes
+// out directly: one launch, no scratch.  Longer caches write each span's
+// (max, sum, acc) in f32 to scratch [B, H, spans, hd + 2] that the wrapper
+// allocates, and combine_kernel merges the spans in span order.
+//
+// Invariance: the span boundaries, the tiles and every sum's order are
+// functions of the logical row index alone, and a masked or absent row, a
+// skipped tile and an empty warp or span merge as exact no-ops
+// (expf(-1e30 - m) = 0, x * 1.0 and x + 0 are exact).  So the result's bytes
+// depend only on the valid rows and their values: not on S, on how many
+// trailing spans are empty, on the layout or on the block size.  The paged
+// kernel equals the contiguous kernel run over the gathered rows (the gather
+// shim) for any block size, and a cache of one span equals the same rows in
+// a mostly empty cache of many.  Masked keys are skipped, not loaded: a row
+// that no query may see is never read, and a slot with no valid key (an
+// empty slot, whose output nothing reads) gives 0, where the TPU kernel
+// gives the mean of its masked rows; both are finite.
 //
 // Bound on the H100: bytes.  One token's attention does 4 FLOPs per cached
 // element it reads, far below the card's ratio of ~295 operations per byte,
 // so its least time is the valid K/V rows (plus q, kv_pos, the table and out)
-// over HBM bandwidth (3.35 TB/s on the SXM part).  Skipping masked rows is
-// what the design does about that on the serving path, where a slot's cache
-// is mostly empty; streaming each row once for all the heads of its group is
-// the other half; the paged layout reads the pool in place, with no gathered
-// copy.  What is left for later work: split-S across blocks when B * K is
-// small, cp.async/TMA staging of the rows, and a CUDA-graph-captured decode
-// step around it (at the serving shapes the launch, not the bytes, is the
-// cost).
+// over HBM bandwidth (3.35 TB/s on the SXM part).  What the design does about
+// it: masked rows are skipped; each row is read once for all the heads of
+// its group; 16-byte loads with 8 rows per warp in flight; and spans put
+// B * K * groups * spans blocks on the card, so that one user's 8192-row
+// context fills 132 SMs where a block per (slot, head) gave 32.  At the
+// serving shape (17-31 valid rows of 128) the launch, not the bytes, is the
+// cost; the CUDA-graph-captured decode step is the later work there.
 //
 // Plain C interface, bound from Python with ctypes: each entry point launches
-// on the given stream and returns cudaGetLastError() right after the launch.
+// on the given stream and returns cudaGetLastError() right after the launch
+// (after the combine's launch, when there is one).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,9 +83,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kHeads = 4;                  // query heads per block
+constexpr int kHeads = 4;                  // query heads per block, at most
 constexpr int kMaxHd = 256;
-constexpr int kChunks = kMaxHd / 4 / 32;   // 4-element chunks per lane
+constexpr int kSpan = 1024;                // logical rows per span
+constexpr int kCombineThreads = 128;
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -95,95 +110,66 @@ struct DecodeArgs {
   // table row is tbl + b * t_sb, entry j at j * t_sj
   const int32_t* tbl;
   int bs;
+  int bs_shift;      // log2(bs) when bs is a power of two, else -1
   int64_t t_sb, t_sj;
+  // spans: 1 writes out directly; more write part [B, H, spans, hd + 2]
+  int spans;
+  float* part;
 };
 
-__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  x[0] = v.x;
-  x[1] = v.y;
-  x[2] = v.z;
-  x[3] = v.w;
-}
+template <typename T>
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));   // elements per chunk
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  x[0] = a.x;
-  x[1] = a.y;
-  x[2] = b.x;
-  x[3] = b.y;
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
-
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
+// one 16-byte chunk as floats
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[4]) {
+  x[0] = __uint_as_float(u.x);
+  x[1] = __uint_as_float(u.y);
+  x[2] = __uint_as_float(u.z);
+  x[3] = __uint_as_float(u.w);
 }
-
-// one key's K and V chunks for this lane (zeros past hd)
-template <typename TKV>
-__device__ __forceinline__ void load_row(const TKV* krow, const TKV* vrow,
-                                         int lane, int nchunk,
-                                         float (&kx)[kChunks][4],
-                                         float (&vx)[kChunks][4]) {
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const int chunk = lane + 32 * c;
-    if (chunk < nchunk) {
-      load4(krow + 4 * chunk, kx[c]);
-      load4(vrow + 4 * chunk, vx[c]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) kx[c][e] = vx[c][e] = 0.0f;
-    }
+  for (int i = 0; i < 4; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
   }
 }
 
-// fold one valid key into the online state of every head of the block
-__device__ __forceinline__ void update(const float (&q)[kHeads][kChunks][4],
-                                       const float (&kx)[kChunks][4],
-                                       const float (&vx)[kChunks][4], int ng,
-                                       float (&m)[kHeads], float (&l)[kHeads],
-                                       float (&acc)[kHeads][kChunks][4]) {
-#pragma unroll
-  for (int g = 0; g < kHeads; ++g) {
-    if (g >= ng) break;
-    float part = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part = fmaf(q[g][c][e], kx[c][e], part);
-    const float s = warp_sum(part);
-    const float m_new = fmaxf(m[g], s);
-    const float corr = expf(m[g] - m_new);
-    const float p = expf(s - m_new);
-    l[g] = l[g] * corr + p;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[g][c][e] = fmaf(p, vx[c][e], acc[g][c][e] * corr);
-    m[g] = m_new;
-  }
-}
-
-template <typename TQ, typename TKV, bool kPaged>
+template <typename TQ, typename TKV, bool kPaged, int NH, int DPL>
 __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
+  constexpr int VEC = kVec<TKV>;
+  constexpr int CH = DPL / VEC;               // chunks per lane and row
+  constexpr int RJ = DPL <= 16 ? 2 : 1;       // rows per lane and tile
+  __shared__ float qs[NH][kMaxHd];
+  __shared__ float sm_m[kWarps][NH];
+  __shared__ float sm_l[kWarps][NH];
+  __shared__ float sm_acc[kWarps][NH][kMaxHd];
+
   const int b = blockIdx.x;
   const int kh = blockIdx.y;
   const int G = a.H / a.K;
-  const int g0 = blockIdx.z * kHeads;
-  const int ng = min(kHeads, G - g0);
+  const int grp = blockIdx.z / a.spans;
+  const int sp = blockIdx.z - grp * a.spans;
+  const int g0 = grp * NH;
+  const int ng = min(NH, G - g0);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nchunk = a.hd / 4;
+  const int sub = lane >> 3;                  // the subgroup's row of 4
+  const int sl = lane & 7;                    // lane within the subgroup
+  const int hd = a.hd;
+  const int nchunk = hd / VEC;
   const int cur = a.cur[b];
 
   const TQ* qb = static_cast<const TQ*>(a.q) + b * a.q_sb;
@@ -192,86 +178,166 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
   const int32_t* pb = a.kv_pos + b * a.p_sb;
   const int32_t* tb = kPaged ? a.tbl + b * a.t_sb : nullptr;
 
-  float q[kHeads][kChunks][4];
-  float m[kHeads], l[kHeads], acc[kHeads][kChunks][4];
+  for (int i = threadIdx.x; i < ng * hd; i += kThreads) {
+    const int g = i / hd;
+    const int d = i - g * hd;
+    qs[g][d] = to_float(qb[(kh * G + g0 + g) * a.q_sh + d]) * a.scale;
+  }
+  __syncthreads();
+
+  float m[NH], l[NH], acc[NH][DPL];
 #pragma unroll
-  for (int g = 0; g < kHeads; ++g) {
-    const int h = kh * G + g0 + g;
+  for (int g = 0; g < NH; ++g) {
     m[g] = kNeg;
     l[g] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const int chunk = lane + 32 * c;
-      if (g < ng && chunk < nchunk) {
-        float x[4];
-        load4(qb + h * a.q_sh + 4 * chunk, x);
+    for (int e = 0; e < DPL; ++e) acc[g][e] = 0.0f;
+  }
+
+  const int s_begin = sp * kSpan;
+  const int s_end = min(a.S, s_begin + kSpan);
+  for (int base = s_begin; base < s_end; base += 32 * RJ) {
+    bool ok[RJ];
+    int64_t row[RJ];  // the row to read: the cache row or the pool row
+    bool any = false;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) q[g][c][e] = x[e] * a.scale;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) q[g][c][e] = 0.0f;
+    for (int j = 0; j < RJ; ++j) {
+      const int s = base + 32 * j + 4 * warp + sub;
+      ok[j] = false;
+      row[j] = s;
+      if (s < s_end) {
+        const int kp = pb[s * a.p_ss];
+        ok[j] = kp >= 0 && kp <= cur && (a.window == 0 || cur - kp < a.window);
+        if constexpr (kPaged) {
+          if (ok[j]) {
+            const int blk = a.bs_shift >= 0 ? s >> a.bs_shift : s / a.bs;
+            row[j] = static_cast<int64_t>(tb[blk * a.t_sj]) * a.bs + s -
+                     blk * a.bs;
+          }
+        }
       }
+      any |= ok[j];
+    }
+    if (!__any_sync(kFull, any)) continue;
+
+    // every valid row's chunks in flight before any is used
+    uint4 kr[RJ][CH], vr[RJ][CH];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[g][c][e] = 0.0f;
+    for (int j = 0; j < RJ; ++j)
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const int chunk = sl + 8 * c;
+        if (ok[j] && chunk < nchunk) {
+          kr[j][c] = *reinterpret_cast<const uint4*>(kb + row[j] * a.k_ss +
+                                                     chunk * VEC);
+          vr[j][c] = *reinterpret_cast<const uint4*>(vb + row[j] * a.v_ss +
+                                                     chunk * VEC);
+        } else {
+          kr[j][c] = make_uint4(0u, 0u, 0u, 0u);
+          vr[j][c] = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+
+#pragma unroll
+    for (int g = 0; g < NH; ++g) {
+      if (g >= ng) break;
+      // each row's score over its subgroup, the same bits in all 8 lanes
+      float s[RJ];
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) s[j] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const int chunk = sl + 8 * c;
+        if (chunk < nchunk) {
+          float qv[VEC];
+#pragma unroll
+          for (int e = 0; e < VEC; e += 4) {
+            const float4 f =
+                *reinterpret_cast<const float4*>(&qs[g][chunk * VEC + e]);
+            qv[e] = f.x;
+            qv[e + 1] = f.y;
+            qv[e + 2] = f.z;
+            qv[e + 3] = f.w;
+          }
+#pragma unroll
+          for (int j = 0; j < RJ; ++j) {
+            float kx[VEC];
+            unpack(kr[j][c], kx);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) s[j] = fmaf(qv[e], kx[e], s[j]);
+          }
+        }
+      }
+      float mt = kNeg;
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) s[j] += __shfl_xor_sync(kFull, s[j], o);
+        s[j] = ok[j] ? s[j] : kNeg;
+        mt = fmaxf(mt, s[j]);
+      }
+      // ONE max and ONE rescale for the warp's tile
+      mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, 8));
+      mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, 16));
+      const float m_new = fmaxf(m[g], mt);
+      const float corr = expf(m[g] - m_new);
+      float p[RJ];
+      float psum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        p[j] = expf(s[j] - m_new);
+        psum += p[j];
+      }
+      psum += __shfl_xor_sync(kFull, psum, 8);
+      psum += __shfl_xor_sync(kFull, psum, 16);
+      l[g] = l[g] * corr + psum;
+      m[g] = m_new;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[g][c * VEC + e] *= corr;
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) {
+          float vx[VEC];
+          unpack(vr[j][c], vx);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            acc[g][c * VEC + e] = fmaf(p[j], vx[e], acc[g][c * VEC + e]);
+        }
+      }
     }
   }
 
-  for (int s0 = warp * 32; s0 < a.S; s0 += kWarps * 32) {
-    const int s = s0 + lane;
-    bool ok = false;
-    int prow = 0;  // this lane's pool row (paged), for a valid row only
-    if (s < a.S) {
-      const int kp = pb[s * a.p_ss];
-      ok = kp >= 0 && kp <= cur && (a.window == 0 || cur - kp < a.window);
-      if constexpr (kPaged) {
-        if (ok) prow = tb[(s / a.bs) * a.t_sj] * a.bs + s % a.bs;
+  // the subgroups' partial accs, then the warps' states through shared memory
+#pragma unroll
+  for (int g = 0; g < NH; ++g) {
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) {
+      acc[g][e] += __shfl_xor_sync(kFull, acc[g][e], 8);
+      acc[g][e] += __shfl_xor_sync(kFull, acc[g][e], 16);
+    }
+    if (g < ng) {
+      if (lane == 0) {
+        sm_m[warp][g] = m[g];
+        sm_l[warp][g] = l[g];
       }
-    }
-    unsigned valid = __ballot_sync(kFull, ok);
-    while (valid) {
-      const int i0 = __ffs(valid) - 1;
-      valid &= valid - 1;
-      const int i1 = valid ? __ffs(valid) - 1 : -1;
-      if (i1 >= 0) valid &= valid - 1;
-      // the rows to read: the cache rows themselves, or the pool rows
-      int r0 = s0 + i0, r1 = s0 + i1;
-      if constexpr (kPaged) {
-        r0 = __shfl_sync(kFull, prow, i0);
-        r1 = __shfl_sync(kFull, prow, i1 >= 0 ? i1 : i0);
-      }
-      float k0[kChunks][4], v0[kChunks][4], k1[kChunks][4], v1[kChunks][4];
-      load_row(kb + r0 * a.k_ss, vb + r0 * a.v_ss, lane, nchunk, k0, v0);
-      if (i1 >= 0)
-        load_row(kb + r1 * a.k_ss, vb + r1 * a.v_ss, lane, nchunk, k1, v1);
-      update(q, k0, v0, ng, m, l, acc);
-      if (i1 >= 0) update(q, k1, v1, ng, m, l, acc);
-    }
-  }
-
-  // merge the warps' online states
-  __shared__ float sm_m[kWarps][kHeads];
-  __shared__ float sm_l[kWarps][kHeads];
-  __shared__ float sm_acc[kWarps][kHeads][kMaxHd];
+      if (sub == 0) {
 #pragma unroll
-  for (int g = 0; g < kHeads; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
+        for (int c = 0; c < CH; ++c) {
+          const int chunk = sl + 8 * c;
+          if (chunk < nchunk) {
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const int chunk = lane + 32 * c;
-      if (chunk < nchunk) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sm_acc[warp][g][4 * chunk + e] = acc[g][c][e];
+            for (int e = 0; e < VEC; ++e)
+              sm_acc[warp][g][chunk * VEC + e] = acc[g][c * VEC + e];
+          }
+        }
       }
     }
   }
   __syncthreads();
-  TQ* ob = static_cast<TQ*>(a.out) + b * a.o_sb;
-  for (int i = threadIdx.x; i < ng * a.hd; i += kThreads) {
-    const int g = i / a.hd;
-    const int d = i - g * a.hd;
+  for (int i = threadIdx.x; i < ng * hd; i += kThreads) {
+    const int g = i / hd;
+    const int d = i - g * hd;
     float mx = kNeg;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
@@ -283,21 +349,74 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
       num += sm_acc[w][g][d] * c;
     }
     const int h = kh * G + g0 + g;
-    store(ob + h * a.o_sh + d, num / fmaxf(sum, 1e-30f));
+    if (a.spans == 1) {
+      TQ* ob = static_cast<TQ*>(a.out) + b * a.o_sb;
+      store(ob + h * a.o_sh + d, num / fmaxf(sum, 1e-30f));
+    } else {
+      float* pp =
+          a.part + ((static_cast<int64_t>(b) * a.H + h) * a.spans + sp) *
+                       (hd + 2);
+      pp[d] = num;
+      if (d == 0) {
+        pp[hd] = mx;
+        pp[hd + 1] = sum;
+      }
+    }
   }
 }
 
-template <typename TQ, typename TKV, bool kPaged>
-int launch(const DecodeArgs& a, int B, void* stream) {
+// merges the spans of one (slot, query head) in span order; a span with no
+// valid row (max -1e30, sum 0, acc 0) adds exactly 0
+template <typename TQ>
+__global__ void __launch_bounds__(kCombineThreads)
+    combine_kernel(const DecodeArgs a) {
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int hd = a.hd;
+  const float* pp =
+      a.part + (static_cast<int64_t>(b) * a.H + h) * a.spans * (hd + 2);
+  float mx = kNeg;
+  for (int sp = 0; sp < a.spans; ++sp) mx = fmaxf(mx, pp[sp * (hd + 2) + hd]);
+  TQ* ob = static_cast<TQ*>(a.out) + b * a.o_sb + h * a.o_sh;
+  for (int d = threadIdx.x; d < hd; d += kCombineThreads) {
+    float sum = 0.0f, num = 0.0f;
+    for (int sp = 0; sp < a.spans; ++sp) {
+      const float* s = pp + sp * (hd + 2);
+      const float c = expf(s[hd] - mx);
+      sum += s[hd + 1] * c;
+      num += s[d] * c;
+    }
+    store(ob + d, num / fmaxf(sum, 1e-30f));
+  }
+}
+
+template <typename TQ, typename TKV, bool kPaged, int NH, int DPL>
+int launch_body(const DecodeArgs& a, int B, cudaStream_t stream) {
   const int G = a.H / a.K;
   const dim3 grid(static_cast<unsigned>(B), static_cast<unsigned>(a.K),
-                  static_cast<unsigned>((G + kHeads - 1) / kHeads));
-  decode_kernel<TQ, TKV, kPaged>
-      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+                  static_cast<unsigned>((G + NH - 1) / NH * a.spans));
+  decode_kernel<TQ, TKV, kPaged, NH, DPL><<<grid, kThreads, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.spans == 1) return static_cast<int>(err);
+  const dim3 cgrid(static_cast<unsigned>(B), static_cast<unsigned>(a.H));
+  combine_kernel<TQ><<<cgrid, kCombineThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename TQ, typename TKV, bool kPaged>
+int launch(const DecodeArgs& a, int B, void* stream_ptr) {
+  const auto stream = static_cast<cudaStream_t>(stream_ptr);
+  const bool mha = a.H == a.K;
+  if (a.hd <= 128)
+    return mha ? launch_body<TQ, TKV, kPaged, 1, 16>(a, B, stream)
+               : launch_body<TQ, TKV, kPaged, kHeads, 16>(a, B, stream);
+  return mha ? launch_body<TQ, TKV, kPaged, 1, 32>(a, B, stream)
+             : launch_body<TQ, TKV, kPaged, kHeads, 32>(a, B, stream);
+}
+
 }  // namespace
+
+extern "C" int decode_attention_span_rows() { return kSpan; }
 
 #define DECODE_ENTRY(NAME, TQ, TKV)                                            \
   extern "C" int NAME(const void* q, const void* k, const void* v,             \
@@ -306,11 +425,13 @@ int launch(const DecodeArgs& a, int B, void* stream) {
                       int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,  \
                       int64_t v_sh, int64_t v_ss, int64_t p_sb, int64_t p_ss,  \
                       int64_t o_sb, int64_t o_sh, float scale, int window,     \
-                      void* stream) {                                          \
+                      int spans, void* part, void* stream) {                   \
     DecodeArgs a{q,    k,    v,    static_cast<const int32_t*>(kv_pos),        \
                  static_cast<const int32_t*>(cur),                             \
                  out,  H,    K,    S,    hd,   q_sb, q_sh, k_sb, k_sh, k_ss,   \
                  v_sb, v_sh, v_ss, p_sb, p_ss, o_sb, o_sh, scale, window};     \
+    a.spans = spans;                                                           \
+    a.part = static_cast<float*>(part);                                        \
     return launch<TQ, TKV, false>(a, B, stream);                               \
   }
 
@@ -331,7 +452,7 @@ DECODE_ENTRY(decode_attention_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
                       int64_t k_sh, int64_t v_srow, int64_t v_sh,              \
                       int64_t t_sb, int64_t t_sj, int64_t p_sb, int64_t p_ss,  \
                       int64_t o_sb, int64_t o_sh, float scale, int window,     \
-                      void* stream) {                                          \
+                      int spans, void* part, void* stream) {                   \
     DecodeArgs a{};                                                            \
     a.q = q;                                                                   \
     a.k = k;                                                                   \
@@ -359,8 +480,11 @@ DECODE_ENTRY(decode_attention_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
     a.window = window;                                                         \
     a.tbl = static_cast<const int32_t*>(tbl);                                  \
     a.bs = bs;                                                                 \
+    a.bs_shift = (bs & (bs - 1)) == 0 ? __builtin_ctz(bs) : -1;               \
     a.t_sb = t_sb;                                                             \
     a.t_sj = t_sj;                                                             \
+    a.spans = spans;                                                           \
+    a.part = static_cast<float*>(part);                                        \
     return launch<TQ, TKV, true>(a, B, stream);                                \
   }
 

@@ -7,10 +7,14 @@ row, -1 = empty); cur_pos [B] int32 -> [B,H,hd] in q's dtype, the port
 of ``repro.kernels.decode_attention.decode_attention``:
 
   - on CUDA tensors it launches the hand-written Hopper kernel
-    ``csrc/decode_attention.cu`` (one block per slot, kv head and group
-    of up to four query heads; the valid rows streamed once; see the
-    source for its bound and design) and adds one to ``launches``; on a
-    card that is not sm_90 it raises;
+    ``csrc/decode_attention.cu`` (split-span flash-decode: one block per
+    slot, kv head, group of up to four query heads and span of ``SPAN``
+    logical rows, the valid rows spread over all eight warps; a cache
+    longer than one span writes per-span partials to scratch that a
+    second small kernel merges in span order; see the source for its
+    bound and design) and adds one to ``launches`` per call (and one to
+    ``combine_launches`` when the merge runs); on a card that is not
+    sm_90 it raises;
   - on CPU tensors it runs ``decode_attention_plain``, the plain
     PyTorch version of ``repro.kernels.ref.decode_attention``, which
     ``chip_smoke.py`` also holds the kernel against on the card.
@@ -41,26 +45,34 @@ n <= MB) holds the positions of the logical rows; the port of
 contiguous kernel, the table-native kernel's parity oracle: the two
 walk the same logical rows with the same arithmetic, so they give the
 same bytes for any block size (the reference's native == shim at
-``k_blk == bs``).  Table entries are not range-checked on the card
-(that would cost a host sync): the allocator keeps them in range, and
-the plain version raises on one that is not.
+``k_blk == bs``).  The spans and the kernel's schedule are functions of
+the logical row index alone, so a cache of one span and the same rows
+in a mostly empty cache of many spans give the same bytes too
+(``decode_span_plan`` says how a call is split).  Table entries are
+not range-checked on the card (that would cost a host sync): the
+allocator keeps them in range, and the plain version raises on one
+that is not.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.runtime import check_kernel_tensors
 
-# kernel launches since the last reset, contiguous and paged;
-# ``chip_smoke.py`` zeroes them before it drives the main path and reads
-# them after
+# kernel calls since the last reset, contiguous and paged (a split call
+# counts once), and launches of the span merge; ``chip_smoke.py`` zeroes
+# them before it drives the main path and reads them after
 launches = 0
 paged_launches = 0
+combine_launches = 0
+
+SPAN = 1024              # logical rows per span: kSpan of the CUDA source
 
 NEG_INF = -2.0 ** 30     # repro.kernels.ref's mask value
 _TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -94,6 +106,43 @@ def decode_attention_plain(q, k, v, kv_pos, cur_pos, *,
     return o.reshape(B, H, hd).to(q.dtype)
 
 
+class SpanPlan(NamedTuple):
+    """How the kernel splits a call: ``spans`` blocks along the rows,
+    the f32 scratch [B, H, spans, hd + 2] (per span: acc, max, sum) or
+    None, and whether the span merge runs as a second launch."""
+    spans: int
+    scratch_shape: tuple | None
+    combine: bool
+
+
+def decode_span_plan(B: int, H: int, S: int, hd: int) -> SpanPlan:
+    """The split of a decode call over S logical rows: one span (the
+    kernel writes ``out`` itself: one launch, no scratch) up to S =
+    ``SPAN``, else ceil(S / SPAN) spans merged by the combine kernel.
+    The same for both layouts (S is the logical extent)."""
+    spans = max(1, -(-S // SPAN))
+    if spans == 1:
+        return SpanPlan(1, None, False)
+    return SpanPlan(spans, (B, H, spans, hd + 2), True)
+
+
+def _check_rows16(what: str, tensors: dict) -> None:
+    """The kernel reads K/V rows in 16-byte chunks: every stride but the
+    last a multiple of 16 bytes."""
+    for name, t in tensors.items():
+        if any(st * t.element_size() % 16 for st in t.stride()[:-1]):
+            raise ValueError(f"{what}: {name}'s strides must be multiples "
+                             f"of 16 bytes, got {t.stride()} elements of "
+                             f"{t.element_size()} bytes")
+
+
+def _scratch(plan: SpanPlan, device) -> torch.Tensor | None:
+    if plan.scratch_shape is None:
+        return None
+    return torch.empty(plan.scratch_shape, dtype=torch.float32,
+                       device=device)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """``csrc/decode_attention.cu``, built on first use, with its C
@@ -103,30 +152,37 @@ def _library() -> ctypes.CDLL:
         for tkv in _TYPES.values():
             fn = getattr(lib, f"decode_attention_{tq}_{tkv}")
             fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                           + [ctypes.c_int64] * 12 + [ctypes.c_float,
-                                                      ctypes.c_int,
-                                                      ctypes.c_void_p])
+                           + [ctypes.c_int64] * 12
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             fn = getattr(lib, f"paged_decode_attention_{tq}_{tkv}")
             fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                           + [ctypes.c_int64] * 12 + [ctypes.c_float,
-                                                      ctypes.c_int,
-                                                      ctypes.c_void_p])
+                           + [ctypes.c_int64] * 12
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p, ctypes.c_void_p])
             fn.restype = ctypes.c_int
     lib.decode_attention_error_string.argtypes = [ctypes.c_int]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
+    lib.decode_attention_span_rows.restype = ctypes.c_int
+    if lib.decode_attention_span_rows() != SPAN:
+        raise RuntimeError(f"decode_attention.cu splits at "
+                           f"{lib.decode_attention_span_rows()} rows, the "
+                           f"wrapper at SPAN = {SPAN}")
     return lib
 
 
 def decode_attention_cuda(q, k, v, kv_pos, cur_pos, *,
                           window: int = 0) -> torch.Tensor:
     """The CUDA kernel; raises unless every tensor lies on one sm_90
-    card, q and k/v are f32 or bf16 with 16-byte aligned rows, kv_pos
+    card, q and k/v are f32 or bf16 with 16-byte aligned rows (k/v
+    strides multiples of 16 bytes), kv_pos
     and cur_pos are int32, hd is a multiple of 8 up to 256 and H a
     multiple of K."""
-    global launches
+    global launches, combine_launches
     check_kernel_tensors("decode attention", {"q": q, "k": k, "v": v},
                          dtypes=_TYPES, align=True)
+    _check_rows16("decode attention", {"k": k, "v": v})
     check_kernel_tensors("decode attention",
                          {"kv_pos": kv_pos, "cur_pos": cur_pos},
                          dtypes={torch.int32}, align=False, device=q.device)
@@ -155,17 +211,21 @@ def decode_attention_cuda(q, k, v, kv_pos, cur_pos, *,
     lib = _library()
     fn = getattr(lib, f"decode_attention_{_TYPES[q.dtype]}_"
                       f"{_TYPES[k.dtype]}")
+    plan = decode_span_plan(B, H, S, hd)
+    part = _scratch(plan, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  kv_pos.data_ptr(), cur_pos.data_ptr(), out.data_ptr(),
                  B, H, K, S, hd, *q.stride()[:2], *k.stride()[:3],
                  *v.stride()[:3], *kv_pos.stride(), *out.stride()[:2],
-                 1.0 / math.sqrt(hd), int(window), stream)
+                 1.0 / math.sqrt(hd), int(window), plan.spans,
+                 None if part is None else part.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"decode attention kernel launch failed: "
                            f"{lib.decode_attention_error_string(err).decode()}")
     launches += 1
+    combine_launches += plan.combine
     return out
 
 
@@ -238,10 +298,11 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_table, kv_pos,
     and cur_pos are int32, hd is a multiple of 8 up to 256, H a
     multiple of K, and the logical extent a multiple of the block size
     that the table covers."""
-    global paged_launches
+    global paged_launches, combine_launches
     what = "paged decode attention"
     check_kernel_tensors(what, {"q": q, "k_pool": k_pool, "v_pool": v_pool},
                          dtypes=_TYPES, align=True)
+    _check_rows16(what, {"k_pool": k_pool, "v_pool": v_pool})
     check_kernel_tensors(what, {"block_table": block_table,
                                 "kv_pos": kv_pos, "cur_pos": cur_pos},
                          dtypes={torch.int32}, align=False, device=q.device)
@@ -294,6 +355,8 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_table, kv_pos,
     lib = _library()
     fn = getattr(lib, f"paged_decode_attention_{_TYPES[q.dtype]}_"
                       f"{_TYPES[k_pool.dtype]}")
+    plan = decode_span_plan(B, H, C, hd)
+    part = _scratch(plan, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -302,11 +365,13 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_table, kv_pos,
                  *q.stride()[:2], *k_pool.stride()[1:3],
                  *v_pool.stride()[1:3], *block_table.stride(),
                  *kv_pos.stride(), *out.stride()[:2],
-                 1.0 / math.sqrt(hd), int(window), stream)
+                 1.0 / math.sqrt(hd), int(window), plan.spans,
+                 None if part is None else part.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"paged decode attention kernel launch failed: "
                            f"{lib.decode_attention_error_string(err).decode()}")
     paged_launches += 1
+    combine_launches += plan.combine
     return out
 
 

@@ -5,10 +5,15 @@ k/v [B,K,Skv,hd] (GQA: H = K*G) -> [B,H,Sq,hd] in q's dtype, the port of
 ``repro.kernels.flash_attention.flash_attention``:
 
   - on CUDA tensors it launches the hand-written Hopper kernel
-    ``csrc/flash_attention.cu`` (one block per 32-row query tile and
-    head, K/V tiles of 32 keys staged in shared memory, an online f32
-    softmax in registers; see the source for its bound and design) and
-    adds one to ``launches``; on a card that is not sm_90 it raises;
+    ``csrc/flash_attention.cu`` and adds one to ``launches``; on a card
+    that is not sm_90 it raises.  bf16 q, k and v (the serving
+    prefill) run the tensor-core body: one warpgroup per 64 query rows,
+    K/V tiles of 64 keys brought in by TMA, both products as ``wgmma``
+    with P rounded to bf16, head dims 64, 80, 96 and 128 (others
+    raise); its source needs the CUTLASS headers (CuTe's GMMA
+    descriptor) to build.  Entries with an f32 operand run the CUDA-core
+    body (32-row tiles, f32 products), the f32 parity path.  See the
+    source for both bounds and designs;
   - on CPU tensors it runs ``flash_attention_plain``, the plain PyTorch
     version of ``repro.kernels.ref.flash_attention``, which
     ``chip_smoke.py`` also holds the kernel against on the card.
@@ -36,6 +41,7 @@ launches = 0
 
 NEG_INF = -2.0 ** 30     # repro.kernels.ref's mask value
 _TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+TC_HEAD_DIMS = (64, 80, 96, 128)   # the tensor-core body's head dims
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -83,7 +89,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          q_offset: int = 0) -> torch.Tensor:
     """The CUDA kernel; raises unless q, k, v lie on one sm_90 card as
     f32 or bf16 with a contiguous last dimension, hd a multiple of 8 up
-    to 256, H a multiple of K, and Skv >= 1."""
+    to 256, H a multiple of K, and Skv >= 1; all-bf16 inputs (the
+    tensor-core body, its tiles copied by TMA) further need hd in
+    ``TC_HEAD_DIMS``, 16-byte aligned starts and strides that are
+    multiples of 8 elements."""
     global launches
     check_kernel_tensors("flash attention", {"q": q, "k": k, "v": v},
                          dtypes=_TYPES, align=False)
@@ -101,6 +110,17 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          f"got {hd}")
     if Skv == 0:
         raise ValueError("flash attention needs at least one key")
+    if q.dtype == k.dtype == torch.bfloat16:
+        if hd not in TC_HEAD_DIMS:
+            raise ValueError(f"the bf16 flash attention kernel (tensor "
+                             f"cores) takes head_dim in {TC_HEAD_DIMS}, "
+                             f"got {hd}")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+                raise ValueError(f"the bf16 flash attention kernel copies "
+                                 f"tiles by TMA: {name} must start 16-byte "
+                                 f"aligned with strides that are multiples "
+                                 f"of 8 elements, got strides {t.stride()}")
     if window < 0 or q_offset < 0:
         raise ValueError(f"window and q_offset must be >= 0, got "
                          f"{window}, {q_offset}")
