@@ -27,9 +27,11 @@ not 0.  Phases:
                and full-model logits on the card against the CPU (1e-3);
   6. breakdown — the gated step's parts at batch 64, timed on the card;
   7. attention — the flash-attention, flash-decode and paged
-               flash-decode kernels against their plain versions at the
-               generate path's shapes, long shapes (one user's 8192-row
-               context among them), ragged and GQA + window cases, timed
+               flash-decode kernels against their plain versions (f32 to
+               1e-4; bf16 to 3e-2 and each row to 2^-6 of its largest
+               output) at the generate path's shapes, long shapes (one
+               user's 8192-row context among them), ragged and GQA +
+               window cases and the smoke configuration's hd 32, timed
                beside their bounds and ``scaled_dot_product_attention``
                with the same mask (a yardstick only: the port never calls
                it; for the paged kernel on the pre-gathered view, the
@@ -38,7 +40,9 @@ not 0.  Phases:
                launches; then ``decode_invariance``: the serving case's
                valid rows in a 128-row and in a mostly empty 4096-row
                cache, contiguous and paged, all equal byte for byte;
-  8. serve_generate — stablelm-3b at published width (32 layers, bf16,
+     serve_generate_smoke — the launcher's ``--smoke`` generate run (hd
+               32: bf16 on the flash kernel's CUDA-core body) on the card;
+ 8. serve_generate — stablelm-3b at published width (32 layers, bf16,
                seeded weights) through the launcher's ``serve_generate``:
                32 requests x 16 new tokens over 8 slots, bio controller;
                both attention kernels' launch counters zeroed just before
@@ -113,6 +117,8 @@ from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
 from repro_torch.kernels import entropy as ent_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
+from repro_torch.kernels.runtime import (ATTN_BF16_ROW_TOL,  # noqa: E402
+                                         row_scaled_error)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import distilbert  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -524,6 +530,9 @@ ATTN_CASES = [
     dict(name="paged_long_b1", kind="paged", B=1, H=32, K=32, S=8192, hd=80,
          bs=16, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
          lengths=[8192], iters=20),
+    # the smoke configuration's prefill (hd 32): bf16 on the CUDA-core body
+    dict(name="prefill_smoke_hd32_bf16", kind="flash", B=8, H=4, K=4, S=16,
+         hd=32, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0, iters=200),
 ]
 
 
@@ -642,10 +651,16 @@ def phase_attention(peaks):
         fail_unless(bool(torch.isfinite(got.float()).all()),
                     f"{case['name']}: non-finite kernel output")
         err = (got.float() - want.float()).abs().max().item()
-        tol = (F32_TOL if case["qdt"] == case["kvdt"] == torch.float32
-               else BF16_TOL)
+        row_err = row_scaled_error(got, want)
+        f32 = case["qdt"] == case["kvdt"] == torch.float32
+        tol = F32_TOL if f32 else BF16_TOL
         fail_unless(err <= tol, f"{case['name']}: kernel vs plain max abs "
                                 f"err {err} > {tol}")
+        # bf16: each row's error against that row's largest output, so
+        # that a dropped key tile or span fails on small outputs too
+        fail_unless(f32 or row_err <= ATTN_BF16_ROW_TOL,
+                    f"{case['name']}: kernel vs plain row-scaled err "
+                    f"{row_err} > {ATTN_BF16_ROW_TOL}")
         it = case["iters"]
         lib_ms, lib_err = None, None
         lib_what = "none: q and k/v types differ"
@@ -665,11 +680,15 @@ def phase_attention(peaks):
                    q_dtype=str(case["qdt"]).replace("torch.", ""),
                    kv_dtype=str(case["kvdt"]).replace("torch.", ""),
                    valid_pairs_or_rows=valid, max_abs_err=err, tol=tol,
+                   row_scaled_err=row_err,
+                   row_tol=None if f32 else ATTN_BF16_ROW_TOL,
                    ms=graph_ms(kern, it), call_ms=time_ms(kern, it),
                    plain_ms=graph_ms(plain, max(it // 4, 2)),
                    library_ms=lib_ms, library_computes=lib_what,
                    library_max_abs_err=lib_err)
-        if kind != "flash":
+        if kind == "flash":
+            row["body"] = fa_mod.body(case["qdt"], case["kvdt"], hd)
+        else:
             plan = da_mod.decode_span_plan(B, H, S, hd)
             fail_unless(combines == plan.combine,
                         f"{case['name']}: {combines} span merges for "
@@ -775,6 +794,30 @@ def phase_serve_generate():
                               / summary["prefill_calls"] * 1e3),
          **summary)
     return launches, model
+
+
+def phase_serve_generate_smoke():
+    """The launcher's generate run on the smoke configuration (hd 32, bf16:
+    the flash kernel's CUDA-core body) on the card: every request
+    answered, both attention kernels launched."""
+    args = serve.parser().parse_args(
+        ["--device", "cuda", "--mode", "generate", "--arch", ARCH, "--smoke",
+         "--requests", "8"])
+    fa_mod.launches = da_mod.launches = 0
+    summary, server = serve.serve_generate(args)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa_mod.launches,
+                "decode_attention": da_mod.launches}
+    fail_unless(sorted(r.rid for r in server.responses)
+                == list(range(args.requests)),
+                "generate --smoke: every request answered once")
+    fail_unless(all(n > 0 for n in launches.values()),
+                f"generate --smoke: both attention kernels launched: "
+                f"{launches}")
+    cfg = server.engine.engine.params.cfg
+    emit(phase="serve_generate_smoke", head_dim=cfg.head_dim,
+         flash_body=fa_mod.body(torch.bfloat16, torch.bfloat16, cfg.head_dim),
+         launches=launches, tokens_generated=summary["tokens_generated"])
 
 
 def _greedy_f32_cache(model, prompts, n_new):
@@ -1472,6 +1515,7 @@ def main() -> int:
     phase_breakdown(cfg, model, x, peaks)
     del model, x
     attn = phase_attention(peaks)
+    phase_serve_generate_smoke()
     gen_launches, lm = phase_serve_generate()
     phase_parity_generate(lm)
     phase_breakdown_generate(lm, peaks)

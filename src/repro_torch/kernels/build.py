@@ -4,17 +4,11 @@ Each ``csrc/<name>.cu`` exposes a plain C interface (pointers, sizes
 and a stream as integers) and is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into ``build/torch_kernels/<name>-<hash>.so`` at the root
 of the checkout, a directory git ignores.  The hash covers the source,
-every ``csrc/*.cuh`` it includes and the flags (include directories
-too), so an edited kernel is rebuilt and an unchanged one is loaded as
-it is.  No source includes PyTorch's headers: ``nvcc`` then takes
-seconds per file, where a ``torch.utils.cpp_extension`` build takes
-minutes.
-
-A source that includes CUTLASS or CuTe headers (``#include <cute/...>``
-or ``<cutlass/...>``; today ``flash_attention.cu``, for CuTe's GMMA
-descriptor) is compiled with ``-I <cutlass>/include`` from
-``$CUTLASS_HOME`` or ``/usr/local/cutlass``; when neither holds the
-headers its build raises.  The other sources' commands do not change.
+every ``csrc/*.cuh`` it includes and the flags, so an edited kernel is
+rebuilt and an unchanged one is loaded as it is.  Every source builds
+from the repository and the CUDA toolkit alone, and none includes
+PyTorch's headers: ``nvcc`` then takes seconds per file, where a
+``torch.utils.cpp_extension`` build takes minutes.
 
 :func:`build_all` starts one ``nvcc`` per source, all at once, and
 waits for them together, keeping each one's seconds in
@@ -39,10 +33,7 @@ KERNELS = ("entropy", "flash_attention", "decode_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-CUTLASS_FLAGS = ("--expt-relaxed-constexpr",)
-DEFAULT_CUTLASS = "/usr/local/cutlass"
 _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+\.cuh)"', re.M)
-_CUTLASS_INCLUDE = re.compile(r"^\s*#\s*include\s*[<\"](cute|cutlass)/", re.M)
 
 _libs: dict[str, ctypes.CDLL] = {}
 # seconds each library's nvcc took in this process (absent: loaded as built)
@@ -81,48 +72,20 @@ def local_headers(name: str, csrc: Path = CSRC) -> list[Path]:
     return seen
 
 
-def needs_cutlass(name: str, csrc: Path = CSRC) -> bool:
-    """True when ``csrc/<name>.cu`` (or a header of its own) includes
-    CUTLASS or CuTe."""
-    return any(_CUTLASS_INCLUDE.search(p.read_text())
-               for p in (csrc / f"{name}.cu", *local_headers(name, csrc)))
-
-
-def cutlass_include() -> str | None:
-    """``<cutlass>/include`` from ``$CUTLASS_HOME`` or
-    ``/usr/local/cutlass``, the first that holds CuTe; None when
-    neither does."""
-    for root in (os.environ.get("CUTLASS_HOME"), DEFAULT_CUTLASS):
-        if root and os.path.isdir(os.path.join(root, "include", "cute")):
-            return os.path.join(root, "include")
-    return None
-
-
-def compile_flags(name: str, csrc: Path = CSRC) -> list[str]:
-    """``NVCC_FLAGS``, plus the CUTLASS include flags for a source that
-    needs them (naming the default directory when no CUTLASS is found:
-    :func:`build_all` raises before such a command runs)."""
-    if not needs_cutlass(name, csrc):
-        return list(NVCC_FLAGS)
-    inc = cutlass_include() or os.path.join(DEFAULT_CUTLASS, "include")
-    return [*NVCC_FLAGS, *CUTLASS_FLAGS, "-I", inc]
-
-
 def library_path(name: str, build_dir: Path = BUILD_DIR,
                  csrc: Path = CSRC) -> Path:
     """Where ``name``'s library lives for the current source, its local
-    headers and its flags."""
+    headers and the flags."""
     h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
     for header in local_headers(name, csrc):
         h.update(header.name.encode())
         h.update(header.read_bytes())
-    h.update(" ".join(compile_flags(name, csrc)).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def nvcc_command(nvcc: str, name: str, out: Path) -> list[str]:
-    return [nvcc, *compile_flags(name), "-o", str(out),
-            str(CSRC / f"{name}.cu")]
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
 def _run(cmd: list[str]) -> tuple[int, str, float]:
@@ -143,12 +106,6 @@ def build_all(names=KERNELS, build_dir: Path = BUILD_DIR) -> dict[str, Path]:
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if not todo:
         return paths
-    missing = [n for n in todo if needs_cutlass(n)]
-    if missing and cutlass_include() is None:
-        raise FileNotFoundError(
-            f"{', '.join(missing)} include CUTLASS (CuTe) headers, which "
-            f"were found neither in $CUTLASS_HOME/include nor in "
-            f"{DEFAULT_CUTLASS}/include")
     nvcc = find_nvcc()
     tmps = {n: p.with_suffix(f".{os.getpid()}.tmp") for n, p in todo.items()}
     with ThreadPoolExecutor(max_workers=len(todo)) as pool:

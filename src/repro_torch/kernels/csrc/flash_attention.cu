@@ -18,7 +18,7 @@
 // Two bodies.
 //
 // The tensor-core body (entry flash_attention_bf16_bf16, the serving
-// prefill's: bf16 q, k and v; hd 64, 80, 96 or 128).  One warpgroup (128
+// prefill's: bf16 q, k and v, at hd 64, 80, 96 or 128).  One warpgroup (128
 // threads) per (64 query rows, head, batch row).  The Q tile and a ring of 3
 // K/V stages of 64 keys (2 at hd 128, so that two blocks fit an SM) sit in
 // shared memory, brought in by TMA (cp.async.bulk.tensor) with mbarrier
@@ -52,23 +52,27 @@
 // tiles with the most key tiles start first.  Each (tile, head,
 // batch row) is independent of every other: no split over keys, no atomics,
 // so a prompt's result does not depend on how prompts are batched.  The
-// GMMA descriptors are CuTe's (cute::GmmaDescriptor, CUTLASS headers); the
-// products, copies and barriers are inline PTX.
+// products, copies, barriers and wgmma descriptors are inline PTX and
+// bit fields: the source needs no header outside the CUDA toolkit.
 //
 // Expected error against the f32 plain version: P is rounded to bf16 before
-// P.V (the tensor cores' operand type), at most 2^-9 of each weight, while
-// the sum of the weights is taken in f32; so the output moves by at most
-// 2^-9 max|v|, plus the output's own bf16 rounding (2^-9 of itself): on
-// unit-normal inputs a bf16 ulp or two of outputs below 4, inside the
-// card's bf16 tolerance of 3e-2 (tests/test_torch_attention_hopper.py
-// states the budget and holds an emulation of this arithmetic to it).
+// P.V (the tensor cores' operand type), at most 2^-8 (bf16's unit
+// roundoff) of each weight, while the sum of the weights is taken in f32;
+// so an output moves by at most 2^-8 of sum_j p_j |v_j| (the rounding
+// errors of the weights have random signs, so in practice far less), plus
+// its own bf16 rounding, 2^-8 of itself.  Relative to the largest output
+// of its row that stays under 2^-6, the card's limit
+// (tests/test_torch_attention_hopper.py holds an emulation of this
+// arithmetic to that budget, and shows that a dropped key tile breaks it).
 //
-// The CUDA-core body (the entries with an f32 operand: the f32 parity
-// path).  One block of 256 threads (8 warps) per (query tile of 32 rows,
-// head, batch row); warp w owns rows 4w .. 4w + 3.  Key tiles of 32 are
-// staged in shared memory as f32: K transposed, [hd][33] (padded, so that
-// both the coalesced fill and the per-lane reads are free of bank
-// conflicts), V as [32][hd].  In a tile each lane owns one key: it computes
+// The CUDA-core body (the entries with an f32 operand, the f32 parity
+// path; and the bf16 entry at the head dims the tensor-core body does not
+// take: a multiple of 8 up to 256 other than 64, 80, 96, 128, such as the
+// smoke configurations' hd 32).  One block of 256 threads (8 warps) per
+// (query tile of 32 rows, head, batch row); warp w owns rows 4w .. 4w + 3.
+// Key tiles of 32 are staged in shared memory as f32: K transposed,
+// [hd][33] (padded, so that both the coalesced fill and the per-lane reads
+// are free of bank conflicts), V as [32][hd].  In a tile each lane owns one key: it computes
 // that key's score for the warp's 4 rows, the warp reduces max and sum with
 // shuffles into each row's online (max, sum), and the lanes then switch to
 // owning head dimensions to accumulate P.V, the key's probability broadcast
@@ -85,8 +89,9 @@
 // leaves for later work is a producer warp with setmaxnreg and two
 // consumer warpgroups taking turns on the tensor cores (so that S = Q.K^T
 // overlaps a softmax too), 128-key tiles and, at 16-token prompts, the 48 of
-// 64 rows of a query tile that hold no row.  The f32 body runs on
-// the CUDA cores (67 TFLOP/s) and serves parity, not speed.
+// 64 rows of a query tile that hold no row.  The CUDA-core body runs on
+// the CUDA cores (67 TFLOP/s in f32) and serves parity and the other head
+// dims, not speed.
 //
 // Plain C interface, bound from Python with ctypes: each entry point launches
 // on the given stream and returns cudaGetLastError() right after the launch.
@@ -95,9 +100,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <cute/arch/mma_sm90_desc.hpp>  // cute::GmmaDescriptor
-#include <cute/arch/mma_sm90_gmma.hpp>  // warpgroup_arrive / commit / wait
 
 namespace {
 
@@ -312,10 +314,10 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // a tile's head dims: wide(hd) columns in 64-column boxes with the 128-byte
 // swizzle, then tail(hd) (16 or 32) in one box with the 32- or 64-byte one
-constexpr int wide(int hd) { return hd / kWide * kWide; }
-constexpr int tail(int hd) { return hd % kWide; }
+__host__ __device__ constexpr int wide(int hd) { return hd / kWide * kWide; }
+__host__ __device__ constexpr int tail(int hd) { return hd % kWide; }
 // K/V tiles in flight: 3, or 2 at hd 128 so that two blocks fit an SM
-constexpr int stages(int hd) { return hd <= 96 ? 3 : 2; }
+__host__ __device__ constexpr int stages(int hd) { return hd <= 96 ? 3 : 2; }
 
 struct Args {
   void* out;
@@ -392,27 +394,26 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const Maps& m,
             x, b);
 }
 
-// a swizzled operand's descriptor; layout: CuTe's LayoutType (B128, B64,
-// B32), sbo: bytes between 8-row core groups, lbo (MN-major only): bytes
-// between swizzle atoms along N
+// the swizzle of a wgmma operand in shared memory: the descriptor's
+// layout-type field (bits 62-63)
+enum class Swizzle : uint64_t { B128 = 1, B64 = 2, B32 = 3 };
+
+// a swizzled operand's wgmma descriptor: the start address (bits 0-13),
+// lbo (bits 16-29; MN-major only: bytes between swizzle atoms along N),
+// sbo (bits 32-45: bytes between 8-row core groups), each in 16-byte
+// units, base offset 0 (the tiles are aligned to the swizzle's period)
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo,
-                                              cute::SM90::GMMA::LayoutType l) {
-  cute::GmmaDescriptor d;
-  d.desc_ = 0;
-  d.bitfield.start_address_ = static_cast<uint16_t>(addr >> 4);
-  d.bitfield.leading_byte_offset_ = static_cast<uint16_t>(lbo >> 4);
-  d.bitfield.stride_byte_offset_ = static_cast<uint16_t>(sbo >> 4);
-  d.bitfield.base_offset_ = 0;
-  d.bitfield.layout_type_ = static_cast<uint8_t>(l);
-  return d.desc_;
+                                              uint32_t sbo, Swizzle sw) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3fff) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3fff) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3fff) << 32 |
+         static_cast<uint64_t>(sw) << 62;
 }
 
 // the tail box's swizzle: 16 columns (32-byte rows) or 32 (64-byte rows)
 template <int HD>
-constexpr cute::SM90::GMMA::LayoutType tail_layout() {
-  return tail(HD) == 16 ? cute::SM90::GMMA::LayoutType::B32
-                        : cute::SM90::GMMA::LayoutType::B64;
+__host__ __device__ constexpr Swizzle tail_swizzle() {
+  return tail(HD) == 16 ? Swizzle::B32 : Swizzle::B64;
 }
 
 // k-step j (head dims 16j .. 16j + 15) of a K-major Q or K tile at `base`:
@@ -421,10 +422,10 @@ template <int HD>
 __device__ __forceinline__ uint64_t qk_desc(uint32_t base, int j) {
   if (16 * j < wide(HD))
     return gmma_desc(base + (16 * j / kWide) * kWideBox + (j % 4) * 32, 16,
-                     1024, cute::SM90::GMMA::LayoutType::B128);
+                     1024, Swizzle::B128);
   const int jt = j - wide(HD) / 16;
   return gmma_desc(base + wide(HD) / kWide * kWideBox + jt * 32, 16,
-                   8 * tail(HD) * 2, tail_layout<HD>());
+                   8 * tail(HD) * 2, tail_swizzle<HD>());
 }
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B from shared memory
@@ -545,16 +546,32 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "r"(p[4 * KK + 3]), "l"(db), "r"(scale_d));
 }
 
+// the warpgroup's wgmma ordering: fence before the first product that
+// reads registers or shared memory written since, commit the products
+// issued so far as one group, wait until at most N groups are in flight
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of an asynchronous
+// product's registers across this point
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) cute::warpgroup_fence_operand(r[i]);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) cute::warpgroup_fence_operand(r[i]);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -641,7 +658,7 @@ __device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t sq,
 #pragma unroll
   for (int j = 0; j < HD / 16; ++j)
     wgmma_ss_n64(s, qk_desc<HD>(sq, j), qk_desc<HD>(sk, j), j);
-  cute::warpgroup_commit_batch();
+  wgmma_commit();
 }
 
 // k-step KK (keys 16KK .. 16KK + 15) of O += P . V: the wide columns
@@ -650,10 +667,9 @@ __device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t sq,
 template <int HD, int KK>
 __device__ __forceinline__ void pv_step(float (&o)[HD / 2],
                                         const uint32_t (&p)[16], uint32_t sv) {
-  using LT = cute::SM90::GMMA::LayoutType;
   float (&ow)[wide(HD) / 2] = *reinterpret_cast<float(*)[wide(HD) / 2]>(&o[0]);
   const uint64_t dw =
-      gmma_desc(sv + KK * 16 * 128, kWideBox, 8 * 128, LT::B128);
+      gmma_desc(sv + KK * 16 * 128, kWideBox, 8 * 128, Swizzle::B128);
   if constexpr (wide(HD) == 64) wgmma_rs_n64<KK>(ow, p, dw, 1);
   if constexpr (wide(HD) == 128) wgmma_rs_n128<KK>(ow, p, dw, 1);
   if constexpr (tail(HD) > 0) {
@@ -662,7 +678,7 @@ __device__ __forceinline__ void pv_step(float (&o)[HD / 2],
     const uint32_t row = tail(HD) * 2;   // bytes of a tail-box row
     const uint64_t dt =
         gmma_desc(sv + wide(HD) / kWide * kWideBox + KK * 16 * row, 0,
-                  8 * row, tail_layout<HD>());
+                  8 * row, tail_swizzle<HD>());
     if constexpr (tail(HD) == 16) wgmma_rs_n16<KK>(ot, p, dt, 1);
     if constexpr (tail(HD) == 32) wgmma_rs_n32<KK>(ot, p, dt, 1);
   }
@@ -677,7 +693,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
   pv_step<HD, 1>(o, p, sv);
   pv_step<HD, 2>(o, p, sv);
   pv_step<HD, 3>(o, p, sv);
-  cute::warpgroup_commit_batch();
+  wgmma_commit();
 }
 
 template <int HD>
@@ -743,9 +759,9 @@ __global__ void __launch_bounds__(kThreads)
   if (ntiles > 0) {
     mbar_wait(kv_bar(0), 0);
     fence_regs(s);
-    cute::warpgroup_arrive();
+    wgmma_fence();
     issue_qk<HD>(s, s_q, s_k);
-    cute::warpgroup_wait<0>();
+    wgmma_wait<0>();
     fence_regs(s);
     softmax_tile(s, r, corr_lo, corr_hi, k_begin, q0, a);
     pack_p(s, p);
@@ -759,13 +775,13 @@ __global__ void __launch_bounds__(kThreads)
     fence_regs(s);
     fence_regs(o);
     fence_regs(p);
-    cute::warpgroup_arrive();
+    wgmma_fence();
     issue_qk<HD>(s, s_q, s_k + stage * kTile);
     issue_pv<HD>(o, p, s_v + prev * kTile);
-    cute::warpgroup_wait<1>();       // S is in; P.V may still run
+    wgmma_wait<1>();       // S is in; P.V may still run
     fence_regs(s);
     softmax_tile(s, r, corr_lo, corr_hi, k_begin + t * kBN, q0, a);
-    cute::warpgroup_wait<0>();
+    wgmma_wait<0>();
     fence_regs(o);
     fence_regs(p);
 #pragma unroll
@@ -778,9 +794,9 @@ __global__ void __launch_bounds__(kThreads)
   if (ntiles > 0) {
     fence_regs(o);
     fence_regs(p);
-    cute::warpgroup_arrive();
+    wgmma_fence();
     issue_pv<HD>(o, p, s_v + ((ntiles - 1) % kStages) * kTile);
-    cute::warpgroup_wait<0>();
+    wgmma_wait<0>();
     fence_regs(o);
   }
 
@@ -893,7 +909,8 @@ int launch_hd(const FlashArgs& f, int B, cudaStream_t stream) {
 
 // the tensor-core body takes hd 64, 80, 96, 128 and TMA-describable views:
 // 16-byte aligned starts and strides that are multiples of 8 elements (the
-// wrapper raises on anything else, so no cp.async path is needed)
+// wrapper raises on anything else at these head dims, so no cp.async path
+// is needed)
 int launch(const FlashArgs& f, int B, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   switch (f.hd) {
@@ -926,7 +943,8 @@ FLASH_ENTRY(flash_attention_f32_f32, float, float)
 FLASH_ENTRY(flash_attention_f32_bf16, float, __nv_bfloat16)
 FLASH_ENTRY(flash_attention_bf16_f32, __nv_bfloat16, float)
 
-// the serving prefill's entry: the tensor-core body
+// the serving prefill's entry: the tensor-core body at hd 64, 80, 96, 128,
+// the CUDA-core body at the other head dims
 extern "C" int flash_attention_bf16_bf16(
     const void* q, const void* k, const void* v, void* out, int B, int H,
     int K, int Sq, int Skv, int hd, int64_t q_sb, int64_t q_sh, int64_t q_ss,
@@ -936,7 +954,10 @@ extern "C" int flash_attention_bf16_bf16(
   const FlashArgs a{q,    k,    v,    out,  H,    K,    Sq,     Skv,    hd,
                     q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,   v_sh,   v_ss,
                     o_sb, o_sh, o_ss, scale, causal, window, q_offset};
-  return tc::launch(a, B, stream);
+  switch (hd) {
+    case 64: case 80: case 96: case 128: return tc::launch(a, B, stream);
+    default: return launch<__nv_bfloat16, __nv_bfloat16>(a, B, stream);
+  }
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

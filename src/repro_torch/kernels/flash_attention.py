@@ -7,12 +7,12 @@ k/v [B,K,Skv,hd] (GQA: H = K*G) -> [B,H,Sq,hd] in q's dtype, the port of
   - on CUDA tensors it launches the hand-written Hopper kernel
     ``csrc/flash_attention.cu`` and adds one to ``launches``; on a card
     that is not sm_90 it raises.  bf16 q, k and v (the serving
-    prefill) run the tensor-core body: one warpgroup per 64 query rows,
-    K/V tiles of 64 keys brought in by TMA, both products as ``wgmma``
-    with P rounded to bf16, head dims 64, 80, 96 and 128 (others
-    raise); its source needs the CUTLASS headers (CuTe's GMMA
-    descriptor) to build.  Entries with an f32 operand run the CUDA-core
-    body (32-row tiles, f32 products), the f32 parity path.  See the
+    prefill) at head dims 64, 80, 96 and 128 run the tensor-core body:
+    one warpgroup per 64 query rows, K/V tiles of 64 keys brought in by
+    TMA, both products as ``wgmma`` with P rounded to bf16.  Entries
+    with an f32 operand (the f32 parity path), and bf16 at the other
+    head dims (the smoke configurations' hd 32), run the CUDA-core body
+    (32-row tiles, f32 products); :func:`body` says which.  See the
     source for both bounds and designs;
   - on CPU tensors it runs ``flash_attention_plain``, the plain PyTorch
     version of ``repro.kernels.ref.flash_attention``, which
@@ -42,6 +42,15 @@ launches = 0
 NEG_INF = -2.0 ** 30     # repro.kernels.ref's mask value
 _TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 TC_HEAD_DIMS = (64, 80, 96, 128)   # the tensor-core body's head dims
+
+
+def body(q_dtype: torch.dtype, kv_dtype: torch.dtype, hd: int) -> str:
+    """The kernel body a CUDA call at these types and head dim runs:
+    "tensor_cores" for bf16 q, k and v at ``TC_HEAD_DIMS``, else
+    "cuda_cores"."""
+    if q_dtype == kv_dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -89,10 +98,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          q_offset: int = 0) -> torch.Tensor:
     """The CUDA kernel; raises unless q, k, v lie on one sm_90 card as
     f32 or bf16 with a contiguous last dimension, hd a multiple of 8 up
-    to 256, H a multiple of K, and Skv >= 1; all-bf16 inputs (the
-    tensor-core body, its tiles copied by TMA) further need hd in
-    ``TC_HEAD_DIMS``, 16-byte aligned starts and strides that are
-    multiples of 8 elements."""
+    to 256, H a multiple of K, and Skv >= 1; the tensor-core body (its
+    tiles copied by TMA) further needs 16-byte aligned starts and
+    strides that are multiples of 8 elements."""
     global launches
     check_kernel_tensors("flash attention", {"q": q, "k": k, "v": v},
                          dtypes=_TYPES, align=False)
@@ -110,11 +118,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          f"got {hd}")
     if Skv == 0:
         raise ValueError("flash attention needs at least one key")
-    if q.dtype == k.dtype == torch.bfloat16:
-        if hd not in TC_HEAD_DIMS:
-            raise ValueError(f"the bf16 flash attention kernel (tensor "
-                             f"cores) takes head_dim in {TC_HEAD_DIMS}, "
-                             f"got {hd}")
+    if body(q.dtype, k.dtype, hd) == "tensor_cores":
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
                 raise ValueError(f"the bf16 flash attention kernel copies "

@@ -6,6 +6,10 @@ argument into a ``torch.device`` (``resolve_device``): the card by
 default, the CPU only when the caller asks for it, and a clear error
 when the card is asked for and absent — never a quiet fall back.
 
+``row_scaled_error`` and ``ATTN_BF16_ROW_TOL`` are how an attention
+kernel's bf16 output is held against its f32 plain version, on the card
+(``chip_smoke.py``) and in the emulations of the tests.
+
 Float32 matrix products stay full float32 on the card: PyTorch's own
 default, stated and set here once so that no other setting can leak
 TF32 (about three decimal digits) into the reference-parity path.
@@ -15,12 +19,37 @@ from __future__ import annotations
 import torch
 
 __all__ = ["HOPPER_CAPABILITY", "on_hopper", "is_hopper", "resolve_device",
-           "synchronize", "check_kernel_tensors"]
+           "synchronize", "check_kernel_tensors", "row_scaled_error",
+           "ATTN_BF16_ROW_TOL"]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 HOPPER_CAPABILITY = (9, 0)
+
+# the limit of ``row_scaled_error`` for a bf16 attention output against
+# its plain version: 4 x bf16's unit roundoff (2^-8), two bf16 ulps at
+# the row's largest output.  The kernel's own error before it rounds
+# stays under one ulp (the tensor-core flash body's bf16 weights: under
+# 0.006 of the row's largest at the card's long shapes in
+# tests/test_torch_attention_hopper.py), so a kernel and a plain version
+# that both round to bf16 differ by one ulp at most, 2^-7, what the card
+# shows; a dropped key tile, or a span dropped or merged unscaled,
+# moves a row by 0.2 of its largest output or more, so it fails, where
+# an absolute limit of 3e-2 passes a dropped span on the long decode's
+# outputs of about 0.02.
+ATTN_BF16_ROW_TOL = 2.0 ** -6
+
+
+def row_scaled_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest error of a row (the last dimension: one query row of
+    one head) relative to the largest |want| of that row; a row whose
+    ``want`` is all zero (an empty decode slot) counts its absolute
+    error.  Attention outputs shrink as 1/sqrt(keys), so one limit
+    relative to each row holds a short row and a long one alike."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1)
+    return (err / torch.where(scale > 0, scale, 1.0)).max().item()
 
 
 def is_hopper(device: torch.device | int | None = None) -> bool:

@@ -18,12 +18,16 @@ on inputs made from numpy seeds, and held against the JAX oracles
     query tiles, 64-key tiles, scores in f32, P rounded to bf16 before
     P.V, the sum of the weights in f32; against
     ``ref.flash_attention`` at hd 64, 80 and 128, causal, windowed and
-    ragged, within the error budget ``_within_budget`` states, which
-    the card's bf16 tolerance (3e-2 absolute, ``chip_smoke.py``)
-    covers at the outputs' sizes;
+    ragged, within the error budget ``_within_budget`` states; which
+    body a call runs (tensor cores at hd 64, 80, 96, 128 in bf16, the
+    CUDA cores otherwise);
+  - the card's bf16 limit (``row_scaled_error`` within
+    ``ATTN_BF16_ROW_TOL``): it covers the tensor-core arithmetic at the
+    card's long shapes, and a dropped key tile, a dropped span or a
+    span merged without its rescale breaks it;
   - the build: the library hash follows the local headers a source
-    includes and its include flags, and a source that needs CUTLASS
-    does not build without it.
+    includes, and every kernel builds from the repository and the CUDA
+    toolkit alone, with the same flags.
 """
 import math
 import re
@@ -39,6 +43,8 @@ from repro.kernels import ref  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_attention as tda  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels.runtime import (ATTN_BF16_ROW_TOL,  # noqa: E402
+                                         row_scaled_error)
 
 NEG = -1e30            # the kernels' mask value and initial running max
 WARPS = 8
@@ -69,10 +75,12 @@ def test_span_length_matches_the_cuda_source():
     assert int(re.search(r"kSpan = (\d+);", src).group(1)) == tda.SPAN
 
 
-def _split_decode(q, read, kv_pos, cur, S, window=0):
+def _split_decode(q, read, kv_pos, cur, S, window=0, fault=None):
     """The kernel's arithmetic in its order, in f32: q [B,H,hd];
     ``read(b, kh, rows)`` -> K and V rows [n, hd] of logical ``rows``;
-    kv_pos [B,S] int; cur [B] -> out [B,H,hd]."""
+    kv_pos [B,S] int; cur [B] -> out [B,H,hd].  ``fault`` breaks the
+    combine on purpose: ("drop", s) leaves span s out, ("no_rescale",
+    None) merges the spans without their exp(m_s - M) factors."""
     B, H, hd = q.shape
     K = read.K
     G = H // K
@@ -141,8 +149,12 @@ def _split_decode(q, read, kv_pos, cur, S, window=0):
                 for mx, _, _ in parts:
                     M = torch.maximum(M, mx)
                 tot, num = torch.zeros(G), torch.zeros(G, hd)
-                for mx, t, n in parts:
+                for sp, (mx, t, n) in enumerate(parts):
+                    if fault == ("drop", sp):
+                        continue
                     c = torch.exp(mx - M)
+                    if fault == ("no_rescale", None):
+                        c = torch.ones_like(c)
                     tot = tot + t * c
                     num = num + n * c[:, None]
                 res = num / torch.clamp(tot, min=1e-30)[:, None]
@@ -263,12 +275,13 @@ def _bf16(x):
     return torch.from_numpy(x).to(torch.bfloat16)
 
 
-def _tc_flash(q, k, v, *, causal=True, window=0, q_offset=0):
+def _tc_flash(q, k, v, *, causal=True, window=0, q_offset=0, drop_tile=None):
     """q [B,H,Sq,hd] and k/v [B,K,Skv,hd] in bf16 -> [B,H,Sq,hd] bf16, as
     the tensor-core body computes it: per 64-row query tile the visible
     64-key tiles, f32 scores in log2 units, one max and one rescale per
     row and tile, the sum of the f32 weights, P rounded to bf16 for
-    O += P.V in f32."""
+    O += P.V in f32.  ``drop_tile`` (a key tile's first key) is a fault
+    on purpose: every query tile skips that key tile."""
     B, H, Sq, hd = q.shape
     K, Skv = k.shape[1], k.shape[2]
     G = H // K
@@ -286,6 +299,8 @@ def _tc_flash(q, k, v, *, causal=True, window=0, q_offset=0):
         lsum = torch.zeros(B, H, len(rows))
         o = torch.zeros(B, H, len(rows), hd)
         for k0 in range(k_begin, k_end, BN):
+            if k0 == drop_tile:
+                continue
             keys = torch.arange(k0, k0 + BN)
             kt = torch.zeros(B, K, BN, hd)
             vt = torch.zeros(B, K, BN, hd)
@@ -327,11 +342,12 @@ FLASH = {
 
 def _within_budget(got, want, v):
     """The tensor-core arithmetic's error budget: P rounded to bf16 moves
-    each weight by at most 2^-9 of itself, so the output by at most
-    2^-9 max|v|, and the output's own bf16 rounding by 2^-9 of itself;
-    each bound doubled for the other sum orders.  On unit-normal inputs
-    (max|v| < 5, outputs below 3) that is at most 0.032, the size of the
-    card's BF16_TOL = 3e-2."""
+    each weight by at most 2^-8 (bf16's unit roundoff) of itself, so the
+    output by at most 2^-8 max|v|, and the output's own bf16 rounding by
+    2^-8 of itself.  On unit-normal inputs (max|v| < 5, outputs below 3)
+    that is at most 0.032, the size of the card's absolute bf16
+    tolerance of 3e-2; the card's limit relative to each row is held in
+    ``test_row_tolerance_*``."""
     vmax = v.float().abs().max().item()
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want),
                                rtol=2 ** -8, atol=2 ** -8 * vmax)
@@ -369,13 +385,119 @@ def test_tensor_core_rounding_is_what_the_budget_covers():
 
 
 def test_tensor_core_wrapper_refuses_other_head_dims_on_cpu_tensors():
-    # the head-dim rule is checked on the card; a CPU tensor is refused
-    # before it, and the plain version takes any head dim
+    # the kernel is chosen on the card; a CPU tensor is refused before
+    # it, and the plain version takes any head dim
     q = torch.zeros(1, 2, 4, 48, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfa.flash_attention_cuda(q, q, q)
     assert tfa.flash_attention(q, q, q).shape == q.shape
     assert 48 not in tfa.TC_HEAD_DIMS and 80 in tfa.TC_HEAD_DIMS
+    assert tfa.body(torch.bfloat16, torch.bfloat16, 48) == "cuda_cores"
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,hd,want", [
+    (BF16, BF16, 64, "tensor_cores"), (BF16, BF16, 80, "tensor_cores"),
+    (BF16, BF16, 96, "tensor_cores"), (BF16, BF16, 128, "tensor_cores"),
+    # the smoke configurations' head dim and the widest the kernel takes
+    (BF16, BF16, 32, "cuda_cores"), (BF16, BF16, 256, "cuda_cores"),
+    # an f32 operand: the f32 parity path
+    (F32, F32, 80, "cuda_cores"), (F32, BF16, 80, "cuda_cores"),
+    (BF16, F32, 128, "cuda_cores"),
+])
+def test_flash_body_by_types_and_head_dim(q_dtype, kv_dtype, hd, want):
+    assert tfa.body(q_dtype, kv_dtype, hd) == want
+
+
+# ---------------------------------------------------------------------------
+# the card's bf16 limit
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's bf16 flash cases at 2 heads (B, H, K, S, hd, window)
+CARD_FLASH = {
+    "prefill_main": (8, 2, 2, 16, 80, 0),
+    "prefill_long": (1, 2, 2, 2048, 80, 0),
+    "prefill_long_hd64_bf16": (1, 2, 2, 2048, 64, 0),
+    "prefill_ragged_bf16": (1, 2, 2, 1000, 80, 0),
+    "prefill_gqa_window_bf16": (1, 4, 1, 512, 128, 128),
+}
+
+
+def _card_flash_inputs(case):
+    B, H, K, S, hd, window = CARD_FLASH[case]
+    rng = np.random.default_rng(23)
+    q, k, v = (_bf16(rng.standard_normal(s).astype(np.float32))
+               for s in ((B, H, S, hd), (B, K, S, hd), (B, K, S, hd)))
+    plain = tfa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                      window=window)
+    return q, k, v, window, plain
+
+
+@pytest.mark.parametrize("case", sorted(CARD_FLASH))
+def test_row_tolerance_covers_the_tensor_core_arithmetic(case):
+    q, k, v, window, plain = _card_flash_inputs(case)
+    assert row_scaled_error(_tc_flash(q, k, v, window=window),
+                            plain) <= ATTN_BF16_ROW_TOL / 2
+
+
+@pytest.mark.parametrize("case", ["prefill_long", "prefill_ragged_bf16",
+                                  "prefill_gqa_window_bf16"])
+@pytest.mark.parametrize("where", ["first", "last"])
+def test_row_tolerance_fails_a_dropped_key_tile(case, where):
+    """A query tile that skips one key tile, the first or the last one
+    the last query tile sees (the long rows, whose outputs are the
+    smallest), fails the card's limit."""
+    q, k, v, window, plain = _card_flash_inputs(case)
+    S = q.shape[2]
+    last_q0 = (S - 1) // BN * BN
+    first = max(0, last_q0 - window + 1) // BN * BN if window else 0
+    tile = first if where == "first" else last_q0 - BN
+    got = _tc_flash(q, k, v, window=window, drop_tile=tile)
+    assert row_scaled_error(got[:, :, last_q0:],
+                            plain[:, :, last_q0:]) > ATTN_BF16_ROW_TOL
+
+
+def _long_decode(S, seed):
+    """One slot whose S rows are all valid, in bf16 values (the card's
+    decode_long_b1 at 2 heads), the f32 plain result, and the reader."""
+    q, k, v, kv, cur = _decode_inputs(1, 2, 2, S, 80, [S], seed)
+    q, k, v = (_bf16(x).float() for x in (q, k, v))
+    t = torch.from_numpy
+    want = tda.decode_attention_plain(q, k, v, t(kv), t(cur))
+    return q, _contiguous(k, v), t(kv), t(cur), want
+
+
+def test_row_tolerance_covers_the_split_decode():
+    S = 8 * L
+    q, read, kv, cur, want = _long_decode(S, 24)
+    got = _split_decode(q, read, kv, cur, S).to(torch.bfloat16)
+    assert row_scaled_error(got, want) <= ATTN_BF16_ROW_TOL / 2
+
+
+@pytest.mark.parametrize("fault", [("drop", 0), ("drop", 7),
+                                   ("no_rescale", None)])
+def test_row_tolerance_fails_a_broken_span_merge(fault):
+    """decode_long_b1's 8 spans: one left out of the merge, or all
+    merged without their rescale, fails the card's limit."""
+    S = 8 * L
+    q, read, kv, cur, want = _long_decode(S, 24)
+    got = _split_decode(q, read, kv, cur, S, fault=fault)
+    assert row_scaled_error(got.to(torch.bfloat16),
+                            want) > ATTN_BF16_ROW_TOL
+
+
+def test_row_scaled_error_is_relative_to_each_row():
+    want = torch.tensor([[[1.0, -2.0], [0.01, 0.0]], [[0.0, 0.0],
+                                                       [3.0, 4.0]]])
+    got = want.clone()
+    assert row_scaled_error(got, want) == 0.0
+    got[0, 1, 1] = 0.001              # 0.1 of that row's largest
+    assert row_scaled_error(got, want) == pytest.approx(0.1)
+    got = want.clone()
+    got[1, 0, 0] = 0.25               # an all-zero row: absolute
+    assert row_scaled_error(got, want) == pytest.approx(0.25)
 
 
 # ---------------------------------------------------------------------------
@@ -401,44 +523,24 @@ def test_library_hash_follows_included_headers(tmp_path):
     (csrc / "b.cuh").write_text("inline int h() { return 2; }\n")
     after = build.library_path("k", tmp_path, csrc)
     assert after != before and after.name.startswith("k-")
-    assert not build.needs_cutlass("k", csrc)
-    (csrc / "b.cuh").write_text("#include <cute/arch/mma_sm90_desc.hpp>\n")
-    assert build.needs_cutlass("k", csrc)
 
 
-def test_cutlass_include_flags_and_their_hash(tmp_path, monkeypatch):
-    """Only a source that includes CUTLASS gets its include flags; the
-    other kernels' commands are the plain ones; the hash covers the
-    include directory."""
-    for name in ("entropy", "decode_attention", "ssd_scan"):
-        assert not build.needs_cutlass(name)
-        assert build.compile_flags(name) == list(build.NVCC_FLAGS)
-    assert build.needs_cutlass("flash_attention")
-    roots = []
-    for i in range(2):
-        root = tmp_path / f"cutlass{i}"
-        (root / "include" / "cute").mkdir(parents=True)
-        roots.append(root)
-    paths = []
-    for root in roots:
-        monkeypatch.setenv("CUTLASS_HOME", str(root))
-        flags = build.compile_flags("flash_attention")
-        assert flags[-2:] == ["-I", str(root / "include")]
-        assert flags[:len(build.NVCC_FLAGS)] == list(build.NVCC_FLAGS)
-        cmd = build.nvcc_command("nvcc", "flash_attention", tmp_path / "f")
-        assert ["-I", str(root / "include")] == cmd[cmd.index("-I"):
-                                                    cmd.index("-I") + 2]
-        paths.append(build.library_path("flash_attention", tmp_path))
-    assert paths[0] != paths[1]
+# the headers a kernel may include: the CUDA toolkit's and the C library's
+TOOLKIT_HEADERS = {"cuda.h", "cuda_bf16.h", "cuda_fp16.h", "cuda_runtime.h",
+                   "stdint.h", "math.h", "float.h"}
 
 
-def test_missing_cutlass_raises_before_nvcc(tmp_path, monkeypatch):
-    monkeypatch.setenv("CUTLASS_HOME", str(tmp_path / "no-cutlass"))
-    monkeypatch.setattr(build, "DEFAULT_CUTLASS", str(tmp_path / "none"))
-    assert build.cutlass_include() is None
-
-    def no_nvcc():
-        raise AssertionError("nvcc looked up before the CUTLASS check")
-    monkeypatch.setattr(build, "find_nvcc", no_nvcc)
-    with pytest.raises(FileNotFoundError, match="CUTLASS"):
-        build.build_all(("flash_attention",), tmp_path / "out")
+@pytest.mark.parametrize("name", build.KERNELS)
+def test_every_kernel_builds_from_the_repository_alone(name, tmp_path):
+    """No kernel needs a header outside the repository and the CUDA
+    toolkit, and every ``nvcc`` command is the same flags."""
+    src = (build.CSRC / f"{name}.cu").read_text()
+    system = set(re.findall(r"^\s*#\s*include\s*<([^>]+)>", src, re.M))
+    assert system <= TOOLKIT_HEADERS, system - TOOLKIT_HEADERS
+    for header in build.local_headers(name):
+        assert header.parent == build.CSRC and header.exists()
+    out = tmp_path / f"{name}.so"
+    assert build.nvcc_command("nvcc", name, out) == [
+        "nvcc", *build.NVCC_FLAGS, "-o", str(out),
+        str(build.CSRC / f"{name}.cu")]
+    assert build.library_path(name, tmp_path).name.startswith(f"{name}-")
