@@ -9,9 +9,10 @@ not 0.  Phases:
   1. device  — the card's name, capability, power limit and idle power;
   2. build   — every CUDA kernel, built from ``src/repro_torch/kernels/csrc``
                (one ``nvcc`` per source, all at once), with the seconds taken
-               in all and by each library, and the count of ``HGMMA``
+               in all and by each library, the count of ``HGMMA``
                (tensor-core ``wgmma``) instructions in the flash library's
-               SASS (``cuobjdump``);
+               SASS and of ``HMMA`` / ``HGMMA`` in the SSD library's
+               (``cuobjdump``);
   3. kernel  — each kernel on the card against its plain PyTorch version on
                the same inputs (f32 to 1e-4, bf16 to 3e-2, argmax exact, the
                first index winning ties), timed with CUDA events beside its
@@ -75,8 +76,16 @@ not 0.  Phases:
                state, y; ``ssd_chunked``: from h0, y and h_last), against
                their plain versions (the per-token recurrence; the chunked
                algorithm) at the serving prefill's shape, at S = 4096, at a
-               ragged S = 1000 and from a nonzero h0, in f32 and bf16, timed
-               beside its bound (no one PyTorch call computes the scan);
+               ragged S = 1000, at the parity prompt (S = 300) and one row
+               past a chunk (S = 65), from a zero and a nonzero h0, in f32
+               and bf16, over both schedules (one chunk in one launch up to
+               S = 64; chunk-parallel, three launches, 3xTF32 tensor-core
+               products, beyond), timed beside its bound (bytes, or f32
+               operations on the CUDA cores) and, for the chunk-parallel
+               schedule, beside the 3xTF32 bound at the TF32 peak (no one
+               PyTorch call computes the scan); each row prints its
+               schedule and kernels per call, and the build line the SSD
+               library's ``HMMA`` / ``HGMMA`` counts;
  14. serve_generate_ssm — mamba2-780m at published width (48 layers, d
                1536, bf16, seeded weights) through the launcher: 32
                requests x 16 new tokens over 8 slots, bio controller; the
@@ -85,9 +94,13 @@ not 0.  Phases:
  15. parity_generate_ssm — published width at depth 2 in f32, a 300-token
                prompt (more than one 256-token chunk): prefill logits on the
                card (kernel path) against the CPU (the model's chunked
-               path) within 1e-3 and 8 greedy tokens equal; the served model
-               at full depth in bf16, kernel path against
-               ``attn_impl="xla"``;
+               path) within 1e-3 and 8 greedy tokens equal; full depth (48
+               layers) in f32 on the card, kernel path against
+               ``attn_impl="xla"`` on 8 prompts of 300 tokens: prefill
+               logits within 1e-3 of the largest, first tokens equal, every
+               first divergence of 16 greedy tokens a near-tie (printed with
+               its top-2 gap and logit error); the served model at full
+               depth in bf16, kernel path against ``attn_impl="xla"``;
  16. breakdown_generate_ssm — one mamba2 decode step at 8 slots, device
                time and time from Python, beside its bytes bound;
  17. kernels — one line with every kernel's numbers;
@@ -130,10 +143,20 @@ from repro_torch.training.data import ClassificationData  # noqa: E402
 F32_TOL = 1e-4          # tests/test_kernels.py:30
 BF16_TOL = 3e-2
 LOGITS_TOL = 1e-3       # CUDA vs CPU full model: other sum orders over d_ff
+# mamba2 at full depth in f32, the SSD kernel against the model's chunked
+# path on the card, relative to the largest |logit|: both are f32 and
+# differ only in sum order (other chunk lengths, other product units), a
+# difference of order 1e-6 of each layer's output; the 48 residual
+# layers add such differences, about 1e-4 at most, so 1e-3 leaves a
+# margin of ten, while a dropped chunk state or a wrong decay moves a
+# layer's output by its own size
+FULL_F32_LOGITS_TOL = 1e-3
 # published dense peaks (NVIDIA data sheets): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores, bf16 FLOP/s on the tensor cores
-PEAKS = {"sxm": {"hbm": 3.35e12, "f32": 67e12, "bf16": 989e12},
-         "pcie": {"hbm": 2.0e12, "f32": 51e12, "bf16": 756e12}}
+# outside the tensor cores, bf16 and TF32 FLOP/s on the tensor cores
+PEAKS = {"sxm": {"hbm": 3.35e12, "f32": 67e12, "bf16": 989e12,
+                 "tf32": 495e12},
+         "pcie": {"hbm": 2.0e12, "f32": 51e12, "bf16": 756e12,
+                  "tf32": 378e12}}
 ARCH = "stablelm-3b"
 SSM_ARCH = "mamba2-780m"
 ENTROPY_OPS_PER_ELEMENT = 6   # compare, subtract, exp, 2 mul-adds, add
@@ -258,10 +281,15 @@ def phase_build():
     hgmma = sass_count(flash, "HGMMA")
     fail_unless(hgmma == "not available" or hgmma > 0,
                 "flash_attention: the tensor-core body holds HGMMA")
+    ssd = str(paths["ssd_scan"])
+    ssd_tc = {op: sass_count(ssd, op) for op in ("HMMA", "HGMMA")}
+    fail_unless("not available" in ssd_tc.values() or sum(ssd_tc.values()),
+                "ssd_scan: the chunk-parallel products hold HMMA or HGMMA")
     emit(phase="build", seconds=secs,
          library_seconds=dict(build.build_seconds),
          libraries={n: os.path.relpath(p, ROOT) for n, p in paths.items()},
-         flash_sass_hgmma=hgmma, ptxas=ptxas)
+         flash_sass_hgmma=hgmma, ssd_sass_hmma=ssd_tc["HMMA"],
+         ssd_sass_hgmma=ssd_tc["HGMMA"], ptxas=ptxas)
 
 
 def _tied_rows(dev) -> torch.Tensor:
@@ -822,19 +850,23 @@ def phase_serve_generate_smoke():
 
 def _greedy_f32_cache(model, prompts, n_new):
     """Lockstep greedy decode over an f32 cache (no bf16 rounding of the
-    keys, so the card and the CPU can agree token for token)."""
+    keys, so the card and the CPU can agree token for token); -> (the
+    prefill's logits [B, 1, V], the tokens [B, n_new], the logits each
+    token was chosen from [B, n_new, V]), on the CPU."""
     B, S = prompts.shape
     cache = tfm.init_cache(model.cfg, B, S + n_new, torch.float32,
                            device=model.device)
     logits, cache = model.prefill(prompts, cache)
     first = logits
     tok = logits[:, -1].argmax(-1)[:, None]
-    out = []
+    out, seen = [], []
     for i in range(n_new):
         out.append(tok[:, 0])
+        seen.append(logits[:, -1].float().cpu())
         logits, cache = model.decode_step(tok, cache, S + i)
         tok = logits[:, -1].argmax(-1)[:, None]
-    return first.float().cpu(), torch.stack(out, 1).cpu()
+    return (first.float().cpu(), torch.stack(out, 1).cpu(),
+            torch.stack(seen, 1))
 
 
 def phase_parity_generate(model):
@@ -847,10 +879,10 @@ def phase_parity_generate(model):
     m_cpu = tfm.LM(cfg2, device="cpu")
     m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
     fa_mod.launches = da_mod.launches = 0
-    lg, tg = _greedy_f32_cache(m_gpu, prompts, 8)
+    lg, tg, _ = _greedy_f32_cache(m_gpu, prompts, 8)
     fail_unless(fa_mod.launches > 0 and da_mod.launches > 0,
                 "parity: the card's run went through both kernels")
-    lc, tc = _greedy_f32_cache(m_cpu.eval(), prompts, 8)
+    lc, tc, _ = _greedy_f32_cache(m_cpu.eval(), prompts, 8)
     err = (lg - lc).abs().max().item()
     fail_unless(bool(torch.isfinite(lg).all()) and err <= LOGITS_TOL,
                 f"depth-2 f32 prefill logits card vs CPU: {err}")
@@ -1229,26 +1261,28 @@ def _ssd_inputs(case, gen):
     return x, dt, A, Bm, Cm, h0
 
 
-def ssd_kernel_chunk(S: int) -> int:
-    """The chunk length ``csrc/ssd_scan.cu`` takes for a sequence of S."""
-    return 16 if S <= 16 else 32 if S <= 32 else 64
-
-
 def ssd_bound_ms(case, peaks):
-    """Least time for the work: x, dt, Bm, Cm (and h0) read once, y (and
-    h_last) written once over HBM bandwidth, or the chunked algorithm's
-    operations at the kernel's chunk Q (``ssd_kernel_chunk``) over the
-    peak of the inputs' type: per (b, chunk of q rows) 2 q^2 N for C.B^T,
-    and per head q (q + 1) hd for the causal att.x, 2 q hd N for the
-    state update and 2 q hd N for the inter-chunk term (not on the first
-    chunk of the zero-state entry); whichever is larger."""
+    """Least time for the work, as a dict.  ``bound_ms``: x, dt, Bm, Cm
+    (and h0) read once, y (and h_last) written once over HBM bandwidth,
+    or the chunked algorithm's operations at the kernel's chunk Q
+    (``ssd_plan``) over the peak of the inputs' type (f32: the CUDA
+    cores, whatever units the kernel uses, so that the share compares
+    across designs): per (b, chunk of q rows) 2 q^2 N for C.B^T, and
+    per head q (q + 1) hd for the causal att.x, 2 q hd N for
+    the state update and 2 q hd N for the inter-chunk term (not on the
+    first chunk of the zero-state entry); whichever is larger.  Where
+    the kernel runs those products on the tensor cores (the
+    chunk-parallel schedule), ``tc_bound_ms`` is the same bytes against
+    the arithmetic it really runs: 3xTF32, three TF32 products for each,
+    at the TF32 dense peak; else None."""
     B, S, H, hd, N = (case[k] for k in ("B", "S", "H", "hd", "N"))
     item = case["dtype"].itemsize
     nbytes = (2 * B * S * H * hd + B * S * H + 2 * B * S * N) * item + 4 * H
     state = case["entry"] == "chunked"
     if state:
         nbytes += 2 * 4 * B * H * hd * N
-    Q = ssd_kernel_chunk(S)
+    plan = ssd_mod.ssd_plan(S)
+    Q = plan["chunk"]
     ops_ = 0
     for c in range(-(-S // Q)):
         q = min(Q, S - c * Q)
@@ -1258,8 +1292,14 @@ def ssd_bound_ms(case, peaks):
     ops_ *= B
     rate = peaks["bf16" if case["dtype"] == torch.bfloat16 else "f32"]
     t_bytes, t_ops = nbytes / peaks["hbm"], ops_ / rate
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", Q)
+    out = dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               chunk=Q, tc_bound_ms=None, tc_bound_by=None)
+    if plan["schedule"] == "chunk_parallel":
+        t_tc = 3 * ops_ / peaks["tf32"]
+        out.update(tc_bound_ms=max(t_bytes, t_tc) * 1e3,
+                   tc_bound_by="bytes" if t_bytes >= t_tc else "operations")
+    return out
 
 
 SSD_CASES = [
@@ -1285,6 +1325,12 @@ SSD_CASES = [
          dtype=torch.float32, iters=20),
     dict(name="chunked_ragged_state_bf16", entry="chunked", B=2, S=1000,
          h0="random", dtype=torch.bfloat16, iters=20),
+    # the parity prompt of parity_generate_ssm: 300 = 4 x 64 + 44
+    dict(name="prefill_parity", entry="chunked", B=2, S=300, h0="random",
+         dtype=torch.float32, iters=50),
+    # one row past one chunk
+    dict(name="chunk_edge", entry="scan", B=1, S=65, h0="zero",
+         dtype=torch.bfloat16, iters=100),
 ]
 
 
@@ -1335,12 +1381,16 @@ def phase_ssd(peaks):
         # the per-token plain version over thousands of tokens is a loop of
         # tens of thousands of launches: timed from Python, once
         short = case["S"] <= 64 or case["entry"] == "chunked"
-        bound, bound_by, q = ssd_bound_ms(case, peaks)
+        bound = ssd_bound_ms(case, peaks)
+        plan = ssd_mod.ssd_plan(case["S"])
         row = dict(phase="ssd", kernel="ssd_scan", case=case["name"],
                    entry=case["entry"], B=case["B"], S=case["S"], H=H,
                    hd=case["hd"], N=case["N"], h0=case["h0"],
                    dtype=str(case["dtype"]).replace("torch.", ""),
-                   kernel_chunk=q, max_abs_err=err, max_rel_err=err / scale,
+                   schedule=plan["schedule"],
+                   kernels_per_call=plan["kernels"],
+                   kernel_chunk=plan["chunk"], max_abs_err=err,
+                   max_rel_err=err / scale,
                    tol=tol, h_last_max_abs_err=h_err,
                    ms=graph_ms(kern, it), call_ms=time_ms(kern, it),
                    plain_ms=(graph_ms(plain, max(it // 4, 2)) if short
@@ -1349,10 +1399,14 @@ def phase_ssd(peaks):
                    library_ms=None,
                    library_computes="none: no one PyTorch call computes "
                                     "the SSD scan",
-                   bound_ms=bound, bound_by=bound_by,
+                   bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
                    bound_chunk=f"operations counted at the kernel's chunk "
-                               f"of {q} rows")
-        row["share_of_bound"] = bound / row["ms"]
+                               f"of {plan['chunk']} rows",
+                   tc_bound_ms=bound["tc_bound_ms"],
+                   tc_bound_by=bound["tc_bound_by"])
+        row["share_of_bound"] = bound["bound_ms"] / row["ms"]
+        row["share_of_tc_bound"] = (None if bound["tc_bound_ms"] is None
+                                    else bound["tc_bound_ms"] / row["ms"])
         emit(**row)
         out["max_err"] = max(out["max_err"], err)
         out["max_rel_err"] = max(out["max_rel_err"], err / scale)
@@ -1411,6 +1465,67 @@ def phase_serve_generate_ssm():
     return launches, model
 
 
+def _full_depth_f32_gate(cfg, prompts, n_new=16):
+    """mamba2 at published width and full depth (48 layers) in f32 with
+    an f32 cache, on the card: the kernel path (``attn_impl="auto"``)
+    against the model's own chunked path (``"xla"``: ``ssd_chunked_plain``
+    in cuBLAS f32), the same seeded weights and prompts.  Gates: the
+    prefill logits within FULL_F32_LOGITS_TOL of the reference's largest
+    |logit|, the first greedy token of every row equal, and each row's
+    first divergence a near-tie: the reference's top-2 logit gap at that
+    step at most twice the largest logit error there (each of the two
+    logits may move by that error, so a flip needs a gap below twice
+    it); a divergence at a wider gap is a kernel fault.  After a row's
+    first divergence the two paths decode different prefixes, so only
+    that one is judged; the agreement over all ``n_new`` tokens is
+    printed."""
+    m = tfm.init_lm(cfg.replace(dtype="float32"), 0, device="cuda")
+    fail_unless(m.cfg.n_layers == 48 and m.emb.dtype == torch.float32,
+                "ssm f32 gate: 48 layers in f32")
+    res = {}
+    for impl in ("auto", "xla"):
+        m.attn_impl = impl
+        ssd_mod.launches = 0
+        res[impl] = _greedy_f32_cache(m, prompts, n_new)
+        fail_unless((ssd_mod.launches > 0) == (impl == "auto"),
+                    f"ssm f32 gate: {impl} ran the SSD kernel "
+                    f"{ssd_mod.launches} times")
+    del m
+    (la, ta, sa), (lx, tx, sx) = res["auto"], res["xla"]
+    scale = lx.abs().max().item()
+    err = (la - lx).abs().max().item()
+    fail_unless(bool(torch.isfinite(la).all())
+                and err <= FULL_F32_LOGITS_TOL * scale,
+                f"ssm full-depth f32 prefill logits kernel vs xla: {err} > "
+                f"{FULL_F32_LOGITS_TOL} x {scale}")
+    fail_unless(torch.equal(ta[:, 0], tx[:, 0]),
+                "ssm full-depth f32: first greedy tokens equal")
+    divergences = []
+    for r in range(ta.shape[0]):
+        differ = (ta[r] != tx[r]).nonzero()
+        if len(differ) == 0:
+            continue
+        i = int(differ[0])
+        top2 = sx[r, i].topk(2).values
+        gap = (top2[0] - top2[1]).item()
+        step_err = (sa[r, i] - sx[r, i]).abs().max().item()
+        divergences.append(dict(row=r, step=i, top2_gap=gap,
+                                logit_err=step_err,
+                                near_tie=gap <= 2 * step_err))
+    emit(phase="parity_generate_ssm_f32_divergences",
+         divergences=divergences)
+    fail_unless(all(d["near_tie"] for d in divergences),
+                f"ssm full-depth f32: a divergence that is not a near-tie: "
+                f"{divergences}")
+    return dict(full_f32_prefill_logits_kernel_vs_xla_max_abs_err=err,
+                full_f32_prefill_logits_scale=scale,
+                full_f32_logits_tol=FULL_F32_LOGITS_TOL,
+                full_f32_greedy_token_agreement=float((ta == tx).float()
+                                                      .mean()),
+                full_f32_first_tokens_equal=True,
+                full_f32_divergences=len(divergences))
+
+
 def phase_parity_generate_ssm(model):
     cfg = get_config(SSM_ARCH)
     rng = np.random.default_rng(6)
@@ -1422,18 +1537,19 @@ def phase_parity_generate_ssm(model):
     m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
     prompts = rng.integers(0, cfg.vocab, (2, 300)).astype(np.int32)
     ssd_mod.launches = 0
-    lg, tg = _greedy_f32_cache(m_gpu, prompts, 8)
+    lg, tg, _ = _greedy_f32_cache(m_gpu, prompts, 8)
     fail_unless(ssd_mod.launches > 0, "ssm parity: the card's run went "
                                       "through the SSD kernel")
-    lc, tc = _greedy_f32_cache(m_cpu.eval(), prompts, 8)
+    lc, tc, _ = _greedy_f32_cache(m_cpu.eval(), prompts, 8)
     err = (lg - lc).abs().max().item()
     fail_unless(bool(torch.isfinite(lg).all()) and err <= LOGITS_TOL,
                 f"ssm depth-2 f32 prefill logits card vs CPU: {err}")
     fail_unless(torch.equal(tg, tc), "ssm depth-2 f32 greedy tokens card "
                                      "vs CPU")
     del m_gpu, m_cpu
-    # the served model, full depth, bf16: the kernel vs the model's path
     prompts = rng.integers(0, cfg.vocab, (8, 300)).astype(np.int32)
+    f32_gate = _full_depth_f32_gate(cfg, prompts)
+    # the served model, full depth, bf16: the kernel vs the model's path
     res = {}
     for impl in ("auto", "xla"):
         model.attn_impl = impl
@@ -1448,7 +1564,7 @@ def phase_parity_generate_ssm(model):
                 "ssm full-depth bf16 logits finite")
     emit(phase="parity_generate_ssm", prompt_len=300,
          depth2_f32_prefill_logits_card_vs_cpu_max_abs_err=err,
-         depth2_f32_greedy_tokens_equal=True,
+         depth2_f32_greedy_tokens_equal=True, **f32_gate,
          full_bf16_prefill_logits_kernel_vs_xla_max_abs_err=full_err,
          full_bf16_greedy_token_agreement=float(
              (res["auto"][1] == res["xla"][1]).mean()),
@@ -1578,7 +1694,10 @@ def main() -> int:
                           ssd_launches, ssd["max_err"], ssd["main"]),
              max_rel_err=ssd["max_rel_err"],
              entries="ssd_scan (zero state, y) and ssd_chunked (h0 -> y, "
-                     "h_last); the serving prefill runs ssd_chunked"),
+                     "h_last); the serving prefill runs ssd_chunked",
+             schedules="one chunk, one launch, for S <= 64 (the serving "
+                       "prefill); chunk-parallel, three launches with "
+                       "3xTF32 mma.sync products, beyond"),
     ])
     print(nvidia_smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,20 +7,22 @@ the port of ``repro.kernels.ssd_scan.ssd_scan``;
 [B,H,hd,N] f32) from the state h0 [B,H,hd,N], the port of
 ``repro.models.ssd.ssd_chunked`` (a prefill into a decode cache):
 
-  - on CUDA tensors each launches the hand-written Hopper kernel
-    ``csrc/ssd_scan.cu`` (one kernel body, two entry points; one block
-    per (b, h, 32 head-dim rows) looping over chunks of its own length,
-    the state in shared memory; see the source for its bound and
-    design) and adds one to ``launches``; on a card that is not sm_90
-    it raises;
+  - on CUDA tensors each launches the hand-written Hopper kernels of
+    ``csrc/ssd_scan.cu`` (two entry points, two schedules chosen by S,
+    :func:`ssd_plan`: one launch over one chunk for S <= 64, the state
+    copied asynchronously; three launches of the chunk-parallel SSD
+    decomposition with 3xTF32 tensor-core products beyond; see the
+    source for their bounds and design) and adds one to ``launches``
+    per call; on a card that is not sm_90 it raises;
   - on CPU tensors ``ssd_scan`` runs ``ssd_scan_plain``, the per-token
     recurrence of ``repro.kernels.ref.ssd_scan``, and ``ssd_chunked``
     runs ``ssd_chunked_plain``, the chunked algorithm of
     ``repro.models.ssd.ssd_chunked``; ``chip_smoke.py`` holds the
     kernel against both on the card.
 
-The arithmetic is f32 whatever the inputs' dtype (f32 or bf16).  The
-kernel chooses its own chunk length (64, or 16 / 32 for a sequence that
+The arithmetic is f32 whatever the inputs' dtype (f32 or bf16); the
+chunk-parallel products are 3xTF32, within f32's rounding.  The kernel
+chooses its own chunk length (64, or 16 / 32 for a sequence that
 short; the source says why), so the ``chunk`` of ``ssd_chunked`` is
 the plain version's: the result is the same up to rounding.  There is
 no fall back: a build or launch failure raises.
@@ -41,8 +43,19 @@ from repro_torch.kernels.runtime import check_kernel_tensors
 # after
 launches = 0
 
-MAX_STATE = 128            # N the kernel takes (16 state columns per warp)
+MAX_STATE = 128            # N the kernel takes (4 state columns a lane)
+CHUNK = 64                 # the chunk-parallel chunk, the longest one chunk
 _TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def ssd_plan(S: int) -> dict:
+    """How the kernel runs a sequence of S rows: its schedule, the chunk
+    length it takes and the kernels one call launches."""
+    if S <= CHUNK:
+        return {"schedule": "one_chunk",
+                "chunk": 16 if S <= 16 else 32 if S <= 32 else CHUNK,
+                "kernels": 1}
+    return {"schedule": "chunk_parallel", "chunk": CHUNK, "kernels": 3}
 
 
 def ssd_scan_plain(x, dt, A, Bm, Cm) -> torch.Tensor:
@@ -117,11 +130,17 @@ def _library() -> ctypes.CDLL:
     for entry in ("ssd_scan", "ssd_chunked"):
         for t in _TYPES.values():
             fn = getattr(lib, f"{entry}_{t}")
-            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                            + [ctypes.c_int64] * 10 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+    lib.ssd_scan_workspace_floats.argtypes = [ctypes.c_int] * 5
+    lib.ssd_scan_workspace_floats.restype = ctypes.c_int64
     lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
+    if lib.ssd_scan_chunk() != CHUNK:
+        raise RuntimeError(f"csrc/ssd_scan.cu takes chunks of "
+                           f"{lib.ssd_scan_chunk()} rows, ssd_scan.py "
+                           f"plans {CHUNK}")
     return lib
 
 
@@ -168,11 +187,15 @@ def _launch(entry: str, x, dt, A, Bm, Cm, h0=None):
     A = A.float().contiguous()
     lib = _library()
     fn = getattr(lib, f"{entry}_{_TYPES[x.dtype]}")
+    # the chunk-parallel schedule's chunk states, C.B^T and decays
+    work = torch.empty(lib.ssd_scan_workspace_floats(B, S, H, hd, N),
+                       dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                  Cm.data_ptr(), 0 if h0 is None else h0.data_ptr(),
                  0 if h_last is None else h_last.data_ptr(), y.data_ptr(),
+                 work.data_ptr() if work.numel() else 0,
                  B, S, H, hd, N, *x.stride()[:3], *dt.stride(),
                  *Bm.stride()[:2], *Cm.stride()[:2], stream)
     if err != 0:
