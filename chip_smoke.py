@@ -13,12 +13,22 @@ not 0.  Phases:
                (tensor-core ``wgmma``) instructions in the flash library's
                SASS and of ``HMMA`` / ``HGMMA`` in the SSD library's
                (``cuobjdump``);
-  3. kernel  — each kernel on the card against its plain PyTorch version on
-               the same inputs (f32 to 1e-4, bf16 to 3e-2, argmax exact, the
-               first index winning ties), timed with CUDA events beside its
-               bound and a one-call PyTorch yardstick: ``ms`` is device time
-               (calls replayed from a CUDA graph), ``call_ms`` the time per
-               call issued back to back from Python;
+  3. kernel  — first ``launch_floor``: the entropy library's empty kernel
+               (one warp, no work), device and call time; then the entropy
+               kernel on the card against its plain PyTorch version on the
+               same inputs (f32 to 1e-4, bf16 to 3e-2, argmax exact, the
+               first index winning ties, one launch counted per call), at
+               the gated step's shapes and their edges (300 rows, V = 1),
+               a warp-per-row width, proxy and vocabulary widths (odd V in
+               f32 and bf16) and ties across slice boundaries; each row
+               prints the schedule the wrapper chose (packed, warp, split
+               with its splits and merge) and, for a split row, the other
+               merge too (``alt_*``), and 8 x 256000 from two streams at
+               once (``kernel_two_streams``), timed with CUDA events beside its
+               bound, the launch floor (``floor_ms``) and a one-call
+               PyTorch yardstick: ``ms`` is device time (calls replayed
+               from a CUDA graph), ``call_ms`` the time per call issued
+               back to back from Python;
   4. serve   — the full-width DistilBERT with seeded weights through the
                launcher's ``serve_classifier`` on ``--path gated`` (bio
                controller, batch 64) and on ``--path auto``; each path runs
@@ -292,52 +302,121 @@ def phase_build():
          ssd_sass_hgmma=ssd_tc["HGMMA"], ptxas=ptxas)
 
 
+# entropy cases: the gated step's [64 or 128, 2] and its edges (one row,
+# 300 rows that fill no block, V = 1), a warp-per-row width, the proxy
+# and vocabulary widths (odd V: rows off 16-byte alignment) in f32 and bf16
+ENTROPY_CASES = [((1, 2), torch.float32), ((64, 2), torch.float32),
+                 ((128, 2), torch.float32), ((300, 2), torch.float32),
+                 ((64, 1), torch.float32), ((8, 2048), torch.bfloat16),
+                 ((64, 50304), torch.float32), ((8, 256000), torch.float32),
+                 ((16, 50257), torch.float32), ((8, 50257), torch.bfloat16)]
+# the split counts of 8 x 256000 under the cluster and the ticket merge on
+# a 132-SM card; entropy_inputs plants ties on their slice boundaries
+TIE_SPLITS = (16, 63)
+
+
 def _tied_rows(dev) -> torch.Tensor:
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(6, 1000, generator=g, device=dev)
-    x[0, [3, 700]] = 9.0          # tie across threads' strides
-    x[1, [5, 5 + 256]] = 9.0      # tie inside one thread's stride
-    x[2, [998, 999]] = 9.0        # tie at the ragged end
+    x[0, [3, 700]] = 9.0          # tie across lanes
+    x[1, [5, 5 + 256]] = 9.0      # tie inside one lane's stride
+    x[2, [998, 999]] = 9.0        # tie inside the last vector
     x[3] = 0.5                    # uniform row: index 0 wins
     x[4, [0, 999]] = 9.0
-    x[5, [31, 32]] = 9.0          # tie across two warps
+    x[5, [31, 32]] = 9.0          # tie across two lanes' vectors
     return x
 
 
-def phase_kernel(peaks: dict):
-    dev = torch.device("cuda")
+def _split_tied_rows(dev, splits) -> torch.Tensor:
+    """8 x 256000 f32 with ties straddling slice boundaries: rows 0-2 of
+    ``splits[0]`` slices (the first, a middle and the last boundary),
+    rows 4-6 of ``splits[1]``, row 3 across two vectors inside a slice,
+    row 7 the row's first and last column.  A slice of n starts at
+    column 4 floor(64000 k / n) (16-byte vectors of an aligned row)."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(8, 256000, generator=g, device=dev) * 4
+    for rows, n in ((range(0, 3), splits[0]), (range(4, 7), splits[1])):
+        for r, k in zip(rows, (1, n // 2, n - 1)):
+            b = 4 * (64000 * k // n)
+            x[r, [b - 1, b]] = 50.0
+    x[3, [4 * 777 + 3, 4 * 778]] = 50.0
+    x[7, [0, 255999]] = 50.0
+    return x
+
+
+def entropy_inputs(dev, tie_splits=TIE_SPLITS) -> list:
+    """(label, logits) of every entropy case, from fixed seeds."""
     g = torch.Generator(device=dev).manual_seed(0)
-    cases = [((1, 2), torch.float32), ((64, 2), torch.float32),
-             ((128, 2), torch.float32), ((8, 2048), torch.bfloat16),
-             ((64, 50304), torch.float32), ((8, 256000), torch.float32),
-             ((16, 50257), torch.float32)]
-    inputs = [(f"{B}x{V}", (torch.randn(B, V, generator=g, device=dev)
-                            * 4).to(dt)) for (B, V), dt in cases]
+    inputs = [(f"{B}x{V}" + ("_bf16" if dt == torch.bfloat16 else ""),
+               (torch.randn(B, V, generator=g, device=dev) * 4).to(dt))
+              for (B, V), dt in ENTROPY_CASES]
     inputs.append(("tied_6x1000", _tied_rows(dev)))
     inputs.append(("tied_2x2", torch.tensor([[1.5, 1.5], [-2.0, -2.0]],
                                             device=dev)))
-    max_err, main = 0.0, None
-    for label, x in inputs:
-        h, p, a = ops.entropy_stats(x, impl="cuda")
-        hr, pr, ar = ent_mod.entropy_stats_plain(x)
-        torch.cuda.synchronize()
-        tol = F32_TOL if x.dtype == torch.float32 else BF16_TOL
-        err = max((h - hr).abs().max().item(), (p - pr).abs().max().item())
-        rel_ok = (torch.allclose(h, hr, rtol=tol, atol=tol)
-                  and torch.allclose(p, pr, rtol=tol, atol=tol))
-        fail_unless(rel_ok, f"entropy {label}: max abs err {err}")
-        fail_unless(torch.equal(a, ar), f"entropy argmax {label}")
-        fail_unless(bool(torch.isfinite(h).all() and torch.isfinite(p).all()),
-                    f"entropy {label}: non-finite output")
-        if label.startswith("tied"):
-            first = (x == x.amax(-1, keepdim=True)).int().argmax(-1)
-            fail_unless(torch.equal(a, first.to(torch.int32)),
-                        f"{label}: first index must win a tie")
-        max_err = max(max_err, err)
+    inputs.append(("tied_split_8x256000", _split_tied_rows(dev, tie_splits)))
+    return inputs
+
+
+def check_entropy(label: str, x: torch.Tensor, out) -> float:
+    """Hold the kernel's (entropy, max_prob, argmax) against the plain
+    version: f32 within F32_TOL, bf16 within BF16_TOL, argmax equal, and
+    the first index on a tie; -> the largest absolute error."""
+    h, p, a = out
+    hr, pr, ar = ent_mod.entropy_stats_plain(x)
+    torch.cuda.synchronize()
+    tol = F32_TOL if x.dtype == torch.float32 else BF16_TOL
+    err = max((h - hr).abs().max().item(), (p - pr).abs().max().item())
+    fail_unless(torch.allclose(h, hr, rtol=tol, atol=tol)
+                and torch.allclose(p, pr, rtol=tol, atol=tol),
+                f"entropy {label}: max abs err {err}")
+    fail_unless(torch.equal(a, ar), f"entropy argmax {label}")
+    fail_unless(bool(torch.isfinite(h).all() and torch.isfinite(p).all()),
+                f"entropy {label}: non-finite output")
+    if label.startswith("tied"):
+        first = (x == x.amax(-1, keepdim=True)).int().argmax(-1)
+        fail_unless(torch.equal(a, first.to(torch.int32)),
+                    f"{label}: first index must win a tie")
+    return err
+
+
+def phase_kernel(peaks: dict):
+    """The entropy kernel at every case, under the schedule the wrapper
+    picks and, for a split row, under the other merge as well; each
+    beside the launch floor, its bound, the plain version and the
+    library call."""
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    floor = {"ms": graph_ms(lambda: ent_mod.empty_kernel_cuda(dev), 200),
+             "call_ms": time_ms(lambda: ent_mod.empty_kernel_cuda(dev), 200)}
+    emit(phase="launch_floor", kernel="entropy_empty: one warp, no work",
+         **floor)
+    tie_splits = tuple(ent_mod.entropy_schedule(8, 256000, 4, sms,
+                                                merge=m)["splits"]
+                       for m in ("cluster", "ticket"))
+    max_err, main, schedules = 0.0, None, {}
+    for label, x in entropy_inputs(dev, tie_splits):
         B, V = x.shape
+        plan = ent_mod.entropy_schedule(
+            B, V, x.element_size(), sms,
+            offset=x.data_ptr() % ent_mod.VEC_BYTES)
+        merges = [plan["merge"]]
+        if plan["merge"] is not None:
+            merges.append("ticket" if plan["merge"] == "cluster"
+                          else "cluster")
+        errs = []
+        for merge in merges:
+            before = ent_mod.launches
+            out = ent_mod.entropy_stats_cuda(x, merge=merge)
+            fail_unless(ent_mod.launches == before + 1,
+                        f"entropy {label}: one launch counted per call")
+            errs.append(check_entropy(label, x, out))
+        max_err = max(max_err, *errs)
         iters = 200 if B * V < 1e6 else 20
-        row = dict(phase="kernel", name="entropy_stats", shape=[B, V],
-                   dtype=str(x.dtype).replace("torch.", ""), max_abs_err=err,
+        row = dict(phase="kernel", name="entropy_stats", case=label,
+                   shape=[B, V], dtype=str(x.dtype).replace("torch.", ""),
+                   schedule=plan["schedule"], splits=plan["splits"],
+                   merge=plan["merge"], threads=plan["threads"],
+                   blocks=plan["blocks"], max_abs_err=errs[0],
                    argmax_equal=True,
                    library_computes="entropy only (torch.distributions."
                                     "Categorical(logits).entropy())")
@@ -345,15 +424,47 @@ def phase_kernel(peaks: dict):
                "plain_": lambda: ent_mod.entropy_stats_plain(x),
                "library_": lambda: torch.distributions.Categorical(
                    logits=x, validate_args=False).entropy()}
+        if len(merges) == 2:
+            alt = ent_mod.entropy_schedule(B, V, x.element_size(), sms,
+                                           merge=merges[1])
+            row.update(alt_merge=merges[1], alt_splits=alt["splits"],
+                       alt_max_abs_err=errs[1])
+            fns["alt_"] = lambda: ent_mod.entropy_stats_cuda(
+                x, merge=merges[1])
         for prefix, fn in fns.items():
             row[prefix + "ms"] = graph_ms(fn, iters)
             row[prefix + "call_ms"] = time_ms(fn, iters)
         row["bound_ms"], row["bound_by"] = entropy_bound_ms(
             B, V, x.element_size(), peaks)
+        row["floor_ms"] = floor["ms"]
         emit(**row)
+        schedules[label] = " ".join(
+            str(v) for v in (plan["schedule"], plan["splits"], plan["merge"])
+            if v not in (None, 1))
         if label == "64x2":          # the gated path's [batch, n_classes]
             main = row
-    return max_err, main
+        if label == "8x256000":
+            _two_streams(x)
+    return max_err, main, schedules, floor["ms"]
+
+
+def _two_streams(x: torch.Tensor, calls: int = 8) -> None:
+    """The split schedule's ticket merge from two streams at once: each
+    stream keeps its own tickets, so every result equals one stream's."""
+    want = ent_mod.entropy_stats_cuda(x)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(calls):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(ent_mod.entropy_stats_cuda(x))
+    torch.cuda.synchronize()
+    fail_unless(all(torch.equal(o[2], want[2]) and torch.allclose(
+        o[0], want[0], rtol=F32_TOL, atol=F32_TOL) for o in outs),
+        "entropy from two streams at once equals one stream's")
+    emit(phase="kernel_two_streams", shape=list(x.shape), calls=len(outs),
+         equal=True)
 
 
 def _serve(path: str, extra: list[str]):
@@ -1624,7 +1735,7 @@ def main() -> int:
     name, _ = phase_device()
     peaks = PEAKS["pcie" if "pcie" in name.lower() else "sxm"]
     phase_build()
-    max_err, main_row = phase_kernel(peaks)
+    max_err, main_row, ent_schedules, floor_ms = phase_kernel(peaks)
     launches = phase_serve()
     cfg, model, x = _gated_batch()
     phase_parity(cfg, model, x)
@@ -1663,6 +1774,8 @@ def main() -> int:
         "call_ms": main_row["call_ms"],
         "plain_call_ms": main_row["plain_call_ms"],
         "library_call_ms": main_row["library_call_ms"],
+        "launch_floor_ms": floor_ms,
+        "schedules": ent_schedules,
     }
     emit(kernels=[
         entropy,

@@ -5,9 +5,11 @@ f32, argmax [B] int32, the first index of the maximum), the port of
 ``repro.kernels.entropy.entropy_stats``:
 
   - on a CUDA tensor it launches the hand-written Hopper kernel
-    ``csrc/entropy.cu`` (one block per row, an online (max, sum-exp,
-    sum-x·exp, argmax) in one pass over V) and adds one to
-    ``launches``; on a card that is not sm_90 it raises;
+    ``csrc/entropy.cu`` and adds one to ``launches``; on a card that is
+    not sm_90 it raises.  The kernel runs one of three schedules, chosen
+    here by :func:`entropy_schedule` from (B, V, itemsize, SM count):
+    packed rows (a thread per row), a warp per row, or a row split
+    across blocks that merge in the same launch;
   - on a CPU tensor it runs ``entropy_stats_plain``, the plain PyTorch
     version of ``repro.kernels.ref.entropy_stats``, which
     ``chip_smoke.py`` also holds the kernel against on the card.
@@ -31,6 +33,82 @@ launches = 0
 _ENTRY = {torch.float32: "entropy_stats_f32",
           torch.bfloat16: "entropy_stats_bf16"}
 
+# the schedules' constants; ``csrc/entropy.cu`` holds the same vector
+# width and unroll (``kVecBytes``, ``kUnroll``, ``kMaxCluster``)
+PACKED_MAX_V = 16          # longest row one thread walks alone
+WARP_MAX_ROW_BYTES = 4096  # longest row one warp reads (two rounds of loads)
+SPLIT_THREADS = 256        # threads of a block of the split schedule
+VEC_BYTES = 16             # one load of a lane: 4 f32 or 8 bf16
+UNROLL = 4                 # vectors a lane keeps in flight
+MAX_CLUSTER = 16           # the largest cluster sm_90 takes (non-portable)
+WAVES = 1                  # blocks of the split schedule per SM, at least
+RESIDENT_THREADS = 2048    # threads an SM of sm_90 holds at once
+_SCHEDULES = {"packed": 0, "warp": 1, "split": 2}
+_MERGES = {None: 0, "cluster": 1, "ticket": 2}
+
+
+def entropy_schedule(B: int, V: int, itemsize: int, sms: int, *,
+                     offset: int = 0, merge: str | None = None) -> dict:
+    """How the kernel runs a [B, V] tensor of ``itemsize``-byte logits
+    starting ``offset`` bytes past a 16-byte boundary, on a card of
+    ``sms`` SMs:
+
+      - ``packed`` (V <= PACKED_MAX_V): a thread per row, up to 256 rows
+        a block; each thread reads its row in loads of ``vector``
+        elements, the widest (<= 16 bytes) that divides the row and
+        every row's start;
+      - ``warp`` (a row of at most WARP_MAX_ROW_BYTES): a warp per row,
+        one warp a block, up to 8 once there are rows enough to give
+        every SM two blocks;
+      - ``split`` (longer rows): ``splits`` blocks of SPLIT_THREADS per
+        row, so that B x splits reaches WAVES blocks per SM and, as far
+        as the card holds the blocks at once, a block reads its slice in
+        one round of UNROLL vectors a thread, each block one contiguous
+        slice of the row; the partials merge in the same launch through
+        global memory and an atomic ticket (``"ticket"``, the default:
+        on the H100 it was faster at every split case of
+        ``chip_smoke.py`` but one, odd-V bf16, where the cluster led by
+        3 %) or through a thread-block cluster (``merge="cluster"``, at
+        most MAX_CLUSTER slices).  One split needs no merge
+        (``merge=None``).
+
+    ``merge`` forces one of the two merges of a split row, for measuring
+    one against the other (``chip_smoke.py`` times both)."""
+    if B < 1 or V < 1:
+        raise ValueError(f"entropy_schedule needs B, V >= 1, got {B}, {V}")
+    if V <= PACKED_MAX_V:
+        threads = min(256, -(-B // 32) * 32)
+        vector = VEC_BYTES // itemsize
+        while vector > 1 and (V % vector or offset % (vector * itemsize)):
+            vector //= 2
+        return {"schedule": "packed", "threads": threads,
+                "blocks": -(-B // threads), "vector": vector, "splits": 1,
+                "merge": None}
+    if V * itemsize <= WARP_MAX_ROW_BYTES:
+        rows = 1
+        while rows < 8 and B >= 2 * rows * sms:
+            rows *= 2
+        return {"schedule": "warp", "threads": 32 * rows,
+                "blocks": -(-B // rows), "vector": VEC_BYTES // itemsize,
+                "splits": 1, "merge": None}
+    vectors = V * itemsize // VEC_BYTES
+    # enough blocks for WAVES a SM, and, as far as the card holds them at
+    # once, slices of one round of loads; a vector for every thread
+    resident = RESIDENT_THREADS // SPLIT_THREADS * sms
+    splits = max(-(-WAVES * sms // B),
+                 min(-(-vectors // (SPLIT_THREADS * UNROLL)), resident // B))
+    splits = max(1, min(splits, vectors // SPLIT_THREADS))
+    if merge is None:
+        merge = "ticket" if splits > 1 else None
+    elif merge not in ("cluster", "ticket"):
+        raise ValueError(f"merge must be 'cluster' or 'ticket', got "
+                         f"{merge!r}")
+    if merge == "cluster":
+        splits = min(splits, MAX_CLUSTER)
+    return {"schedule": "split", "threads": SPLIT_THREADS,
+            "blocks": B * splits, "vector": VEC_BYTES // itemsize,
+            "splits": splits, "merge": merge if splits > 1 else None}
+
 
 def entropy_stats_plain(logits: torch.Tensor):
     """logits [B, V] -> (entropy [B], max_prob [B], argmax [B] int32)
@@ -49,17 +127,46 @@ def _library() -> ctypes.CDLL:
     lib = build.load("entropy")
     for name in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [
-            ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
+    lib.entropy_empty.argtypes = [ctypes.c_void_p]
+    lib.entropy_empty.restype = ctypes.c_int
     lib.entropy_error_string.argtypes = [ctypes.c_int]
     lib.entropy_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def entropy_stats_cuda(logits: torch.Tensor):
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# per (device, stream): one int32 ticket per row for the split
+# schedule's "ticket" merge, zero between calls (the row's last block
+# puts it back to 0); calls on one stream are ordered, so they can share
+_tickets: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _ticket_buffer(device: torch.device, stream: int,
+                   rows: int) -> torch.Tensor:
+    buf = _tickets.get((device, stream))
+    if buf is None or buf.numel() < rows:
+        buf = torch.zeros(max(rows, 1024), dtype=torch.int32, device=device)
+        _tickets[(device, stream)] = buf
+    return buf
+
+
+def _raise_on(lib: ctypes.CDLL, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"entropy kernel launch failed: "
+                           f"{lib.entropy_error_string(err).decode()}")
+
+
+def entropy_stats_cuda(logits: torch.Tensor, *, merge: str | None = None):
     """The CUDA kernel; raises unless ``logits`` is a contiguous 2-D f32
-    or bf16 tensor on an sm_90 card."""
+    or bf16 tensor on an sm_90 card.  ``merge`` is passed on to
+    :func:`entropy_schedule`."""
     global launches
     if logits.device.type != "cuda":
         raise ValueError(f"the CUDA entropy kernel needs a CUDA tensor, got "
@@ -78,22 +185,43 @@ def entropy_stats_cuda(logits: torch.Tensor):
     if not logits.is_contiguous():
         raise ValueError("logits must be contiguous")
     B, V = logits.shape
-    ent = torch.empty(B, dtype=torch.float32, device=logits.device)
-    maxp = torch.empty(B, dtype=torch.float32, device=logits.device)
-    amax = torch.empty(B, dtype=torch.int32, device=logits.device)
+    dev = logits.device
+    ent = torch.empty(B, dtype=torch.float32, device=dev)
+    maxp = torch.empty(B, dtype=torch.float32, device=dev)
+    amax = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return ent, maxp, amax
+    plan = entropy_schedule(B, V, logits.element_size(),
+                            _sm_count(dev.index or 0),
+                            offset=logits.data_ptr() % VEC_BYTES, merge=merge)
     lib = _library()
-    with torch.cuda.device(logits.device):
-        stream = torch.cuda.current_stream(logits.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        partials = tickets = None
+        if plan["merge"] == "ticket":
+            partials = torch.empty(B * plan["splits"], 4,
+                                   dtype=torch.float32, device=dev)
+            tickets = _ticket_buffer(dev, stream, B)
         err = getattr(lib, _ENTRY[logits.dtype])(
             logits.data_ptr(), ent.data_ptr(), maxp.data_ptr(),
-            amax.data_ptr(), B, V, stream)
-    if err != 0:
-        raise RuntimeError(f"entropy kernel launch failed: "
-                           f"{lib.entropy_error_string(err).decode()}")
+            amax.data_ptr(), B, V, _SCHEDULES[plan["schedule"]],
+            _MERGES[plan["merge"]], plan["threads"], plan["vector"],
+            plan["splits"], None if partials is None else partials.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), stream)
+    _raise_on(lib, err)
     launches += 1
     return ent, maxp, amax
+
+
+def empty_kernel_cuda(device: torch.device | int | str = "cuda") -> None:
+    """Launch ``csrc/entropy.cu``'s empty kernel (one warp, no work) on
+    the current stream: the card's launch floor, which bounds the
+    kernel at the main path's shapes.  Not counted in ``launches``."""
+    dev = torch.device(device)
+    lib = _library()
+    with torch.cuda.device(dev):
+        _raise_on(lib, lib.entropy_empty(
+            torch.cuda.current_stream(dev).cuda_stream))
 
 
 def entropy_stats(logits: torch.Tensor):
