@@ -16,19 +16,20 @@ not 0.  Phases:
   3. kernel  — first ``launch_floor``: the entropy library's empty kernel
                (one warp, no work), device and call time; then the entropy
                kernel on the card against its plain PyTorch version on the
-               same inputs (f32 to 1e-4, bf16 to 3e-2, argmax exact, the
-               first index winning ties, one launch counted per call), at
-               the gated step's shapes and their edges (300 rows, V = 1),
-               a warp-per-row width, proxy and vocabulary widths (odd V in
+               same inputs (f32 and bf16 to 1e-4, argmax exact, the first
+               index winning ties, one launch counted per call), at the
+               gated step's shapes and their edges (300 rows, V = 1), a
+               warp-per-row width, proxy and vocabulary widths (odd V in
                f32 and bf16) and ties across slice boundaries; each row
                prints the schedule the wrapper chose (packed, warp, split
-               with its splits and merge) and, for a split row, the other
-               merge too (``alt_*``), and 8 x 256000 from two streams at
-               once (``kernel_two_streams``), timed with CUDA events beside its
-               bound, the launch floor (``floor_ms``) and a one-call
-               PyTorch yardstick: ``ms`` is device time (calls replayed
-               from a CUDA graph), ``call_ms`` the time per call issued
-               back to back from Python;
+               with its splits); 8 x 256000 also from two streams at once
+               (``kernel_two_streams``) and from two CUDA graphs replayed
+               at once (``kernel_two_graphs``); timed with CUDA events
+               beside its bound, the launch floor (``floor_ms``) and a
+               one-call PyTorch yardstick: ``ms`` is device time (calls
+               replayed from a CUDA graph), ``call_ms`` the time per call
+               issued back to back from Python, and a split row's
+               ``cold_ms`` device time on inputs that miss the L2;
   4. serve   — the full-width DistilBERT with seeded weights through the
                launcher's ``serve_classifier`` on ``--path gated`` (bio
                controller, batch 64) and on ``--path auto``; each path runs
@@ -120,6 +121,7 @@ It needs one card and exits non-zero without CUDA or without the repo.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -310,9 +312,9 @@ ENTROPY_CASES = [((1, 2), torch.float32), ((64, 2), torch.float32),
                  ((64, 1), torch.float32), ((8, 2048), torch.bfloat16),
                  ((64, 50304), torch.float32), ((8, 256000), torch.float32),
                  ((16, 50257), torch.float32), ((8, 50257), torch.bfloat16)]
-# the split counts of 8 x 256000 under the cluster and the ticket merge on
-# a 132-SM card; entropy_inputs plants ties on their slice boundaries
-TIE_SPLITS = (16, 63)
+# the split count of 8 x 256000 f32 on a 132-SM card; phase_kernel takes
+# the card's own, and entropy_inputs plants ties on its slice boundaries
+TIE_SPLITS = 63
 
 
 def _tied_rows(dev) -> torch.Tensor:
@@ -328,18 +330,18 @@ def _tied_rows(dev) -> torch.Tensor:
 
 
 def _split_tied_rows(dev, splits) -> torch.Tensor:
-    """8 x 256000 f32 with ties straddling slice boundaries: rows 0-2 of
-    ``splits[0]`` slices (the first, a middle and the last boundary),
-    rows 4-6 of ``splits[1]``, row 3 across two vectors inside a slice,
-    row 7 the row's first and last column.  A slice of n starts at
-    column 4 floor(64000 k / n) (16-byte vectors of an aligned row)."""
+    """8 x 256000 f32 with ties straddling the boundaries of ``splits``
+    slices: rows 0-5 the boundaries before slices 1, 2, n/3, n/2, n-2 and
+    n-1, row 6 across two vectors inside a slice, row 7 the row's first
+    and last column.  Slice k starts at column 4 floor(64000 k / n)
+    (16-byte vectors of an aligned row)."""
     g = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn(8, 256000, generator=g, device=dev) * 4
-    for rows, n in ((range(0, 3), splits[0]), (range(4, 7), splits[1])):
-        for r, k in zip(rows, (1, n // 2, n - 1)):
-            b = 4 * (64000 * k // n)
-            x[r, [b - 1, b]] = 50.0
-    x[3, [4 * 777 + 3, 4 * 778]] = 50.0
+    n = splits
+    for r, k in enumerate((1, 2, n // 3, n // 2, n - 2, n - 1)):
+        b = 4 * (64000 * k // n)
+        x[r, [b - 1, b]] = 50.0
+    x[6, [4 * 777 + 3, 4 * 778]] = 50.0
     x[7, [0, 255999]] = 50.0
     return x
 
@@ -359,15 +361,15 @@ def entropy_inputs(dev, tie_splits=TIE_SPLITS) -> list:
 
 def check_entropy(label: str, x: torch.Tensor, out) -> float:
     """Hold the kernel's (entropy, max_prob, argmax) against the plain
-    version: f32 within F32_TOL, bf16 within BF16_TOL, argmax equal, and
-    the first index on a tie; -> the largest absolute error."""
+    version: within F32_TOL for bf16 input too (both upcast it exactly
+    and compute in f32), argmax equal, and the first index on a tie;
+    -> the largest absolute error."""
     h, p, a = out
     hr, pr, ar = ent_mod.entropy_stats_plain(x)
     torch.cuda.synchronize()
-    tol = F32_TOL if x.dtype == torch.float32 else BF16_TOL
     err = max((h - hr).abs().max().item(), (p - pr).abs().max().item())
-    fail_unless(torch.allclose(h, hr, rtol=tol, atol=tol)
-                and torch.allclose(p, pr, rtol=tol, atol=tol),
+    fail_unless(torch.allclose(h, hr, rtol=F32_TOL, atol=F32_TOL)
+                and torch.allclose(p, pr, rtol=F32_TOL, atol=F32_TOL),
                 f"entropy {label}: max abs err {err}")
     fail_unless(torch.equal(a, ar), f"entropy argmax {label}")
     fail_unless(bool(torch.isfinite(h).all() and torch.isfinite(p).all()),
@@ -379,72 +381,73 @@ def check_entropy(label: str, x: torch.Tensor, out) -> float:
     return err
 
 
+def cold_ms(fn, x: torch.Tensor) -> float:
+    """Device time per call of ``fn`` over a ring of copies of ``x`` that
+    together hold twice the card's L2, each call reading the copy read
+    least recently: its input comes from HBM, as the bytes bound
+    assumes, not from the L2 that replays of one input hit."""
+    l2 = getattr(torch.cuda.get_device_properties(x.device),
+                 "L2_cache_size", 0) or 50 * 2**20
+    n = max(2, -(-2 * l2 // (x.numel() * x.element_size())))
+    ring = [x.clone() for _ in range(n)]
+    turn = itertools.cycle(ring)
+    ms = graph_ms(lambda: fn(next(turn)), 2 * n)
+    del ring
+    return ms
+
+
 def phase_kernel(peaks: dict):
     """The entropy kernel at every case, under the schedule the wrapper
-    picks and, for a split row, under the other merge as well; each
-    beside the launch floor, its bound, the plain version and the
-    library call."""
+    picks, beside the launch floor, its bound, the plain version and the
+    library call; a split row is also timed on inputs that miss the L2
+    (``cold_ms``)."""
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     floor = {"ms": graph_ms(lambda: ent_mod.empty_kernel_cuda(dev), 200),
              "call_ms": time_ms(lambda: ent_mod.empty_kernel_cuda(dev), 200)}
     emit(phase="launch_floor", kernel="entropy_empty: one warp, no work",
          **floor)
-    tie_splits = tuple(ent_mod.entropy_schedule(8, 256000, 4, sms,
-                                                merge=m)["splits"]
-                       for m in ("cluster", "ticket"))
+    tie_splits = ent_mod.entropy_schedule(8, 256000, 4, sms)["splits"]
     max_err, main, schedules = 0.0, None, {}
     for label, x in entropy_inputs(dev, tie_splits):
         B, V = x.shape
         plan = ent_mod.entropy_schedule(
             B, V, x.element_size(), sms,
             offset=x.data_ptr() % ent_mod.VEC_BYTES)
-        merges = [plan["merge"]]
-        if plan["merge"] is not None:
-            merges.append("ticket" if plan["merge"] == "cluster"
-                          else "cluster")
-        errs = []
-        for merge in merges:
-            before = ent_mod.launches
-            out = ent_mod.entropy_stats_cuda(x, merge=merge)
-            fail_unless(ent_mod.launches == before + 1,
-                        f"entropy {label}: one launch counted per call")
-            errs.append(check_entropy(label, x, out))
-        max_err = max(max_err, *errs)
+        before = ent_mod.launches
+        out = ent_mod.entropy_stats_cuda(x)
+        fail_unless(ent_mod.launches == before + 1,
+                    f"entropy {label}: one launch counted per call")
+        err = check_entropy(label, x, out)
+        max_err = max(max_err, err)
         iters = 200 if B * V < 1e6 else 20
         row = dict(phase="kernel", name="entropy_stats", case=label,
                    shape=[B, V], dtype=str(x.dtype).replace("torch.", ""),
                    schedule=plan["schedule"], splits=plan["splits"],
-                   merge=plan["merge"], threads=plan["threads"],
-                   blocks=plan["blocks"], max_abs_err=errs[0],
-                   argmax_equal=True,
+                   threads=plan["threads"], blocks=plan["blocks"],
+                   max_abs_err=err, argmax_equal=True,
                    library_computes="entropy only (torch.distributions."
                                     "Categorical(logits).entropy())")
         fns = {"": lambda: ops.entropy_stats(x, impl="cuda"),
                "plain_": lambda: ent_mod.entropy_stats_plain(x),
                "library_": lambda: torch.distributions.Categorical(
                    logits=x, validate_args=False).entropy()}
-        if len(merges) == 2:
-            alt = ent_mod.entropy_schedule(B, V, x.element_size(), sms,
-                                           merge=merges[1])
-            row.update(alt_merge=merges[1], alt_splits=alt["splits"],
-                       alt_max_abs_err=errs[1])
-            fns["alt_"] = lambda: ent_mod.entropy_stats_cuda(
-                x, merge=merges[1])
         for prefix, fn in fns.items():
             row[prefix + "ms"] = graph_ms(fn, iters)
             row[prefix + "call_ms"] = time_ms(fn, iters)
+        if plan["schedule"] == "split":
+            row["cold_ms"] = cold_ms(ent_mod.entropy_stats_cuda, x)
         row["bound_ms"], row["bound_by"] = entropy_bound_ms(
             B, V, x.element_size(), peaks)
         row["floor_ms"] = floor["ms"]
         emit(**row)
-        schedules[label] = " ".join(
-            str(v) for v in (plan["schedule"], plan["splits"], plan["merge"])
-            if v not in (None, 1))
+        schedules[label] = plan["schedule"] + (
+            f" {plan['splits']}" if plan["splits"] > 1 else "")
         if label == "64x2":          # the gated path's [batch, n_classes]
             main = row
         if label == "8x256000":
             _two_streams(x)
+            _two_graphs(x)
     return max_err, main, schedules, floor["ms"]
 
 
@@ -465,6 +468,35 @@ def _two_streams(x: torch.Tensor, calls: int = 8) -> None:
         "entropy from two streams at once equals one stream's")
     emit(phase="kernel_two_streams", shape=list(x.shape), calls=len(outs),
          equal=True)
+
+
+def _two_graphs(x: torch.Tensor, calls: int = 4, rounds: int = 8) -> None:
+    """Two CUDA graphs of the split schedule, both captured on torch's one
+    default capture stream, replayed at once on two streams: each graph
+    owns its tickets, so every replay's results equal a direct call's."""
+    want = ent_mod.entropy_stats_cuda(x)
+    graphs, outs = [], []
+    for xi in (x.clone(), x.clone()):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            outs.append([ent_mod.entropy_stats_cuda(xi)
+                         for _ in range(calls)])
+        graphs.append(g)
+    streams = [torch.cuda.Stream() for _ in graphs]
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(rounds):
+        for g, st, o in zip(graphs, streams, outs):
+            with torch.cuda.stream(st):
+                g.replay()
+                got += [tuple(t.clone() for t in r) for r in o]
+    torch.cuda.synchronize()
+    fail_unless(all(torch.equal(o[2], want[2]) and torch.allclose(
+        o[0], want[0], rtol=F32_TOL, atol=F32_TOL) for o in got),
+        "entropy from two graphs replayed at once equals a direct call's")
+    emit(phase="kernel_two_graphs", shape=list(x.shape), graphs=2,
+         calls=calls, rounds=rounds, results=len(got), equal=True)
+    del graphs
 
 
 def _serve(path: str, extra: list[str]):

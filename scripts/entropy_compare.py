@@ -53,8 +53,7 @@ def main() -> int:
     tie_splits = smoke.TIE_SPLITS
     if schedule is not None:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        tie_splits = tuple(schedule(8, 256000, 4, sms, merge=m)["splits"]
-                           for m in ("cluster", "ticket"))
+        tie_splits = schedule(8, 256000, 4, sms)["splits"]
     for label, x in smoke.entropy_inputs(dev, tie_splits):
         err = smoke.check_entropy(label, x, ent_mod.entropy_stats_cuda(x))
         B, V = x.shape

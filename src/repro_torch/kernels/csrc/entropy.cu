@@ -39,19 +39,13 @@
 //     contiguous slices, one block of 256 threads each, so that every SM
 //     has a block and each slice is one round of loads (a block a row,
 //     8 x 256000 would stream through 8 of the 132 SMs).  The partials
-//     merge inside the same launch, by one of two means:
-//       ticket (the wrapper's choice): each block writes its partial to
-//         global scratch and takes a ticket with one acquire-release
-//         atomic; the row's last block reads every partial (lane l folds
-//         slices l, l+32, ... in rank order) and merges them.  The ticket
-//         wraps to 0 at `splits` (atomic inc), so it is zero again for the
-//         next call;
-//       cluster (at most 16 slices, non-portable above 8): the row's
-//         blocks form one thread-block cluster; each stores its partial
-//         into rank 0's shared memory (distributed shared memory) and
-//         arrives on rank 0's mbarrier, then leaves; rank 0 waits and
-//         merges.  Its merge is the cheaper, but placing the clusters
-//         costs the loads more than that at every size measured.
+//     merge inside the same launch: each block writes its partial to
+//     global scratch and takes a ticket with one acquire-release atomic;
+//     the row's last block reads every partial (lane l folds slices l,
+//     l+32, ... in rank order) and merges them.  The ticket wraps to 0 at
+//     `splits` (atomic inc), so it is zero again for the next call.  A
+//     thread-block-cluster merge through distributed shared memory was
+//     slower on the H100 at all but one split case (PERF.md, kernel #1).
 //   In warp and split, a lane reads 16-byte vectors (4 f32 or 8 bf16) in
 //   rounds of kUnroll, all of a round's loads in flight together, and
 //   folds a round with one rescale of (s, u): the round's maximum first,
@@ -63,8 +57,8 @@
 //
 // Plain C interface, bound from Python with ctypes: each entry point
 // launches on the given stream and returns the launch's error (or
-// cudaGetLastError() right after it), so a refused launch (a cluster the
-// card cannot place, a bad configuration) is reported where it happened.
+// cudaGetLastError() right after it), so a refused launch (a bad
+// configuration) is reported where it happened.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,10 +69,8 @@ namespace {
 constexpr float kNeg = -1e30f;
 constexpr int kVecBytes = 16;
 constexpr int kUnroll = 4;
-constexpr int kMaxCluster = 16;
 
 enum Schedule { kPacked = 0, kWarp = 1, kSplit = 2 };
-enum Merge { kNone = 0, kCluster = 1, kTicket = 2 };
 
 struct Stats {
   float m;
@@ -310,8 +302,8 @@ __global__ void warp_kernel(const T* __restrict__ logits, Out out,
 }
 
 // grid: rows x splits blocks, block b on slice b % splits of row
-// b / splits (a cluster along x is one row's blocks, rank = slice)
-template <typename T, int kMerge>
+// b / splits; kTicket: more than one slice, merged by the last block
+template <typename T, bool kTicket>
 __global__ void split_kernel(const T* __restrict__ logits, Out out,
                              int64_t cols, int splits,
                              float4* __restrict__ partials,
@@ -320,21 +312,6 @@ __global__ void split_kernel(const T* __restrict__ logits, Out out,
   const int k = static_cast<int>(blockIdx.x % splits);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  // cluster merge: rank 0's barrier counts the partials its peers store
-  // into rank 0's shared memory; it is set up before any peer can store
-  __shared__ __align__(16) float4 parts[kMaxCluster];
-  __shared__ __align__(8) unsigned long long arrived;
-  const unsigned arrived_addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(&arrived));
-  if constexpr (kMerge == kCluster) {
-    if (k == 0 && threadIdx.x == 0) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                   "fence.mbarrier_init.release.cluster;"
-                   :: "r"(arrived_addr), "r"(splits) : "memory");
-    }
-    __syncwarp();
-    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-  }
   Stats t = slice_stats(logits + row * cols, cols, k, splits, threadIdx.x,
                         blockDim.x);
 
@@ -349,46 +326,8 @@ __global__ void split_kernel(const T* __restrict__ logits, Out out,
     t = warp_reduce(t, lanes_for(warps));
   }
 
-  if constexpr (kMerge == kNone) {
+  if constexpr (!kTicket) {
     if (threadIdx.x == 0) write(out, row, t);
-  } else if constexpr (kMerge == kCluster) {
-    // every block stores its partial into rank 0's parts[k] and arrives
-    // on rank 0's barrier (release: the store first), then may leave;
-    // rank 0 waits for all `splits` arrivals and merges
-    __syncwarp();
-    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-    if (threadIdx.x == 0) {
-      unsigned part, bar;
-      const unsigned local = static_cast<unsigned>(
-          __cvta_generic_to_shared(&parts[k]));
-      asm volatile("mapa.shared::cluster.u32 %0, %1, 0;"
-                   : "=r"(part) : "r"(local));
-      asm volatile("mapa.shared::cluster.u32 %0, %1, 0;"
-                   : "=r"(bar) : "r"(arrived_addr));
-      asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n"
-                   "mbarrier.arrive.release.cluster.shared::cluster.b64 _, "
-                   "[%5];"
-                   :: "r"(part), "f"(t.m), "f"(t.s), "f"(t.u),
-                      "f"(__int_as_float(t.idx)), "r"(bar)
-                   : "memory");
-    }
-    if (k == 0 && warp == 0) {
-      asm volatile(
-          "{\n"
-          ".reg .pred done;\n"
-          "WAIT_%=:\n"
-          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, "
-          "[%0], 0;\n"
-          "@!done bra WAIT_%=;\n"
-          "}" :: "r"(arrived_addr) : "memory");
-      Stats p = neutral();
-      if (lane < splits) {
-        const float4 q = parts[lane];
-        p = Stats{q.x, q.y, q.z, __float_as_int(q.w)};
-      }
-      p = warp_reduce(p, lanes_for(splits));
-      if (lane == 0) write(out, row, p);
-    }
   } else {
     __shared__ bool last;
     if (threadIdx.x == 0) {
@@ -427,9 +366,9 @@ int launch_packed(const T* x, Out out, int64_t rows, int64_t cols,
 
 template <typename T>
 int launch(const void* logits, void* entropy, void* max_prob, void* argmax,
-           int64_t rows, int64_t cols, int schedule, int merge_by,
-           int threads, int vector, int splits, void* partials,
-           void* tickets, void* stream_ptr) {
+           int64_t rows, int64_t cols, int schedule, int threads,
+           int vector, int splits, void* partials, void* tickets,
+           void* stream_ptr) {
   const T* x = static_cast<const T*>(logits);
   const Out out{static_cast<float*>(entropy), static_cast<float*>(max_prob),
                 static_cast<int32_t*>(argmax)};
@@ -465,46 +404,17 @@ int launch(const void* logits, void* entropy, void* max_prob, void* argmax,
   }
   if (schedule != kSplit) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = static_cast<unsigned>(rows * splits);
-  if (merge_by == kNone || splits == 1) {
-    if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
-    split_kernel<T, kNone><<<blocks, threads, 0, stream>>>(
+  if (splits == 1) {
+    split_kernel<T, false><<<blocks, threads, 0, stream>>>(
         x, out, cols, 1, nullptr, nullptr);
     return static_cast<int>(cudaGetLastError());
   }
-  if (merge_by == kTicket) {
-    if (partials == nullptr || tickets == nullptr) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    split_kernel<T, kTicket><<<blocks, threads, 0, stream>>>(
-        x, out, cols, splits, static_cast<float4*>(partials),
-        static_cast<unsigned*>(tickets));
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (merge_by != kCluster || splits > kMaxCluster) {
+  if (partials == nullptr || tickets == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto* kernel = split_kernel<T, kCluster>;
-  if (splits > 8) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned>(splits);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(static_cast<unsigned>(threads));
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, x, out, cols, splits, static_cast<float4*>(nullptr),
-      static_cast<unsigned*>(nullptr));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  split_kernel<T, true><<<blocks, threads, 0, stream>>>(
+      x, out, cols, splits, static_cast<float4*>(partials),
+      static_cast<unsigned*>(tickets));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -514,20 +424,32 @@ extern "C" {
 
 int entropy_stats_f32(const void* logits, void* entropy, void* max_prob,
                       void* argmax, int64_t rows, int64_t cols, int schedule,
-                      int merge_by, int threads, int vector, int splits,
-                      void* partials, void* tickets, void* stream) {
+                      int threads, int vector, int splits, void* partials,
+                      void* tickets, void* stream) {
   return launch<float>(logits, entropy, max_prob, argmax, rows, cols,
-                       schedule, merge_by, threads, vector, splits, partials,
-                       tickets, stream);
+                       schedule, threads, vector, splits, partials, tickets,
+                       stream);
 }
 
 int entropy_stats_bf16(const void* logits, void* entropy, void* max_prob,
                        void* argmax, int64_t rows, int64_t cols, int schedule,
-                       int merge_by, int threads, int vector, int splits,
-                       void* partials, void* tickets, void* stream) {
+                       int threads, int vector, int splits, void* partials,
+                       void* tickets, void* stream) {
   return launch<__nv_bfloat16>(logits, entropy, max_prob, argmax, rows, cols,
-                               schedule, merge_by, threads, vector, splits,
-                               partials, tickets, stream);
+                               schedule, threads, vector, splits, partials,
+                               tickets, stream);
+}
+
+// the id of the CUDA graph capture `stream` is in (*id = 0 when it is
+// not capturing), so the wrapper gives each capture its own tickets
+int entropy_capture_id(void* stream, unsigned long long* id) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  *id = 0;
+  const cudaError_t err = cudaStreamGetCaptureInfo(
+      static_cast<cudaStream_t>(stream), &status, id);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (status != cudaStreamCaptureStatusActive) *id = 0;
+  return 0;
 }
 
 // one warp that does nothing: the card's launch floor

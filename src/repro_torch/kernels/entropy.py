@@ -34,21 +34,19 @@ _ENTRY = {torch.float32: "entropy_stats_f32",
           torch.bfloat16: "entropy_stats_bf16"}
 
 # the schedules' constants; ``csrc/entropy.cu`` holds the same vector
-# width and unroll (``kVecBytes``, ``kUnroll``, ``kMaxCluster``)
+# width and unroll (``kVecBytes``, ``kUnroll``)
 PACKED_MAX_V = 16          # longest row one thread walks alone
 WARP_MAX_ROW_BYTES = 4096  # longest row one warp reads (two rounds of loads)
 SPLIT_THREADS = 256        # threads of a block of the split schedule
 VEC_BYTES = 16             # one load of a lane: 4 f32 or 8 bf16
 UNROLL = 4                 # vectors a lane keeps in flight
-MAX_CLUSTER = 16           # the largest cluster sm_90 takes (non-portable)
 WAVES = 1                  # blocks of the split schedule per SM, at least
 RESIDENT_THREADS = 2048    # threads an SM of sm_90 holds at once
 _SCHEDULES = {"packed": 0, "warp": 1, "split": 2}
-_MERGES = {None: 0, "cluster": 1, "ticket": 2}
 
 
 def entropy_schedule(B: int, V: int, itemsize: int, sms: int, *,
-                     offset: int = 0, merge: str | None = None) -> dict:
+                     offset: int = 0) -> dict:
     """How the kernel runs a [B, V] tensor of ``itemsize``-byte logits
     starting ``offset`` bytes past a 16-byte boundary, on a card of
     ``sms`` SMs:
@@ -64,16 +62,9 @@ def entropy_schedule(B: int, V: int, itemsize: int, sms: int, *,
         row, so that B x splits reaches WAVES blocks per SM and, as far
         as the card holds the blocks at once, a block reads its slice in
         one round of UNROLL vectors a thread, each block one contiguous
-        slice of the row; the partials merge in the same launch through
-        global memory and an atomic ticket (``"ticket"``, the default:
-        on the H100 it was faster at every split case of
-        ``chip_smoke.py`` but one, odd-V bf16, where the cluster led by
-        3 %) or through a thread-block cluster (``merge="cluster"``, at
-        most MAX_CLUSTER slices).  One split needs no merge
-        (``merge=None``).
-
-    ``merge`` forces one of the two merges of a split row, for measuring
-    one against the other (``chip_smoke.py`` times both)."""
+        slice of the row; more than one slice merge in the same launch:
+        the row's last block, found by an atomic ticket, merges the
+        partials from global memory."""
     if B < 1 or V < 1:
         raise ValueError(f"entropy_schedule needs B, V >= 1, got {B}, {V}")
     if V <= PACKED_MAX_V:
@@ -82,15 +73,14 @@ def entropy_schedule(B: int, V: int, itemsize: int, sms: int, *,
         while vector > 1 and (V % vector or offset % (vector * itemsize)):
             vector //= 2
         return {"schedule": "packed", "threads": threads,
-                "blocks": -(-B // threads), "vector": vector, "splits": 1,
-                "merge": None}
+                "blocks": -(-B // threads), "vector": vector, "splits": 1}
     if V * itemsize <= WARP_MAX_ROW_BYTES:
         rows = 1
         while rows < 8 and B >= 2 * rows * sms:
             rows *= 2
         return {"schedule": "warp", "threads": 32 * rows,
                 "blocks": -(-B // rows), "vector": VEC_BYTES // itemsize,
-                "splits": 1, "merge": None}
+                "splits": 1}
     vectors = V * itemsize // VEC_BYTES
     # enough blocks for WAVES a SM, and, as far as the card holds them at
     # once, slices of one round of loads; a vector for every thread
@@ -98,16 +88,9 @@ def entropy_schedule(B: int, V: int, itemsize: int, sms: int, *,
     splits = max(-(-WAVES * sms // B),
                  min(-(-vectors // (SPLIT_THREADS * UNROLL)), resident // B))
     splits = max(1, min(splits, vectors // SPLIT_THREADS))
-    if merge is None:
-        merge = "ticket" if splits > 1 else None
-    elif merge not in ("cluster", "ticket"):
-        raise ValueError(f"merge must be 'cluster' or 'ticket', got "
-                         f"{merge!r}")
-    if merge == "cluster":
-        splits = min(splits, MAX_CLUSTER)
     return {"schedule": "split", "threads": SPLIT_THREADS,
             "blocks": B * splits, "vector": VEC_BYTES // itemsize,
-            "splits": splits, "merge": merge if splits > 1 else None}
+            "splits": splits}
 
 
 def entropy_stats_plain(logits: torch.Tensor):
@@ -128,8 +111,11 @@ def _library() -> ctypes.CDLL:
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
+    lib.entropy_capture_id.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.entropy_capture_id.restype = ctypes.c_int
     lib.entropy_empty.argtypes = [ctypes.c_void_p]
     lib.entropy_empty.restype = ctypes.c_int
     lib.entropy_error_string.argtypes = [ctypes.c_int]
@@ -143,13 +129,34 @@ def _sm_count(index: int) -> int:
 
 
 # per (device, stream): one int32 ticket per row for the split
-# schedule's "ticket" merge, zero between calls (the row's last block
-# puts it back to 0); calls on one stream are ordered, so they can share
+# schedule's merge, zero between calls (the row's last block puts it back
+# to 0).  Calls on one stream are ordered, so they can share; an entry
+# lives as long as the process (torch's pooled streams are never
+# destroyed).  A stream destroyed while its work is pending, whose handle
+# a new stream takes, would race with it on the tickets.
 _tickets: dict[tuple[torch.device, int], torch.Tensor] = {}
+# per (device, stream) being captured into a CUDA graph: (the capture's
+# id, its tickets)
+_captured: dict[tuple[torch.device, int], tuple[int, torch.Tensor]] = {}
 
 
-def _ticket_buffer(device: torch.device, stream: int,
+def _ticket_buffer(lib: ctypes.CDLL, device: torch.device, stream: int,
                    rows: int) -> torch.Tensor:
+    """Zeroed tickets for ``rows`` rows on ``stream``.  Each CUDA graph
+    capture gets its own, zeroed by a node of the graph before its first
+    call in every replay: graphs captured on one stream (torch's one
+    side stream of every ``torch.cuda.graph`` given none) may replay at
+    once, and must not share tickets.  One graph replayed on two streams
+    at once still races, as it does on all its other buffers."""
+    if torch.cuda.is_current_stream_capturing():
+        cid = ctypes.c_ulonglong(0)
+        _raise_on(lib, lib.entropy_capture_id(stream, ctypes.byref(cid)))
+        held = _captured.get((device, stream))
+        if held is None or held[0] != cid.value or held[1].numel() < rows:
+            held = (cid.value, torch.zeros(max(rows, 1024), dtype=torch.int32,
+                                           device=device))
+            _captured[(device, stream)] = held
+        return held[1]
     buf = _tickets.get((device, stream))
     if buf is None or buf.numel() < rows:
         buf = torch.zeros(max(rows, 1024), dtype=torch.int32, device=device)
@@ -163,10 +170,9 @@ def _raise_on(lib: ctypes.CDLL, err: int) -> None:
                            f"{lib.entropy_error_string(err).decode()}")
 
 
-def entropy_stats_cuda(logits: torch.Tensor, *, merge: str | None = None):
+def entropy_stats_cuda(logits: torch.Tensor):
     """The CUDA kernel; raises unless ``logits`` is a contiguous 2-D f32
-    or bf16 tensor on an sm_90 card.  ``merge`` is passed on to
-    :func:`entropy_schedule`."""
+    or bf16 tensor on an sm_90 card."""
     global launches
     if logits.device.type != "cuda":
         raise ValueError(f"the CUDA entropy kernel needs a CUDA tensor, got "
@@ -193,20 +199,20 @@ def entropy_stats_cuda(logits: torch.Tensor, *, merge: str | None = None):
         return ent, maxp, amax
     plan = entropy_schedule(B, V, logits.element_size(),
                             _sm_count(dev.index or 0),
-                            offset=logits.data_ptr() % VEC_BYTES, merge=merge)
+                            offset=logits.data_ptr() % VEC_BYTES)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         partials = tickets = None
-        if plan["merge"] == "ticket":
+        if plan["splits"] > 1:
             partials = torch.empty(B * plan["splits"], 4,
                                    dtype=torch.float32, device=dev)
-            tickets = _ticket_buffer(dev, stream, B)
+            tickets = _ticket_buffer(lib, dev, stream, B)
         err = getattr(lib, _ENTRY[logits.dtype])(
             logits.data_ptr(), ent.data_ptr(), maxp.data_ptr(),
             amax.data_ptr(), B, V, _SCHEDULES[plan["schedule"]],
-            _MERGES[plan["merge"]], plan["threads"], plan["vector"],
-            plan["splits"], None if partials is None else partials.data_ptr(),
+            plan["threads"], plan["vector"], plan["splits"],
+            None if partials is None else partials.data_ptr(),
             None if tickets is None else tickets.data_ptr(), stream)
     _raise_on(lib, err)
     launches += 1

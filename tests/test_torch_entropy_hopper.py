@@ -16,18 +16,19 @@ partition and merge order, on inputs made from numpy seeds:
     with one rescale a round, then tail element t; lanes merge as the
     kernel's warp reduction (their maximum, one rescale a lane, sums as
     a tree, the least index among the lanes at the maximum), warps the
-    same way, and the slices by rank: the ticket's lane l folds slices
-    l, l + 32, ... with the pairwise merge, the cluster's lane r holds
-    slice r, then one warp reduction;
+    same way, and the slices by rank: the last block's lane l folds
+    slices l, l + 32, ... with the pairwise merge, then one warp
+    reduction;
 
 against ``repro.kernels.ref.entropy_stats`` and the Pallas kernel in
-interpret mode (``repro.kernels.entropy.entropy_stats``), within the
-tolerances of ``chip_smoke.py`` (``F32_TOL`` = 1e-4, ``BF16_TOL`` =
-3e-2, argmax exact).  Ties are planted across vector, lane and slice
-boundaries; V = 1, V = 3, odd V in bf16, rows off 16-byte alignment and
-slices that own no column are covered; and the tolerance is shown to
-fail a dropped slice, a missing rescale and a tie merge that keeps the
-later index.
+interpret mode (``repro.kernels.entropy.entropy_stats``), within
+``chip_smoke.py``'s ``F32_TOL`` = 1e-4 for f32 and bf16 input alike
+(every side upcasts bf16 exactly and computes in f32), argmax exact.
+Ties are planted across vector, lane and slice boundaries; V = 1, V = 3,
+odd V in bf16, rows off 16-byte alignment and slices that own no column
+are covered; and the tolerance is shown to fail a dropped slice, a
+missing rescale, a tie merge that keeps the later index and, at odd-V
+bf16, a dropped head or tail.
 """
 import re
 
@@ -43,9 +44,7 @@ from repro.kernels import ref  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import entropy as tent  # noqa: E402
 
-F32_TOL = 1e-4          # chip_smoke.py
-BF16_TOL = 3e-2
-TOL = {"f32": F32_TOL, "bf16": BF16_TOL}
+F32_TOL = 1e-4          # chip_smoke.py, for f32 and bf16 input
 NEG = -1e30             # the kernel's (and the TPU kernel's) start value
 SMS = 132               # the H100 SXM's SM count
 FAULTS = ("drop_slice", "no_rescale", "later_tie")
@@ -144,7 +143,7 @@ def _slice_threads(row, addr, itemsize, k, splits, T, fault=None):
         upd = _fold_round(st, row[c][:, None], c[:, None], fault)
         return _where(tid < count, upd, st)
 
-    if k == 0:
+    if k == 0 and fault != "drop_head":
         st = scalar(0, head)
     v0, v1 = nvec * k // splits, nvec * (k + 1) // splits
     U = tent.UNROLL
@@ -156,7 +155,7 @@ def _slice_threads(row, addr, itemsize, k, splits, T, fault=None):
                         torch.tensor(NEG))
         upd = _fold_round(st, x.reshape(T, -1), cols.reshape(T, -1), fault)
         st = _where(valid[:, 0], upd, st)
-    if k == splits - 1:
+    if k == splits - 1 and fault != "drop_tail":
         st = scalar(tail, V - tail)
     return st
 
@@ -172,16 +171,14 @@ def _block_reduce(st, T, fault=None):
     return _warp_reduce(st, lanes, fault)
 
 
-def _merge_slices(parts, merge, fault=None):
-    """The row's result from its slices' partials, in rank order."""
+def _merge_slices(parts, fault=None):
+    """The row's result from its slices' partials, in rank order: the
+    last block's lane l folds slices l, l + 32, ..., then one warp
+    reduction."""
     S = len(parts)
     if fault == "drop_slice":
         parts = parts[:S // 2] + parts[S // 2 + 1:] + [_neutral(1)]
     cat = tuple(torch.cat([p[i] for p in parts]) for i in range(4))
-    if merge == "cluster":
-        lanes = _lanes_for(S)
-        st = tuple(torch.cat([a, b]) for a, b in zip(cat, _neutral(lanes - S)))
-        return _warp_reduce(st, lanes, fault)
     lanes = _lanes_for(min(S, 32))
     acc = _neutral(32)
     for r0 in range(0, S, 32):
@@ -218,7 +215,7 @@ def emulate(x: torch.Tensor, plan: dict, *, offset: int = 0, fault=None):
                                                   T, fault), T, fault)
                      for k in range(S)]
             st = (_merge_slices([tuple(t[None] for t in p) for p in parts],
-                                plan["merge"], fault) if S > 1 else parts[0])
+                                fault) if S > 1 else parts[0])
         out.append(tuple(t.reshape(()) for t in st))
     m, s, u, idx = (torch.stack([o[i] for o in out]) for i in range(4))
     return m + torch.log(s) - u / s, 1.0 / s, idx.to(torch.int32)
@@ -253,9 +250,9 @@ def _check(got, want, tol):
     np.testing.assert_array_equal(a, ar)
 
 
-def _split(threads, splits, merge):
+def _split(threads, splits):
     return {"schedule": "split", "threads": threads, "splits": splits,
-            "merge": merge, "vector": None}
+            "vector": None}
 
 
 WARP = {"schedule": "warp"}
@@ -271,25 +268,22 @@ def test_schedule_of_the_main_path_and_the_vocabulary():
     assert plan["schedule"] == "packed" and plan["blocks"] == 2
     assert 300 % plan["threads"] != 0             # no block filled exactly
     plan = tent.entropy_schedule(8, 256000, 4, SMS)
-    assert plan["schedule"] == "split" and plan["merge"] == "ticket"
+    assert plan["schedule"] == "split" and plan["splits"] > 1
     assert 8 * plan["splits"] >= SMS
     assert plan["blocks"] == 8 * plan["splits"]
     # one round of UNROLL vectors a thread covers a slice
     assert plan["splits"] * plan["threads"] * tent.UNROLL >= 256000 // 4
-    cluster = tent.entropy_schedule(8, 256000, 4, SMS, merge="cluster")
-    assert cluster["splits"] == tent.MAX_CLUSTER == 16
     for B, V, itemsize in ((8, 2048, 2), (6, 1000, 4), (3, 257, 4)):
         plan = tent.entropy_schedule(B, V, itemsize, SMS)
         assert plan["schedule"] == "warp" and plan["threads"] == 32
         assert plan["vector"] == 16 // itemsize
     for B, V in ((64, 50304), (16, 50257), (1, 50304)):
         plan = tent.entropy_schedule(B, V, 4, SMS)
-        assert plan["schedule"] == "split" and plan["merge"] == "ticket"
-        assert plan["splits"] > 1 and plan["threads"] == tent.SPLIT_THREADS
+        assert plan["schedule"] == "split" and plan["splits"] > 1
+        assert plan["threads"] == tent.SPLIT_THREADS
     # many long rows: a block a row, nothing to merge
     plan = tent.entropy_schedule(4096, 8192, 4, SMS)
     assert plan["schedule"] == "split" and plan["splits"] == 1
-    assert plan["merge"] is None
     # many medium rows: several rows a block
     assert tent.entropy_schedule(4096, 1000, 4, SMS)["threads"] == 8 * 32
 
@@ -308,10 +302,10 @@ def test_packed_loads_divide_the_row_and_its_start(V, itemsize, offset,
 def test_schedule_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="B, V >= 1"):
         tent.entropy_schedule(0, 2, 4, SMS)
-    with pytest.raises(ValueError, match="merge"):
-        tent.entropy_schedule(8, 256000, 4, SMS, merge="atomic")
+    with pytest.raises(ValueError, match="B, V >= 1"):
+        tent.entropy_schedule(8, 0, 4, SMS)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        tent.entropy_stats_cuda(torch.zeros(2, 2), merge="ticket")
+        tent.entropy_stats_cuda(torch.zeros(2, 2))
 
 
 def test_constants_match_the_cuda_source():
@@ -322,7 +316,6 @@ def test_constants_match_the_cuda_source():
 
     assert const("kVecBytes") == tent.VEC_BYTES
     assert const("kUnroll") == tent.UNROLL
-    assert const("kMaxCluster") == tent.MAX_CLUSTER
     assert "-use_fast_math" not in " ".join(build.NVCC_FLAGS)
     assert "--use_fast_math" not in " ".join(build.NVCC_FLAGS)
 
@@ -334,13 +327,14 @@ SMALL = [
     (3, 5, "bf16", None, 0), (2, 2, "f32", None, 4),
     (3, 257, "f32", WARP, 0), (4, 1000, "f32", WARP, 0),
     (3, 2047, "bf16", WARP, 0), (3, 999, "f32", WARP, 4),
-    (2, 1000, "f32", _split(64, 4, "ticket"), 0),
-    (2, 1000, "f32", _split(64, 4, "cluster"), 0),
-    (3, 1001, "bf16", _split(32, 5, "ticket"), 2),
-    (2, 3001, "f32", _split(64, 3, "cluster"), 12),
-    (2, 2500, "f32", _split(32, 40, "ticket"), 0),     # lanes fold 2 slices
-    (2, 40, "f32", _split(32, 16, "cluster"), 0),      # slices with no column
-    (2, 40, "f32", _split(32, 12, "ticket"), 8),
+    (2, 1000, "f32", _split(64, 4), 0),
+    (2, 1000, "f32", _split(32, 7), 4),
+    (3, 1001, "bf16", _split(32, 5), 2),
+    (2, 3001, "f32", _split(64, 3), 12),
+    (2, 2500, "f32", _split(32, 40), 0),      # lanes fold 2 slices
+    (2, 4100, "f32", _split(32, 70), 8),      # lanes fold 3 slices
+    (2, 40, "f32", _split(32, 16), 0),        # slices with no column
+    (2, 40, "f32", _split(32, 12), 8),
 ]
 
 
@@ -354,23 +348,21 @@ def test_emulated_kernel_matches_ref_and_pallas(B, V, dtype, plan, offset):
     x = _logits(B, V, seed=V, dtype=dtype)
     got = emulate(_torch(x, dtype), _plan(B, V, dtype, plan, offset),
                   offset=offset)
-    _check(got, ref.entropy_stats(_jax(x, dtype)), TOL[dtype])
+    _check(got, ref.entropy_stats(_jax(x, dtype)), F32_TOL)
     _check(got, entk.entropy_stats(_jax(x, dtype), b_blk=8, v_blk=512,
-                                   interpret=True), TOL[dtype])
+                                   interpret=True), F32_TOL)
 
 
 @pytest.mark.parametrize("B,V,dtype", [
     (8, 256000, "f32"), (16, 50257, "f32"), (8, 50257, "bf16"),
     (64, 50304, "f32")])
 def test_emulated_kernel_at_the_card_shapes(B, V, dtype):
-    """The plan the wrapper launches on a 132-SM card, both merges."""
+    """The plan the wrapper launches on a 132-SM card."""
     x = _logits(B, V, seed=1, dtype=dtype)
     x[0, [5, 600]] = 50.0                       # tied maximum in one row
-    want = ref.entropy_stats(_jax(x, dtype))
-    for merge in ("ticket", "cluster"):
-        plan = tent.entropy_schedule(B, V, 2 if dtype == "bf16" else 4, SMS,
-                                     merge=merge)
-        _check(emulate(_torch(x, dtype), plan), want, TOL[dtype])
+    plan = tent.entropy_schedule(B, V, 2 if dtype == "bf16" else 4, SMS)
+    _check(emulate(_torch(x, dtype), plan), ref.entropy_stats(_jax(x, dtype)),
+           F32_TOL)
 
 
 def _slice_start(V, splits, k, itemsize=4, offset=0):
@@ -389,10 +381,9 @@ TIES = {"head": (1, 2), "head_body": (2, 3), "vector": (3, 4),
 
 @pytest.mark.parametrize("plan,where", [
     *((WARP, w) for w in TIES),
-    (_split(32, 6, "ticket"), "slice"), (_split(32, 6, "cluster"), "slice"),
-    (_split(32, 6, "ticket"), "last_slice"),
-    (_split(32, 6, "cluster"), "last_slice"),
-    (_split(64, 3, "ticket"), "vector"), ("packed", "vector")])
+    (_split(32, 6), "slice"), (_split(64, 6), "slice"),
+    (_split(32, 6), "last_slice"), (_split(64, 6), "last_slice"),
+    (_split(64, 3), "vector"), ("packed", "vector")])
 def test_first_index_wins_a_tie_across_every_boundary(plan, where):
     V, offset = (8, 0) if plan == "packed" else (1005, 4)
     x = _logits(3, V, seed=7)
@@ -426,8 +417,26 @@ def test_f32_tol_fails_a_planted_fault(fault):
     b = _slice_start(V, 2, 1)
     x[0, [b - 1, b]] = 50.0          # tie across slices 0 and 1
     x[1, [13, 14]] = 50.0            # tie inside one vector
-    plan = _split(32, 2, "ticket")
+    plan = _split(32, 2)
     want = ref.entropy_stats(_jax(x, "f32"))
     _check(emulate(_torch(x, "f32"), plan), want, F32_TOL)
     with pytest.raises(AssertionError):
         _check(emulate(_torch(x, "f32"), plan, fault=fault), want, F32_TOL)
+
+
+@pytest.mark.parametrize("fault", ("drop_slice", "drop_head", "drop_tail"))
+def test_f32_tol_fails_a_planted_fault_at_odd_v_bf16(fault):
+    """8 x 50257 bf16 under the card's plan (17 slices, rows off 16-byte
+    alignment): a dropped slice, or a lost scalar head or tail, moves
+    entropy and max_prob by more than F32_TOL, which ``chip_smoke.py``
+    holds bf16 input to.  The clean emulation passes."""
+    B, V = 8, 50257
+    plan = tent.entropy_schedule(B, V, 2, SMS)
+    assert plan["schedule"] == "split" and plan["splits"] == 17
+    x = _logits(B, V, seed=4, dtype="bf16")
+    x[:, 3] = 24.0                   # row 1 on: inside the scalar head
+    x[:, V - 1] = 24.0               # row 0 on: inside the scalar tail
+    want = ref.entropy_stats(_jax(x, "bf16"))
+    _check(emulate(_torch(x, "bf16"), plan), want, F32_TOL)
+    with pytest.raises(AssertionError):
+        _check(emulate(_torch(x, "bf16"), plan, fault=fault), want, F32_TOL)
