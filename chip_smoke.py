@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch port on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --decode-graph   # sampling_keys, decode_graph only
 
 Drives ``src/repro_torch`` only (no JAX, nothing of ``repro``) and prints
 one JSON object per line; any failed check raises, so the exit code is
@@ -52,13 +53,22 @@ not 0.  Phases:
                launches; then ``decode_invariance``: the serving case's
                valid rows in a 128-row and in a mostly empty 4096-row
                cache, contiguous and paged, all equal byte for byte;
+     sampling_keys — at 8 slots x the vocabulary: ``step_keys`` and the
+               Gumbel bits on the card equal the port's numpy threefry bit
+               for bit, the Gumbel floats the CPU's within 2 eps of
+               max(1, |g|); the cost of one sampled step by graph replay,
+               part by part (keys, Gumbel noise, sort, masks), beside the
+               greedy argmax;
      serve_generate_smoke — the launcher's ``--smoke`` generate run (hd
                32: bf16 on the flash kernel's CUDA-core body) on the card;
  8. serve_generate — stablelm-3b at published width (32 layers, bf16,
                seeded weights) through the launcher's ``serve_generate``:
                32 requests x 16 new tokens over 8 slots, bio controller;
                both attention kernels' launch counters zeroed just before
-               and read just after, and both must have launched;
+               and read just after, and both must have launched; the
+               decode window one CUDA graph, captured once and replayed
+               (replays counted in the launches), as in every served
+               generate phase;
   9. parity_generate — published width at depth 2 in f32, prefill logits
                on the card (kernel path) against the CPU (einsum path)
                within 1e-3 and 8 greedy tokens equal; the served model at
@@ -83,6 +93,18 @@ not 0.  Phases:
                wait) through the paged engine and the contiguous engine
                fed the same prefill waves, no controller: the same
                tokens for every request;
+ 12b. decode_graph — stablelm-3b at full width, 8 slots, on the
+               contiguous and on a paged pool (bs 16): 16 requests of 16 +
+               16 tokens (two refill waves), greedy and sampled (T 0.8,
+               top-k 50, top-p 0.95), uncaptured (``capture=False``) and
+               captured: the same tokens, one capture per kind, decode
+               launches = layers x steps in both (replays counted), and the
+               steady windows' ms per step, issue ms and the card's busy
+               share (one window replayed over the window's time); the
+               same for mamba2-780m after phase 16;
+     serve_generate_sampled — the launcher with ``--temperature 0.8
+               --top-k 50 --top-p 0.95`` on stablelm-3b: every request
+               answered, the window one captured graph;
  13. ssd     — the SSD scan kernel, both entry points (``ssd_scan``: zero
                state, y; ``ssd_chunked``: from h0, y and h_last), against
                their plain versions (the per-token recurrence; the chunked
@@ -135,7 +157,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.energy import energy_model_for  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
@@ -148,6 +170,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import distilbert  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving import continuous as cont  # noqa: E402
+from repro_torch.serving import sampling as smp  # noqa: E402
 from repro_torch.serving.engine import GenerationEngine  # noqa: E402
 from repro_torch.serving.gated import make_gated_classify_step  # noqa: E402
 from repro_torch.training.data import ClassificationData  # noqa: E402
@@ -951,6 +974,8 @@ def phase_serve_generate():
                 "generate: 1..16 token ids inside the vocabulary each")
     fail_unless(all(n > 0 for n in launches.values()),
                 f"generate: both attention kernels launched: {launches}")
+    fail_unless(summary["window"] == "graph" and summary["captures"] == 1,
+                f"generate: the window one captured graph: {summary}")
     model = server.engine.engine.params
     fail_unless(model.cfg.n_layers == 32 and model.cfg.d_model == 2560
                 and model.emb.dtype == torch.bfloat16,
@@ -1255,6 +1280,8 @@ def phase_serve_generate_paged():
     fail_unless(launches["decode_attention"] == 0,
                 f"paged: the contiguous decode kernel (the shim's) was not "
                 f"the serving path: {launches}")
+    fail_unless(summary["window"] == "graph" and summary["captures"] == 1,
+                f"paged: the window one captured graph: {summary}")
     fail_unless(summary["mode"] == "paged"
                 and summary["blocks_allocated"] == summary["blocks_freed"]
                 and summary["free_blocks"] == PAGED_POOL - 1,
@@ -1378,6 +1405,218 @@ def phase_parity_paged(model):
          contiguous_whole_queue_requests_equal=sum(
              a.generated == b.generated for a, b in zip(free_run, rp)),
          **st)
+
+
+# ---------------------------------------------------------------------------
+# sampling and the decode window as a CUDA graph
+# ---------------------------------------------------------------------------
+
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+# |g_card - g_cpu| <= GUMBEL_ULPS * eps * max(1, |g|): the two logs may
+# round their last bits apart (tests/test_torch_sampling.py)
+GUMBEL_ULPS = 2.0
+GRAPH_REQUESTS, GRAPH_NEW = 16, 16       # two refill waves of 8 slots
+
+
+def phase_sampling_keys(vocab: int):
+    """On the card, at the window's shapes (8 slots, the vocabulary):
+    ``step_keys`` and the Gumbel bits equal the port's numpy threefry bit
+    for bit; the Gumbel floats the CPU's from the same bits within
+    GUMBEL_ULPS; the sampled token beside the CPU's on the same bf16
+    logits (printed); and the cost of sampling one step by graph replay,
+    part by part, beside the greedy argmax."""
+    B, V = 8, vocab
+    rng = np.random.default_rng(8)
+    keys = np.stack([smp.request_key(0, rid) for rid in range(B)])
+    pos = rng.integers(16, 128, B)
+    kt = torch.tensor(keys.astype(np.int64), device="cuda")
+    pt = torch.tensor(pos, device="cuda")
+    sk = smp.step_keys(kt, pt)
+    want = np.stack([smp.fold_in(keys[b], int(pos[b])) for b in range(B)])
+    fail_unless(np.array_equal(sk.cpu().numpy(), want.astype(np.int64)),
+                "sampling_keys: step_keys on the card == numpy threefry")
+    bits = smp.random_bits(sk, (V,))
+    k = want.astype(np.uint64)
+    y0, y1 = smp.threefry2x32(k[:, :1], k[:, 1:], np.zeros((1, V), np.uint64),
+                              np.arange(V, dtype=np.uint64)[None])
+    fail_unless(np.array_equal(bits.cpu().numpy(), (y0 ^ y1).astype(np.int64)),
+                "sampling_keys: Gumbel bits on the card == numpy threefry")
+    g = smp.gumbel_from_bits(bits).cpu().double()
+    g_cpu = smp.gumbel_from_bits(bits.cpu()).double()
+    ulps = ((g - g_cpu).abs() / (torch.finfo(torch.float32).eps
+                                 * g_cpu.abs().clamp_min(1.0))).max().item()
+    fail_unless(ulps <= GUMBEL_ULPS,
+                f"sampling_keys: Gumbel floats card vs CPU {ulps} eps")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    logits = (torch.randn(B, V, generator=gen, device="cuda") * 3).to(
+        torch.bfloat16)
+    temp = torch.full((B,), SAMPLED["temperature"], device="cuda")
+    topk = torch.full((B,), SAMPLED["top_k"], dtype=torch.long, device="cuda")
+    topp = torch.full((B,), SAMPLED["top_p"], device="cuda")
+    tok = smp.sample_token(sk, logits, temp, topk, topp).cpu()
+    tok_cpu = smp.sample_token(sk.cpu(), logits.cpu(), temp.cpu(), topk.cpu(),
+                               topp.cpu())
+    scaled = logits.float() / SAMPLED["temperature"]
+    parts = {
+        "step_keys": lambda: smp.step_keys(kt, pt),
+        "gumbel": lambda: smp.gumbel(sk, (V,)),
+        "sort": lambda: smp.descending_order(scaled),
+        "masks": lambda: smp.top_p_mask(smp.top_k_mask(scaled, topk), topp),
+        "sample_token": lambda: smp.sample_token(smp.step_keys(kt, pt),
+                                                 logits, temp, topk, topp),
+        "argmax": lambda: logits.argmax(-1),
+    }
+    ms = {name: graph_ms(fn, 20) for name, fn in parts.items()}
+    emit(phase="sampling_keys", slots=B, vocab=V, step_keys_equal=True,
+         gumbel_bits_equal=True, gumbel_max_eps_vs_cpu=ulps,
+         gumbel_eps_tol=GUMBEL_ULPS,
+         sampled_tokens_equal_cpu=int((tok == tok_cpu).sum()),
+         graph_ms=ms, sampling_over_argmax_ms=ms["sample_token"] - ms["argmax"],
+         nvidia_smi=nvidia_smi("name,power.limit"))
+    return ms
+
+
+def _graph_requests(vocab: int, sampled: bool):
+    rng = np.random.default_rng(9)
+    sp = smp.SamplingParams(**SAMPLED) if sampled else None
+    return [cont.GenRequest(rid=i, prompt=rng.integers(
+        0, vocab, serve.GEN_PROMPT_LEN).astype(np.int32), max_new=GRAPH_NEW,
+        sampling=sp) for i in range(GRAPH_REQUESTS)]
+
+
+def _drive_windows(engine, reqs):
+    """Every request queued at once in one session, advanced to the end;
+    -> (tokens per request, each window's decode seconds and issue
+    seconds from the host clock, the session)."""
+    sess = engine.start_session(serve.GEN_PROMPT_LEN)
+    for r in reqs:
+        sess.push(r)
+    dec, issue = [], []
+    while not sess.idle:
+        d0, p0, i0, h0 = (sess.device_s, sess.prefill_s, sess.issue_s,
+                          sess.host_syncs)
+        sess.advance()
+        if sess.host_syncs > h0:
+            dec.append(sess.device_s - d0 - (sess.prefill_s - p0))
+            issue.append(sess.issue_s - i0)
+    return [r.generated for r in reqs], dec, issue, sess
+
+
+def phase_decode_graph(name: str, cfg, model) -> dict:
+    """One engine at full width and 8 slots, 16 requests of 16 + 16
+    tokens (two refill waves), greedy and sampled, uncaptured
+    (``capture=False``) and captured: the captured tokens equal the
+    uncaptured, one capture per kind, decode kernel launches (replays
+    counted) equal layers x steps in both, and the steady windows (all
+    but the first, which the captured run spends on its warm-up and
+    capture) in ms per step, issue ms, and the card's busy share: one
+    window's device time (its graph replayed) over the window's time."""
+    out = {}
+    counter = (None if cfg.block_kinds[0] == "ssd" else
+               "paged_launches" if cfg.paged_kv else "launches")
+    for mode in ("greedy", "sampled"):
+        runs = {}
+        for capture in (False, True):
+            eng = cont.ContinuousBatchingEngine(
+                cfg, model, n_slots=8, max_seq=serve.GEN_MAX_SEQ,
+                device="cuda", capture=capture)
+            da_mod.launches = da_mod.paged_launches = 0
+            toks, dec, issue, sess = _drive_windows(
+                eng, _graph_requests(cfg.vocab, mode == "sampled"))
+            torch.cuda.synchronize()
+            steps = sess.host_syncs * eng.sync_every
+            launches = getattr(da_mod, counter) if counter else None
+            if counter:
+                fail_unless(launches == cfg.n_layers * steps,
+                            f"decode_graph {name} {mode} capture={capture}: "
+                            f"{launches} decode launches for "
+                            f"{cfg.n_layers} x {steps} layer-steps")
+            runs[capture] = dict(toks=toks, dec=dec, issue=issue, sess=sess,
+                                 eng=eng, launches=launches)
+        e, g = runs[False], runs[True]
+        fail_unless(g["toks"] == e["toks"],
+                    f"decode_graph {name} {mode}: captured tokens == "
+                    f"uncaptured")
+        other = "greedy" if mode == "sampled" else "sampled"
+        fail_unless(g["eng"].decode_captures == {mode: 1, other: 0}
+                    and e["eng"].decode_capture_count == 0,
+                    f"decode_graph {name} {mode}: one capture of its kind: "
+                    f"{g['eng'].decode_captures}")
+        fail_unless(g["sess"].prefill_calls >= 2 and all(
+            len(t) == GRAPH_NEW for t in g["toks"]),
+            f"decode_graph {name} {mode}: two refill waves, 16 tokens each")
+        graph = g["sess"]._graphs[mode].graph
+        window_ms = _elapsed_ms(lambda: [graph.replay() for _ in range(5)]) / 5
+        clocks = nvidia_smi("clocks.sm,power.draw,temperature.gpu")
+        k = g["eng"].sync_every
+        row = {}
+        for label, r in (("uncaptured", e), ("captured", g)):
+            wall = 1e3 * float(np.mean(r["dec"][1:]))
+            row[label] = dict(
+                ms_per_step=wall / k,
+                window_ms=wall,
+                window_issue_ms=1e3 * float(np.mean(r["issue"][1:])),
+                card_busy_share=window_ms / wall,
+                windows=len(r["dec"]),
+                first_window_ms=1e3 * r["dec"][0],
+                launches=r["launches"])
+        row["window_device_ms"] = window_ms
+        row["device_ms_per_step"] = window_ms / k
+        emit(phase="decode_graph", engine=name, mode=mode,
+             layers=cfg.n_layers, slots=8, sync_every=k,
+             requests=GRAPH_REQUESTS, new_tokens=GRAPH_NEW,
+             refill_waves=g["sess"].prefill_calls, tokens_equal=True,
+             decode_capture_count=g["eng"].decode_capture_count,
+             captures_by_kind=g["eng"].decode_captures, **row,
+             sample=g["toks"][0][:8], clocks_power_temp=clocks,
+             nvidia_smi=nvidia_smi("name,power.limit"))
+        out[mode] = row
+        del runs, e, g, graph
+    return out
+
+
+def phase_serve_generate_sampled():
+    """The launcher with ``--temperature 0.8 --top-k 50 --top-p 0.95`` on
+    stablelm-3b at published width: every request answered with tokens
+    of the vocabulary, the window a graph captured once, both attention
+    kernels launched."""
+    args = serve.parser().parse_args(
+        ["--device", "cuda", "--mode", "generate", "--arch", ARCH,
+         "--requests", "32", "--new-tokens", "16", "--slots", "8",
+         "--controller", "bio", "--temperature", "0.8", "--top-k", "50",
+         "--top-p", "0.95"])
+    fa_mod.launches = da_mod.launches = da_mod.paged_launches = 0
+    t0 = time.perf_counter()
+    summary, server = serve.serve_generate(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"flash_attention": fa_mod.launches,
+                "decode_attention": da_mod.launches}
+    vocab = get_config(ARCH).vocab
+    resp = server.responses
+    fail_unless(sorted(r.rid for r in resp) == list(range(args.requests)),
+                "sampled: every request answered once")
+    admitted = [r for r in resp if r.admitted]
+    fail_unless(len(admitted) > 0 and all(
+        isinstance(r.output, list) and 1 <= len(r.output) <= args.new_tokens
+        and all(0 <= t < vocab for t in r.output) for r in admitted),
+        "sampled: 1..16 token ids inside the vocabulary each")
+    fail_unless(all(n > 0 for n in launches.values()),
+                f"sampled: both attention kernels launched: {launches}")
+    fail_unless(summary["window"] == "graph" and summary["captures"] == 1,
+                f"sampled: the window one captured graph: {summary}")
+    eng = server.engine.engine
+    fail_unless(eng.default_sampling == smp.SamplingParams(**SAMPLED),
+                "sampled: the engine's default sampling from the flags")
+    steps_run = summary["host_syncs"] * eng.sync_every
+    decode_s = summary["device_s"] - summary["prefill_s"]
+    emit(phase="serve_generate_sampled", seconds=secs, launches=launches,
+         admitted=len(admitted),
+         tokens_per_busy_s=summary["tokens_generated"] / summary["busy_s"],
+         decode_ms_per_step=decode_s / steps_run * 1e3,
+         prefill_ms_per_call=(summary["prefill_s"]
+                              / summary["prefill_calls"] * 1e3),
+         **summary)
 
 
 # ---------------------------------------------------------------------------
@@ -1587,6 +1826,8 @@ def phase_serve_generate_ssm():
     fail_unless(launches > 0, "ssm: the SSD scan kernel launched")
     fail_unless(not any(attention.values()),
                 f"ssm: no attention kernel on an SSD stack: {attention}")
+    fail_unless(summary["window"] == "graph" and summary["captures"] == 1,
+                f"ssm: the window one captured graph: {summary}")
     model = server.engine.engine.params
     fail_unless(model.cfg.n_layers == 48 and model.cfg.d_model == 1536
                 and model.emb.dtype == torch.bfloat16,
@@ -1759,11 +2000,41 @@ def kernel_entry(name, src, replaces, tpu_kernel, launches, max_err, main):
             "call_ms": main["call_ms"]}
 
 
-def main() -> int:
+def decode_graph_only() -> None:
+    """``--decode-graph``: the device, build, ``sampling_keys`` and
+    ``decode_graph`` phases alone, each engine at its smoke configuration
+    and at full width: the quickest check of the captured window (about
+    a minute)."""
+    t0 = time.perf_counter()
+    phase_device()
+    phase_build()
+    phase_sampling_keys(get_config(ARCH).vocab)
+    for full in (False, True):
+        for arch in (ARCH, SSM_ARCH):
+            cfg = (get_config if full else get_smoke_config)(arch)
+            model = tfm.init_lm(cfg, 0, device="cuda")
+            tag = arch + ("" if full else "-smoke")
+            phase_decode_graph(tag, cfg, model)
+            if arch == ARCH:
+                phase_decode_graph(f"{tag}-paged",
+                                   cfg.replace(kv_block_size=PAGED_BS), model)
+            del model
+            torch.cuda.empty_cache()
+    emit(phase="decode_graph_only", seconds=time.perf_counter() - t0)
+
+
+def main(argv: list[str]) -> int:
+    if argv not in ([], ["--decode-graph"]):
+        print(f"usage: chip_smoke.py [--decode-graph], got {argv}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if argv:
+        decode_graph_only()
+        return 0
     name, _ = phase_device()
     peaks = PEAKS["pcie" if "pcie" in name.lower() else "sxm"]
     phase_build()
@@ -1774,6 +2045,7 @@ def main() -> int:
     phase_breakdown(cfg, model, x, peaks)
     del model, x
     attn = phase_attention(peaks)
+    phase_sampling_keys(get_config(ARCH).vocab)
     phase_serve_generate_smoke()
     gen_launches, lm = phase_serve_generate()
     phase_parity_generate(lm)
@@ -1781,11 +2053,16 @@ def main() -> int:
     phase_prefill_long_generate(lm)
     paged_launches = phase_serve_generate_paged()
     phase_parity_paged(lm)
+    phase_decode_graph(ARCH, lm.cfg, lm)
+    phase_decode_graph(f"{ARCH}-paged", lm.cfg.replace(kv_block_size=PAGED_BS),
+                       lm)
     del lm
+    phase_serve_generate_sampled()
     ssd = phase_ssd(peaks)
     ssd_launches, ssm = phase_serve_generate_ssm()
     phase_parity_generate_ssm(ssm)
     phase_breakdown_generate_ssm(ssm, peaks)
+    phase_decode_graph(SSM_ARCH, ssm.cfg, ssm)
     entropy = {
         "name": "entropy_stats",
         "route": "cuda",
@@ -1852,4 +2129,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -67,10 +67,13 @@ from repro_torch.kernels.runtime import check_kernel_tensors
 
 # kernel calls since the last reset, contiguous and paged (a split call
 # counts once), and launches of the span merge; ``chip_smoke.py`` zeroes
-# them before it drives the main path and reads them after
+# them before it drives the main path and reads them after.  A CUDA graph
+# made by ``kernels.graphs.CountedGraph`` adds its launches at every
+# replay.
 launches = 0
 paged_launches = 0
 combine_launches = 0
+COUNTERS = ("launches", "paged_launches", "combine_launches")
 
 SPAN = 1024              # logical rows per span: kSpan of the CUDA source
 

@@ -27,8 +27,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.runtime import is_hopper
 
 # kernel launches since the last reset; ``chip_smoke.py`` zeroes it
-# before it drives the main path and reads it after
+# before it drives the main path and reads it after.  A CUDA graph made
+# by ``kernels.graphs.CountedGraph`` adds its launches at every replay.
 launches = 0
+COUNTERS = ("launches",)
 
 _ENTRY = {torch.float32: "entropy_stats_f32",
           torch.bfloat16: "entropy_stats_bf16"}

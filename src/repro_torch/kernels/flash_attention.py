@@ -36,8 +36,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.runtime import check_kernel_tensors
 
 # kernel launches since the last reset; ``chip_smoke.py`` zeroes it
-# before it drives the main path and reads it after
+# before it drives the main path and reads it after.  A CUDA graph made
+# by ``kernels.graphs.CountedGraph`` adds its launches at every replay.
 launches = 0
+COUNTERS = ("launches",)
 
 NEG_INF = -2.0 ** 30     # repro.kernels.ref's mask value
 _TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}

@@ -40,8 +40,10 @@ from repro_torch.kernels.runtime import check_kernel_tensors
 
 # kernel launches (either entry point) since the last reset;
 # ``chip_smoke.py`` zeroes it before it drives the main path and reads it
-# after
+# after.  A CUDA graph made by ``kernels.graphs.CountedGraph`` adds its
+# launches at every replay.
 launches = 0
+COUNTERS = ("launches",)
 
 MAX_STATE = 128            # N the kernel takes (4 state columns a lane)
 CHUNK = 64                 # the chunk-parallel chunk, the longest one chunk

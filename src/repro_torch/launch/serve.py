@@ -40,7 +40,12 @@ request waits in the queue while the pool cannot hold its budget.
 ``--arch mamba2-780m`` serves the attention-free SSD stack (48 layers,
 d 1536, state 128 per head): its pool is the f32 recurrent state of
 every slot, prefill runs the CUDA SSD scan kernel in every layer and a
-decode step updates the state in place.
+decode step updates the state in place.  ``--temperature T`` (with
+``--top-k`` and ``--top-p``) samples every token from the reference's
+(seed, request, position)-folded threefry keys; ``--temperature 0`` (the
+default) is greedy, byte for byte the argmax path.  On the card every
+decode window after a session's first of its kind is the replay of one
+CUDA graph.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode generate
     PYTHONPATH=src python -m repro_torch.launch.serve --mode generate \
@@ -51,6 +56,8 @@ decode step updates the state in place.
         --mode generate --smoke --kv-block-size 8 --kv-pool-blocks 9
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --mode generate --arch mamba2-780m --smoke --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mode generate --smoke --temperature 0.8 --top-k 50
 """
 from __future__ import annotations
 
@@ -225,7 +232,8 @@ GEN_MAX_SEQ = 128      # the reference launcher's decode pool extent
 GEN_PROMPT_LEN = 16
 # the session's stats carried into the summary (the paged ones when paged)
 DECODE_STATS = ("mode", "decode_steps", "occupancy", "host_syncs",
-                "prefill_calls", "device_s", "prefill_s", "pool_blocks",
+                "prefill_calls", "device_s", "prefill_s", "window",
+                "window_issue_s", "capture_s", "captures", "pool_blocks",
                 "blocks_allocated", "blocks_freed", "peak_blocks_in_use",
                 "free_blocks")
 
@@ -233,11 +241,15 @@ DECODE_STATS = ("mode", "decode_steps", "occupancy", "host_syncs",
 def generate_config(args):
     """``--arch`` at published width (``--smoke``: its smoke config),
     depth cut by ``--layers``, attention dispatch ``--attn-impl``, the
-    KV layout ``--kv-block-size`` / ``--kv-pool-blocks``."""
+    KV layout ``--kv-block-size`` / ``--kv-pool-blocks``, and the
+    engine's sampling defaults ``--temperature`` / ``--top-k`` /
+    ``--top-p`` (the reference's ``_apply_sampling_cfg``)."""
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     cfg = cfg.replace(attn_impl=args.attn_impl,
                       kv_block_size=args.kv_block_size,
-                      kv_pool_blocks=args.kv_pool_blocks)
+                      kv_pool_blocks=args.kv_pool_blocks,
+                      temperature=args.temperature,
+                      sample_top_k=args.top_k, sample_top_p=args.top_p)
     if args.layers is not None:
         cfg = cfg.replace(n_layers=args.layers)
     return cfg
@@ -325,6 +337,16 @@ def parser() -> argparse.ArgumentParser:
                     help="generate mode: blocks in the paged pool, the "
                          "trash block included (0 = every slot's full "
                          "extent)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="generate mode: sampling temperature (0 = "
+                         "greedy argmax, byte-identical to the default "
+                         "path)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="generate mode: keep only the k highest "
+                         "logits before sampling (0 = no cap)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="generate mode: nucleus sampling mass "
+                         "(1.0 = no cap)")
     ap.add_argument("--path",
                     choices=["direct", "batched", "dynamic-batch",
                              "gated", "gated-in-graph", "auto"],

@@ -60,7 +60,7 @@ from repro_torch.models import ssd
 from repro_torch.models.nn import param
 
 FAMILIES_SLICE = "the model-families slice (ROADMAP queue 1 item 12)"
-SPEC_SLICE = "the sampling and speculation slice (ROADMAP queue 1 item 9)"
+SPEC_SLICE = "the speculation slice (ROADMAP queue 1 item 9)"
 
 
 def torch_dtype(name: str) -> torch.dtype:

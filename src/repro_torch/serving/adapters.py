@@ -315,7 +315,8 @@ class ContinuousEngineAdapter:
     that finish mid-stream complete mid-stream.  ``drain`` runs the
     session dry.  Each window that completes requests is minted as one
     :class:`Completion` carrying the session's cumulative stats.  A
-    request that asks for sampling at T > 0 raises at submit."""
+    request's ``sampling`` (``SamplingParams``; None = the engine's
+    default) goes with it into the session."""
     engine: ContinuousBatchingEngine
     prompt_len: int | None = None
 
@@ -378,6 +379,7 @@ class ContinuousEngineAdapter:
         trace_on = tracer is not None and tracer.enabled
         s = self._session
         if trace_on:
+            c0 = self.engine.decode_capture_count
             syncs0, steps0 = s.host_syncs, s.decode_steps
         t0 = time.perf_counter()
         finished = s.advance()
@@ -394,6 +396,12 @@ class ContinuousEngineAdapter:
                         host_syncs=s.host_syncs - syncs0,
                         decode_steps=s.decode_steps - steps0,
                         active=s.n_active, finished=len(finished))
+            # the counterpart of the reference's ``xla.compile`` event:
+            # the window captured as a CUDA graph in this advance
+            captures = self.engine.decode_capture_count - c0
+            if captures:
+                tracer.event("cuda.graph_capture", wstart,
+                             resource="decode.device", count=captures)
         if not finished:
             # busy time of windows that completed nothing is folded
             # into the next completing window's span

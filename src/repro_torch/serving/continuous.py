@@ -1,7 +1,7 @@
 """Continuous batching for LM decode, ported from
 ``repro.serving.continuous`` (the contiguous KV layout, the paged
-block pool and the recurrent state of an SSD stack, greedy decode, no
-speculation).
+block pool and the recurrent state of an SSD stack; sampling; the
+legacy per-step loop; no speculation).
 
 A fixed pool of B slots over one shared KV cache; every decode step
 advances ALL slots (each at its own absolute position, the decoder's
@@ -16,26 +16,39 @@ Invariants, as the reference's:
   prefill that seats it until the host sync that harvests its
   completion; only ``DecodeSession`` assigns or clears slots.  Between
   host syncs all slot state (KV pool, ``cur_tok``, ``pos``, ``active``,
-  ``remaining``, ``eos``) lives on the device.
+  ``remaining``, ``eos`` and the sampling rows ``skey``, ``temp``,
+  ``topk``, ``topp``) lives on the device.
 - **One host sync per window.**  A window is ``sync_every`` decode
-  steps issued back to back from Python; the done-masks (EOS, budget,
-  the ``max_seq - 1`` stop) are computed on the device as in the
-  reference's ``step_k``, and the tokens, emission masks and live flags
-  come back in ONE copy at the end of the window.  Where the reference
-  donates the pool into a ``lax.scan``, the port updates the cache IN
-  PLACE: ``decode_step`` writes each step's K/V rows into the pool's
-  tensors.  An SSD stack's pool is its per-slot recurrent state (conv
-  tail and SSD state), stepped in place the same way; a slot that is
-  not active keeps stepping inside a window, as in the reference, and
-  its state is overwritten whole when the slot is next seated.
+  steps; sampling, the done-masks (EOS, budget, the ``max_seq - 1``
+  stop) and the positions stay on the device as in the reference's
+  ``step_k``, and the tokens, emission masks and live flags come back
+  in ONE copy at the end of the window.  Where the reference compiles
+  the window once (``jax.jit`` of a ``lax.scan``), the port captures it
+  once per session and kind as a CUDA graph and replays it for every
+  later window (``capture="auto"`` on the card; the CPU, and
+  ``capture=False``, issue the same ops from Python).  The kind is
+  picked on the host from the seated slots' temperatures, in place of
+  the reference's ``lax.cond``: ``greedy`` (argmax only) or ``sampled``
+  (``sample_token``, whose T = 0 rows are that same argmax), so the
+  tokens do not depend on it.  Every state tensor keeps its storage for
+  the session's life: seating, the slot writes and the table copy write
+  into it, and the window writes its results back into it, so a replay
+  reads and writes what the capture saw.  The cache is updated IN
+  PLACE (the reference donates it).  An SSD stack's pool is its
+  per-slot recurrent state (conv tail and SSD state), stepped in place
+  the same way; a slot that is not active keeps stepping inside a
+  window, as in the reference, and its state is overwritten whole when
+  the slot is next seated.
 - **Refill.**  Up to ``n_free`` queued prompts are prefilled in one
   call into a row cache whose rows are then written into their slots
   (``slot_write``), with the per-slot decode state set in the same
-  pass.  The reference pads that batch to a power-of-two bucket so
-  each bucket compiles once; PyTorch compiles nothing per shape, so
-  the port prefills only the real rows.  The prompt length keeps the
-  reference's rule (``prompt_len``, or the wave's longest prompt
-  rounded up to a bucket), since positions depend on it.
+  pass; the first token is sampled with ``step_keys(skey, plen)``.
+  The reference pads that batch to a power-of-two bucket so each
+  bucket compiles once; PyTorch compiles nothing per shape, so the
+  port prefills only the real rows (sampling is row by row, so the
+  padding changes no token).  The prompt length keeps the reference's
+  rule (``prompt_len``, or the wave's longest prompt rounded up to a
+  bucket), since positions depend on it.
 - **Block ownership (paged pool, ``cfg.kv_block_size > 0``).**  KV
   rows live in one shared pool of ``pool_blocks`` x ``kv_block_size``
   rows per layer; a request owns the blocks of its slot's table row
@@ -54,26 +67,33 @@ Invariants, as the reference's:
   slot.  The prefill goes through a contiguous row cache of the
   prompt's block multiple, scattered block by block
   (``paged_slot_write``).  The contiguous layout stays the parity
-  oracle: the same greedy tokens.
+  oracle: the same tokens.
+- **Legacy loop.**  ``serve(..., legacy=True)`` runs the reference's
+  per-step host loop (``_serve_legacy``): a batch-1 prefill per
+  request, one host sync per step.  It is the third parity path, held
+  against the window; contiguous and SSD stacks only, as the reference
+  refuses paged configs.
 
-Not in this slice: ``insert_prefilled`` (the disaggregated hand-off),
-self-speculative windows, sampling at T > 0 and the legacy per-step
-loop.  A configuration or request that asks for one of them raises.
+Not in this slice: ``insert_prefilled`` (the disaggregated hand-off)
+and self-speculative windows; a configuration that asks for one of
+them raises.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.controller import AdmissionController
-from repro_torch.kernels.runtime import resolve_device
+from repro_torch.kernels.graphs import CountedGraph
+from repro_torch.kernels.runtime import resolve_device, synchronize
 from repro_torch.models import transformer as tfm
-from repro_torch.serving.engine import SAMPLING_SLICE, bucket_size
+from repro_torch.serving import sampling as smp
+from repro_torch.serving.engine import bucket_size
+from repro_torch.serving.sampling import SamplingParams
 
 
 @dataclass
@@ -84,8 +104,7 @@ class GenRequest:
     entropy_hint: float = 0.5        # L(x) proxy at enqueue time
     arrival_t: float | None = None   # admission clock (workload arrival_s)
     eos_id: int | None = None        # stop after emitting this token
-    sampling: Any = None             # SamplingParams-like; None = engine
-                                     # default (greedy only here)
+    sampling: SamplingParams | None = None   # None = engine default
 
     generated: list = field(default_factory=list)
     done: bool = False
@@ -311,12 +330,6 @@ def _wave_arrays(reqs: list[GenRequest], plen: int):
     return toks, rem_new, eos_new
 
 
-def _check_greedy(temperature: float, what: str) -> None:
-    if temperature > 0:
-        raise NotImplementedError(f"{what} asks for temperature "
-                                  f"{temperature}: {SAMPLING_SLICE}")
-
-
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
@@ -331,6 +344,7 @@ class ContinuousBatchingEngine:
     sync_every: int = 8              # decode steps per host sync
     draft_depth: int = 0             # speculation: not in this slice
     device: str | torch.device = "cuda"
+    capture: bool | str = "auto"     # the decode window as a CUDA graph
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -340,7 +354,20 @@ class ContinuousBatchingEngine:
                 f"draft_depth={self.draft_depth}: self-speculative decoding "
                 f"comes with {tfm.SPEC_SLICE}")
         tfm.check_supported(self.cfg)
-        _check_greedy(self.cfg.temperature, "the engine's config")
+        if self.capture == "auto":
+            self.graphed = self.device.type == "cuda"
+        elif self.capture is True or self.capture is False:
+            if self.capture and self.device.type != "cuda":
+                raise ValueError(
+                    f"capture=True needs a CUDA device, got {self.device}: "
+                    f"a CUDA graph holds only the card's work (capture="
+                    f"'auto' runs the window uncaptured on the CPU)")
+            self.graphed = self.capture
+        else:
+            raise ValueError(f"capture must be 'auto', True or False, got "
+                             f"{self.capture!r}")
+        # windows captured, by kind, over every session of this engine
+        self.decode_captures = {"greedy": 0, "sampled": 0}
         self.params = self.params.to(self.device).eval()
         self.paged = self.cfg.paged_kv
         if self.paged:
@@ -349,22 +376,48 @@ class ContinuousBatchingEngine:
              self.pool_blocks) = tfm.paged_geometry(self.cfg, self.n_slots,
                                                     self.max_seq)
 
+    @property
+    def decode_capture_count(self) -> int:
+        """How many times the decode window has been captured as a CUDA
+        graph: the counterpart of the reference's
+        ``decode_compile_count``, one per session and kind (greedy,
+        sampled), however many windows and refills follow."""
+        return sum(self.decode_captures.values())
+
+    @property
+    def default_sampling(self) -> SamplingParams:
+        """Engine-level sampling defaults (from the model config); a
+        request's own ``SamplingParams`` override them."""
+        return SamplingParams(temperature=self.cfg.temperature,
+                              top_k=self.cfg.sample_top_k,
+                              top_p=self.cfg.sample_top_p,
+                              seed=self.cfg.sampling_seed)
+
     def init_cache(self, batch: int, max_seq: int | None = None, *,
                    layout: str = "auto") -> tfm.Cache:
         return tfm.init_cache(self.cfg, batch, max_seq or self.max_seq,
                               device=self.device, layout=layout)
 
     @torch.no_grad()
-    def step_window(self, pool, cur_tok, pos, active, remaining, eos):
-        """``sync_every`` greedy decode steps with the reference's
-        on-device masks (``continuous.py:402-425``); the pool is updated
-        in place.  Returns the new (cur_tok, pos, active, remaining) and
-        the tokens and emission masks, both [k, B], all on the device."""
+    def step_window(self, pool, cur_tok, pos, active, remaining, eos,
+                    sampling=None):
+        """``sync_every`` decode steps with the reference's on-device
+        masks (``continuous.py:402-425``); the pool is updated in place.
+        ``sampling`` is None (every row greedy: argmax) or the slots'
+        (skey, temp, topk, topp): the token written at position q is
+        ``sample_token(step_keys(skey, q), ...)``.  Returns the new
+        (cur_tok, pos, active, remaining) and the tokens and emission
+        masks, both [k, B], all on the device; no host sync."""
         model, last = self.params, self.max_seq - 1
         toks, emitted = [], []
         for _ in range(self.sync_every):
             logits, pool = model.decode_step(cur_tok, pool, pos)
-            nxt = logits[:, 0].argmax(-1)
+            if sampling is None:
+                nxt = logits[:, 0].argmax(-1)
+            else:
+                skey, temp, topk, topp = sampling
+                nxt = smp.sample_token(smp.step_keys(skey, pos + 1),
+                                       logits[:, 0], temp, topk, topp)
             new_pos = torch.where(active, pos + 1, pos)
             new_rem = torch.where(active, remaining - 1, remaining)
             alive = (active & (new_rem > 0) & (new_pos < last)
@@ -395,24 +448,37 @@ class ContinuousBatchingEngine:
                 r.done = True                 # skipped (proxy/cache)
         return queue
 
+    def sampling_of(self, r: GenRequest) -> SamplingParams:
+        return r.sampling if r.sampling is not None else self.default_sampling
+
     # -- serving ------------------------------------------------------------
     def start_session(self, prompt_len: int | None = None
                       ) -> "DecodeSession":
         return DecodeSession(self, prompt_len=prompt_len)
 
     def serve(self, requests: list[GenRequest], *,
-              prompt_len: int | None = None) -> dict:
+              prompt_len: int | None = None, legacy: bool = False) -> dict:
         """Run all requests to completion; returns summary stats.
-        Prompts are padded/truncated to one prefill length."""
+        Prompts are padded/truncated to one prefill length.
+        ``legacy=True`` runs the reference's per-step host loop (the
+        parity baseline)."""
         wall0 = time.perf_counter()
+        if legacy and self.paged:
+            raise ValueError(
+                "legacy=True serves the contiguous layout only; the "
+                "paged pool's parity oracle is a contiguous engine "
+                "(cfg.kv_block_size == 0)")
         queue = self._admit(list(requests))
         plen = prompt_len or max((len(r.prompt) for r in queue), default=8)
-        session = self.start_session(plen)
-        for r in queue:
-            session.push(r)
-        while not session.idle:
-            session.advance()
-        stats = session.stats()
+        if legacy:
+            stats = self._serve_legacy(queue, plen)
+        else:
+            session = self.start_session(plen)
+            for r in queue:
+                session.push(r)
+            while not session.idle:
+                session.advance()
+            stats = session.stats()
         wall = time.perf_counter() - wall0
         stats.update(
             n_requests=len(requests),
@@ -427,6 +493,102 @@ class ContinuousBatchingEngine:
         )
         return stats
 
+    @torch.no_grad()
+    def _serve_legacy(self, queue: list[GenRequest], plen: int) -> dict:
+        """The reference's per-step loop (``continuous.py:774-893``): a
+        batch-1 prefill written into its slot per refill, then per step
+        one decode over every slot, a host copy of the sampled tokens
+        and a per-slot Python loop.  Sampling is the window's rule on
+        the same (rid, position)-folded keys."""
+        B, dev, model = self.n_slots, self.device, self.params
+        pool = self.init_cache(B)
+        slots: list[GenRequest | None] = [None] * B
+        pos = np.zeros(B, np.int64)
+        cur_tok = np.zeros((B, 1), np.int64)
+        active = np.zeros(B, bool)
+        skey = np.zeros((B, 2), np.int64)
+        temp = np.zeros(B, np.float32)
+        topk = np.zeros(B, np.int64)
+        topp = np.ones(B, np.float32)
+        steps = occupied_slot_steps = prefills = 0
+        device_s = 0.0
+
+        def sample(logits, rows, at):
+            """The tokens of slots ``rows`` written at positions ``at``."""
+            keys, t, k, p = (torch.tensor(x[rows], device=dev)
+                             for x in (skey, temp, topk, topp))
+            keys = smp.step_keys(keys, torch.tensor(at, device=dev))
+            return smp.sample_token(keys, logits, t, k, p).cpu().numpy()
+
+        def refill():
+            nonlocal prefills, device_s
+            s = 0
+            while s < B:
+                if active[s] or not queue:
+                    s += 1
+                    continue
+                r = queue.pop(0)
+                p = np.zeros((1, plen), np.int64)
+                p[0, :min(len(r.prompt), plen)] = r.prompt[:plen]
+                t0 = time.perf_counter()
+                logits, rows = model.prefill(torch.from_numpy(p).to(dev),
+                                             self.init_cache(1))
+                slot_write(pool, rows, np.array([s]))
+                synchronize(dev)
+                device_s += time.perf_counter() - t0
+                prefills += 1
+                sp = self.sampling_of(r)
+                skey[s] = smp.request_key(sp.seed, r.rid)
+                temp[s], topk[s], topp[s] = sp.temperature, sp.top_k, sp.top_p
+                first = int(sample(logits[:, -1], [s], [plen])[0])
+                r.generated.append(first)
+                if r.eos_id is not None and first == r.eos_id:
+                    r.done = True        # EOS at prefill: the slot stays
+                    continue             # free for the next request
+                slots[s] = r
+                pos[s] = plen
+                cur_tok[s, 0] = first
+                active[s] = True
+                s += 1
+
+        refill()
+        while active.any():
+            steps += 1
+            occupied_slot_steps += int(active.sum())
+            t0 = time.perf_counter()
+            logits, pool = model.decode_step(
+                torch.tensor(cur_tok, device=dev), pool,
+                torch.tensor(pos, device=dev))
+            synchronize(dev)
+            device_s += time.perf_counter() - t0
+            nxt = sample(logits[:, 0], slice(None), pos + 1)
+            for s in range(B):
+                if not active[s]:
+                    continue
+                r = slots[s]
+                r.generated.append(int(nxt[s]))
+                pos[s] += 1
+                cur_tok[s, 0] = nxt[s]
+                if (len(r.generated) >= r.max_new
+                        or pos[s] >= self.max_seq - 1
+                        or (r.eos_id is not None
+                            and int(nxt[s]) == r.eos_id)):
+                    r.done = True
+                    active[s] = False
+                    slots[s] = None
+            refill()
+        return {
+            "mode": "legacy",
+            "sync_every": 1,
+            "decode_steps": steps,
+            "occupied_slot_steps": occupied_slot_steps,
+            "occupancy": (occupied_slot_steps / (steps * B)
+                          if steps else 0.0),
+            "host_syncs": steps,
+            "prefill_calls": prefills,
+            "device_s": device_s,
+        }
+
 
 # ---------------------------------------------------------------------------
 # incremental session — what the serving adapter drives
@@ -436,7 +598,9 @@ class DecodeSession:
     """One slot-pool decode session.  ``push`` enqueues at any time;
     ``advance`` refills free slots with one prefill, runs one
     ``sync_every``-step window, and returns the requests that completed
-    in it.  All decode state between windows lives on the device."""
+    in it.  All decode state between windows lives on the device, in
+    tensors that keep their storage for the session's life (what a
+    CUDA graph of the window reads and writes)."""
 
     def __init__(self, engine: ContinuousBatchingEngine,
                  prompt_len: int | None = None):
@@ -451,6 +615,20 @@ class DecodeSession:
         self._active = torch.zeros(B, dtype=torch.bool, device=dev)
         self._remaining = torch.zeros(B, dtype=torch.long, device=dev)
         self._eos = torch.full((B,), -1, dtype=torch.long, device=dev)
+        # per-slot sampling rows, set at seating.  Keys derive from the
+        # REQUEST id, never the slot index, so a reused slot never
+        # replays its previous occupant's stream; the host keeps the
+        # temperatures to pick the window's kind
+        self._skey = torch.zeros(B, 2, dtype=torch.long, device=dev)
+        self._temp = torch.zeros(B, dtype=torch.float32, device=dev)
+        self._topk = torch.zeros(B, dtype=torch.long, device=dev)
+        self._topp = torch.ones(B, dtype=torch.float32, device=dev)
+        self._temp_h = np.zeros(B, np.float32)
+        # the window's tokens, emission masks and live flags, [2k+1, B]:
+        # the one copy the host reads per window
+        self._packed = torch.zeros(2 * engine.sync_every + 1, B,
+                                   dtype=torch.long, device=dev)
+        self._graphs: dict[str, CountedGraph] = {}
         self._active_host = np.zeros(B, bool)
         self._prefill_done: list[GenRequest] = []
         # paged pool: the host-side block allocator; the device sees only
@@ -469,6 +647,9 @@ class DecodeSession:
         self.prefill_calls = 0
         self.device_s = 0.0             # prefills + windows, host clock
         self.prefill_s = 0.0            # of which prefills
+        self.issue_s = 0.0              # of the windows': issuing them
+        self.capture_s = 0.0            # of which capturing graphs
+        self.captures = 0
 
     # -- state --------------------------------------------------------------
     @property
@@ -484,9 +665,6 @@ class DecodeSession:
         return len(self.queue)
 
     def push(self, r: GenRequest) -> None:
-        if r.sampling is not None:
-            _check_greedy(getattr(r.sampling, "temperature", 0.0),
-                          f"request rid={r.rid}")
         self.queue.append(r)
 
     # -- refill -------------------------------------------------------------
@@ -514,26 +692,52 @@ class DecodeSession:
         logits, rows = eng.params.prefill(torch.from_numpy(toks).to(dev),
                                           rows)
         slot_write(self._pool, rows, slot_idx)
-        first_h = self._start_slots(logits, slot_idx, plen, rem_new, eos_new)
+        first_h = self._start_slots(logits, slot_idx, plen, rem_new, eos_new,
+                                    reqs)
         dt = time.perf_counter() - t0
         self.device_s += dt
         self.prefill_s += dt
         self.prefill_calls += 1
         self._seat_prefilled(reqs, slot_idx, first_h)
 
-    def _start_slots(self, logits, slot_idx, plen, rem_new, eos_new):
-        """The prefill's greedy first tokens and the seated slots'
-        decode state, on the device; -> the first tokens on the host."""
+    def _sampling_rows(self, reqs):
+        """One wave's sampling rows (ref ``continuous.py:985``): request
+        keys, temperatures, top-k, top-p."""
+        sps = [self.engine.sampling_of(r) for r in reqs]
+        return (np.stack([smp.request_key(sp.seed, r.rid).astype(np.int64)
+                          for sp, r in zip(sps, reqs)]),
+                np.array([sp.temperature for sp in sps], np.float32),
+                np.array([sp.top_k for sp in sps], np.int64),
+                np.array([sp.top_p for sp in sps], np.float32))
+
+    def _start_slots(self, logits, slot_idx, plen, rem_new, eos_new, reqs):
+        """The prefill's first tokens, sampled with ``step_keys(skey,
+        plen)`` as the reference's prefill does (``continuous.py:579,
+        622``), and the seated slots' decode and sampling state, written
+        in place on the device; -> the first tokens on the host."""
         dev = self.engine.device
-        first = logits[:, -1].argmax(-1)
+        skey, temp, topk, topp = self._sampling_rows(reqs)
         idx = torch.as_tensor(slot_idx, device=dev)
         eos_t = torch.as_tensor(eos_new, device=dev)
+        rows = [torch.as_tensor(x, device=dev)
+                for x in (skey, temp, topk, topp)]
+        last = logits[:, -1]
+        if (temp > 0).any():
+            at = torch.full((len(reqs),), plen, dtype=torch.long, device=dev)
+            first = smp.sample_token(smp.step_keys(rows[0], at), last,
+                                     *rows[1:])
+        else:
+            first = last.argmax(-1)
         self._cur_tok[idx, 0] = first
         self._pos[idx] = plen
         # a slot whose PREFILL token already hits EOS never decodes
         self._active[idx] = first != eos_t
         self._remaining[idx] = torch.as_tensor(rem_new, device=dev)
         self._eos[idx] = eos_t
+        for buf, x in zip((self._skey, self._temp, self._topk, self._topp),
+                          rows):
+            buf[idx] = x
+        self._temp_h[slot_idx] = temp
         return first.cpu().numpy()
 
     def _seat_prefilled(self, reqs, slots_for, first_h, *,
@@ -626,7 +830,8 @@ class DecodeSession:
                                           rows)
         paged_slot_write(self._pool, rows, slot_idx, table_rows,
                          block_size=bs, n_pref_blocks=npb)
-        first_h = self._start_slots(logits, slot_idx, plen, rem_new, eos_new)
+        first_h = self._start_slots(logits, slot_idx, plen, rem_new, eos_new,
+                                    reqs)
         dt = time.perf_counter() - t0
         self.device_s += dt
         self.prefill_s += dt
@@ -651,17 +856,19 @@ class DecodeSession:
             # maybe reallocated, block is never written by its old slot
             self._pool.block_table.copy_(torch.from_numpy(self._table_h))
             self._table_dirty = False
+        # the window's kind, from the seated slots' temperatures (the
+        # reference's lax.cond, decided on the host)
+        kind = ("sampled" if (self._temp_h[self._active_host] > 0).any()
+                else "greedy")
         t0 = time.perf_counter()
-        (self._cur_tok, self._pos, self._active, self._remaining, toks,
-         emitted) = eng.step_window(self._pool, self._cur_tok, self._pos,
-                                    self._active, self._remaining,
-                                    self._eos)
+        self._run_window(kind)
+        t1 = time.perf_counter()
         # ONE host sync per window: tokens, emission masks and live flags
         # come back in a single copy
-        k = toks.shape[0]
-        packed = torch.cat([toks, emitted.long(),
-                            self._active[None].long()]).cpu().numpy()
+        packed = self._packed.cpu().numpy()
         self.device_s += time.perf_counter() - t0
+        self.issue_s += t1 - t0
+        k = eng.sync_every
         toks_h = packed[:k]
         emit_h = packed[k:2 * k].astype(bool)
         active_h = packed[2 * k].astype(bool)
@@ -683,6 +890,49 @@ class DecodeSession:
         self._active_host = active_h
         return completed
 
+    @torch.no_grad()
+    def _window(self, kind: str) -> None:
+        """One window over the session's own tensors: ``step_window``,
+        then its results written back into them in place."""
+        sampling = ((self._skey, self._temp, self._topk, self._topp)
+                    if kind == "sampled" else None)
+        cur, pos, act, rem, toks, emitted = self.engine.step_window(
+            self._pool, self._cur_tok, self._pos, self._active,
+            self._remaining, self._eos, sampling)
+        self._cur_tok.copy_(cur)
+        self._pos.copy_(pos)
+        self._active.copy_(act)
+        self._remaining.copy_(rem)
+        torch.cat([toks, emitted.long(), act[None].long()], out=self._packed)
+
+    def _run_window(self, kind: str) -> None:
+        """Run one window: uncaptured unless the engine is graphed, else
+        by replaying this kind's graph.  The first window of a kind runs
+        outside capture on a side stream (every kernel built and warmed,
+        cuBLAS's handles and workspaces made), and is then captured for
+        the windows after it.  A failed capture or replay raises."""
+        eng = self.engine
+        if not eng.graphed:
+            self._window(kind)
+            return
+        graph = self._graphs.get(kind)
+        if graph is not None:
+            graph.replay()
+            return
+        main = torch.cuda.current_stream(eng.device)
+        side = torch.cuda.Stream(eng.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._window(kind)
+        main.wait_stream(side)
+        graph = CountedGraph()
+        t0 = time.perf_counter()
+        graph.capture(lambda: self._window(kind))
+        self.capture_s += time.perf_counter() - t0
+        self._graphs[kind] = graph
+        self.captures += 1
+        eng.decode_captures[kind] += 1
+
     # -- reporting ----------------------------------------------------------
     def stats(self) -> dict:
         eng = self.engine
@@ -700,6 +950,10 @@ class DecodeSession:
             "insert_calls": 0,
             "device_s": self.device_s,
             "prefill_s": self.prefill_s,
+            "window": "graph" if eng.graphed else "eager",
+            "window_issue_s": self.issue_s,
+            "capture_s": self.capture_s,
+            "captures": self.captures,
         }
         if eng.paged:
             out.update(

@@ -7,8 +7,10 @@ the reference's power-of-two buckets so both run the same shapes.  The
 proxy head's entropy goes through ``kernels.ops.entropy_stats``: the
 CUDA kernel on the card, its plain version on the CPU.
 
-``GenerationEngine`` — LM serving: prefill + lockstep greedy decode
-against the decoder LM's contiguous cache.
+``GenerationEngine`` — LM serving: prefill + lockstep decode against
+the decoder LM's contiguous cache, greedy or sampled from the
+reference's key stream (``split``, then ``categorical``: the same
+threefry port as ``serving.sampling``).
 """
 from __future__ import annotations
 
@@ -23,11 +25,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.runtime import resolve_device, synchronize
 from repro_torch.models import transformer as tfm
 from repro_torch.models.distilbert import DistilBERT
-
-SAMPLING_SLICE = ("sampling at T > 0 needs the reference's threefry "
-                  "fold_in and Gumbel bits reproduced exactly; it comes "
-                  "with the sampling and speculation slice (ROADMAP queue "
-                  "1 item 9)")
+from repro_torch.serving import sampling as smp
 
 
 def bucket_size(n: int, buckets=(1, 2, 4, 8, 16, 32, 64, 128)) -> int:
@@ -130,12 +128,15 @@ class GenerationEngine:
         self.params = self.params.to(self.device).eval()
 
     def generate(self, prompts: np.ndarray, n_new: int, *,
-                 greedy: bool = True) -> np.ndarray:
-        """prompts [B, S] int -> [B, n_new] generated ids (lockstep,
-        greedy).  The tokens stay on the device until the end: one host
-        sync per call."""
-        if not greedy:
-            raise NotImplementedError(SAMPLING_SLICE)
+                 greedy: bool = True, seed: int = 0) -> np.ndarray:
+        """prompts [B, S] int -> [B, n_new] generated ids (lockstep).
+        The first token is the prefill's argmax; after it each token is
+        the argmax, or with ``greedy=False`` a draw by
+        ``categorical(sk, logits)`` where ``key, sk = split(key)`` from
+        ``PRNGKey(seed)``, as the reference (``engine.py:144-155``).
+        The tokens stay on the device until the end: one host sync per
+        call."""
+        key = smp.prng_key(seed)
         B, S = prompts.shape
         model = self.params
         cache = tfm.init_cache(self.cfg, B, self.max_seq,
@@ -146,7 +147,11 @@ class GenerationEngine:
         for i in range(n_new):
             out.append(tok[:, 0])
             logits, cache = model.decode_step(tok, cache, S + i)
-            tok = logits[:, -1].argmax(-1)[:, None]
+            if greedy:
+                tok = logits[:, -1].argmax(-1)[:, None]
+            else:
+                key, sk = smp.split(key)
+                tok = smp.categorical(sk, logits[:, -1])[:, None]
         if not out:
             return np.zeros((B, 0), np.int32)
         return torch.stack(out, 1).cpu().numpy().astype(np.int32)

@@ -43,6 +43,7 @@ from repro_torch.models import transformer as ttfm  # noqa: E402
 from repro_torch.serving import adapters as tadapters  # noqa: E402
 from repro_torch.serving import api as tapi  # noqa: E402
 from repro_torch.serving import continuous as tcont  # noqa: E402
+from repro_torch.serving import sampling as tsampling  # noqa: E402
 
 ARCH = "stablelm-3b"
 SLOTS, MAX_SEQ = 3, 48
@@ -215,21 +216,23 @@ def test_slot_clock_matches_jax():
 
 
 def test_sampling_and_speculation_raise_until_their_slice(pair):
+    """Speculation still raises, naming its slice.  Sampling's slice has
+    landed: a sampled config and a sampled request are served (their
+    parity with the reference is ``tests/test_torch_decode_window.py``)."""
     tcfg, model = pair[2], pair[3]
-
-    class Hot:
-        temperature = 0.7
-
-    eng = tcont.ContinuousBatchingEngine(tcfg, model, device="cpu")
-    with pytest.raises(NotImplementedError, match="sampling"):
-        eng.start_session().push(tcont.GenRequest(
-            rid=0, prompt=np.zeros(4, np.int32), sampling=Hot()))
-    with pytest.raises(NotImplementedError, match="sampling"):
-        tcont.ContinuousBatchingEngine(tcfg.replace(temperature=0.5), model,
-                                       device="cpu")
     with pytest.raises(NotImplementedError, match="speculat"):
         tcont.ContinuousBatchingEngine(tcfg, model, draft_depth=2,
                                        device="cpu")
+    eng = tcont.ContinuousBatchingEngine(tcfg.replace(temperature=0.5), model,
+                                         n_slots=2, max_seq=MAX_SEQ,
+                                         device="cpu")
+    assert eng.default_sampling.temperature == 0.5
+    reqs = [tcont.GenRequest(rid=i, prompt=np.arange(4, dtype=np.int32),
+                             max_new=3, sampling=sp)
+            for i, sp in enumerate([None, tsampling.SamplingParams(
+                temperature=0.7, top_k=4)])]
+    eng.serve(reqs)
+    assert [len(r.generated) for r in reqs] == [3, 3]
 
 
 def test_launcher_generate_smoke_on_cpu(tmp_path):

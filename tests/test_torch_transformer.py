@@ -121,9 +121,13 @@ def test_greedy_tokens_match_jax(pair):
                                    device="cpu").generate(prompts, 10)
     assert got.dtype == np.int32 and got.shape == (3, 10)
     np.testing.assert_array_equal(got, np.asarray(want))
-    with pytest.raises(NotImplementedError, match="sampling"):
-        tengine.GenerationEngine(model.cfg, model, device="cpu").generate(
-            prompts, 2, greedy=False)
+    # sampled generation (held against the reference in
+    # tests/test_torch_sampling.py) starts from the same argmax token
+    sampled = tengine.GenerationEngine(model.cfg, model, max_seq=32,
+                                       device="cpu").generate(
+        prompts, 2, greedy=False)
+    assert sampled.shape == (3, 2)
+    np.testing.assert_array_equal(sampled[:, 0], got[:, 0])
 
 
 @pytest.mark.parametrize("shape,positions", [
