@@ -53,6 +53,17 @@ not 0.  Phases:
                launches; then ``decode_invariance``: the serving case's
                valid rows in a 128-row and in a mostly empty 4096-row
                cache, contiguous and paged, all equal byte for byte;
+     spec_chunk — the verify chunk's entry on the flash-decode body
+               (``decode_attention_chunk_cuda``, n query rows per slot)
+               against its plain version (f32 to 1e-4; bf16 to 3e-2 and
+               each row to 2^-6 of its largest output) at the serving
+               shape (8 slots x 4 queries x 32 heads, 128 rows, 17-31
+               valid), a 4096-row cache (spans merged), ragged starts and
+               a chunk written by ``cache_write_chunk`` whose last rows
+               clamp onto the cache's last row; row j ``torch.equal`` to
+               the single-query kernel at ``start + j``; timed beside its
+               bound, the n single-query launches and SDPA with the
+               [B, H, n, S] mask;
      sampling_keys — at 8 slots x the vocabulary: ``step_keys`` and the
                Gumbel bits on the card equal the port's numpy threefry bit
                for bit, the Gumbel floats the CPU's within 2 eps of
@@ -102,6 +113,32 @@ not 0.  Phases:
                steady windows' ms per step, issue ms and the card's busy
                share (one window replayed over the window's time); the
                same for mamba2-780m after phase 16;
+     parity_spec — speculative against non-speculative tokens: published
+               width at depth 2 in f32 with f32 caches (TF32 off, printed),
+               D = 3 over a one-layer draft, greedy and sampled, aligned
+               and seeded weights, 16 requests through the captured
+               engines, equal for every request; the verify chunk's logits
+               against sequential steps (largest difference over largest
+               |logit|) at depth 2 and at full depth; the served model at
+               full depth in bf16, lockstep greedy with a draft of 8
+               layers: the token agreement, every first divergence a
+               near-tie (top-2 gap and logit difference printed);
+     decode_graph_spec — the speculative window at full width, 8 slots,
+               draft of 8 layers, D = 3, 16 requests of 16 + 16 tokens,
+               aligned weights (layers 8-31 the identity) and the seeded
+               ones, greedy and sampled, uncaptured and captured: the same
+               tokens, one capture per kind (the live depth moving in the
+               aligned greedy session), decode launches = D x 8 x
+               macro-steps and chunk launches = 32 x macro-steps (replays
+               counted); ms per macro-step and per emitted token, the
+               card's busy share, acceptance, the modelled energy per
+               token, and the non-speculative captured step on the same
+               weights;
+     serve_generate_spec — the launcher with ``--draft-depth 3
+               --draft-layers 8`` on stablelm-3b: every request answered,
+               the flash, decode and chunk kernels launched (this slice's
+               main path: the counters zeroed just before, read just
+               after), the window one captured graph;
      serve_generate_sampled — the launcher with ``--temperature 0.8
                --top-k 50 --top-p 0.95`` on stablelm-3b: every request
                answered, the window one captured graph;
@@ -136,13 +173,15 @@ not 0.  Phases:
                depth in bf16, kernel path against ``attn_impl="xla"``;
  16. breakdown_generate_ssm — one mamba2 decode step at 8 slots, device
                time and time from Python, beside its bytes bound;
- 17. kernels — one line with every kernel's numbers;
+ 17. kernels — one line with every kernel's numbers (the chunk entry too);
  18. the last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero without CUDA or without the repo.
 """
 from __future__ import annotations
 
+import copy
+import functools
 import itertools
 import json
 import math
@@ -167,6 +206,7 @@ from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.runtime import (ATTN_BF16_ROW_TOL,  # noqa: E402
                                          row_scaled_error)
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import distilbert  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving import continuous as cont  # noqa: E402
@@ -1016,13 +1056,13 @@ def phase_serve_generate_smoke():
          launches=launches, tokens_generated=summary["tokens_generated"])
 
 
-def _greedy_f32_cache(model, prompts, n_new):
-    """Lockstep greedy decode over an f32 cache (no bf16 rounding of the
-    keys, so the card and the CPU can agree token for token); -> (the
-    prefill's logits [B, 1, V], the tokens [B, n_new], the logits each
-    token was chosen from [B, n_new, V]), on the CPU."""
+def _greedy_lockstep(model, prompts, n_new, dtype=torch.float32):
+    """Lockstep greedy decode, by default over an f32 cache (no bf16
+    rounding of the keys, so the card and the CPU can agree token for
+    token); -> (the prefill's logits [B, 1, V], the tokens [B, n_new],
+    the logits each token was chosen from [B, n_new, V]), on the CPU."""
     B, S = prompts.shape
-    cache = tfm.init_cache(model.cfg, B, S + n_new, torch.float32,
+    cache = tfm.init_cache(model.cfg, B, S + n_new, dtype,
                            device=model.device)
     logits, cache = model.prefill(prompts, cache)
     first = logits
@@ -1047,10 +1087,10 @@ def phase_parity_generate(model):
     m_cpu = tfm.LM(cfg2, device="cpu")
     m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
     fa_mod.launches = da_mod.launches = 0
-    lg, tg, _ = _greedy_f32_cache(m_gpu, prompts, 8)
+    lg, tg, _ = _greedy_lockstep(m_gpu, prompts, 8)
     fail_unless(fa_mod.launches > 0 and da_mod.launches > 0,
                 "parity: the card's run went through both kernels")
-    lc, tc, _ = _greedy_f32_cache(m_cpu.eval(), prompts, 8)
+    lc, tc, _ = _greedy_lockstep(m_cpu.eval(), prompts, 8)
     err = (lg - lc).abs().max().item()
     fail_unless(bool(torch.isfinite(lg).all()) and err <= LOGITS_TOL,
                 f"depth-2 f32 prefill logits card vs CPU: {err}")
@@ -1443,10 +1483,31 @@ def phase_sampling_keys(vocab: int):
                 "sampling_keys: Gumbel bits on the card == numpy threefry")
     g = smp.gumbel_from_bits(bits).cpu().double()
     g_cpu = smp.gumbel_from_bits(bits.cpu()).double()
-    ulps = ((g - g_cpu).abs() / (torch.finfo(torch.float32).eps
-                                 * g_cpu.abs().clamp_min(1.0))).max().item()
+    eps = ((g - g_cpu).abs() / (torch.finfo(torch.float32).eps
+                                * g_cpu.abs().clamp_min(1.0))).reshape(-1)
+    ulps, worst = eps.max().item(), int(eps.argmax())
+    if ulps > GUMBEL_ULPS:              # the CPU's parts, for the record
+        bad = (eps > GUMBEL_ULPS).nonzero()[:, 0]
+        bc = bits.cpu().reshape(-1)
+        f = ((bc >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+        lg = -torch.log(f[worst:worst + 1])
+        emit(phase="sampling_keys_cpu_fault", bad_first=int(bad[0]),
+             bad_last=int(bad[-1]), bad=len(bad),
+             bad_rows=torch.bincount(bad // V, minlength=B).tolist(),
+             u=f[worst].item(), neg_log_u_cpu=lg.item(),
+             neg_log_u_f64=-math.log(max(f[worst].item(), 1e-38)),
+             neg_log_u_card=(-torch.log(f[worst:worst + 1].cuda())).item(),
+             again_cpu_max_eps=((smp.gumbel_from_bits(bits.cpu()).double()
+                                 - g).abs().max().item()
+                                / torch.finfo(torch.float32).eps))
     fail_unless(ulps <= GUMBEL_ULPS,
-                f"sampling_keys: Gumbel floats card vs CPU {ulps} eps")
+                f"sampling_keys: Gumbel floats card vs CPU {ulps} eps "
+                f"({int((eps > GUMBEL_ULPS).sum())} elements; the worst: "
+                f"bits {int(bits.reshape(-1)[worst])}, card "
+                f"{g.reshape(-1)[worst].item()!r}, CPU "
+                f"{g_cpu.reshape(-1)[worst].item()!r}; "
+                f"{torch.backends.cpu.get_cpu_capability()}, "
+                f"{torch.get_num_threads()} threads)")
     gen = torch.Generator(device="cuda").manual_seed(8)
     logits = (torch.randn(B, V, generator=gen, device="cuda") * 3).to(
         torch.bfloat16)
@@ -1617,6 +1678,498 @@ def phase_serve_generate_sampled():
          prefill_ms_per_call=(summary["prefill_s"]
                               / summary["prefill_calls"] * 1e3),
          **summary)
+
+
+# ---------------------------------------------------------------------------
+# self-speculative decode: the chunk entry, parity, the captured window
+# ---------------------------------------------------------------------------
+
+SPEC_DEPTH, SPEC_DRAFT_LAYERS = 3, 8
+
+# the chunk entry's cases: (name, q/kv dtype, B, n, S, valid rows per slot
+# including the chunk's own, or None for a chunk written by
+# cache_write_chunk at start = S - 2 in half the slots: rows clamped onto
+# S - 1)
+SPEC_CHUNK_CASES = [
+    ("serving_bf16", torch.bfloat16, 8, 4, 128, list(range(17, 33, 2))),
+    ("serving_f32", torch.float32, 8, 4, 128, list(range(17, 33, 2))),
+    ("long_4096_bf16", torch.bfloat16, 8, 4, 4096,
+     [4096 - 37 * b for b in range(8)]),
+    ("ragged_bf16", torch.bfloat16, 8, 4, 128, [4, 40, 77, 128, 9, 64, 100,
+                                                33]),
+    ("clamped_bf16", torch.bfloat16, 8, 4, 128, None),
+]
+
+
+def _chunk_inputs(dt, B, n, S, lengths, gen):
+    """q [B,n,H,hd] and a BSHD cache [B,S,K,hd] read as [B,K,S,hd] views;
+    kv_pos a valid prefix of ``lengths[b]`` rows and start = lengths - n,
+    or (lengths None) a 100-row prefix and a chunk written into the cache
+    by ``cache_write_chunk`` at start 120 (S - 8) and S - 2, whose last
+    rows clamp onto row S - 1."""
+    H = K = 32
+    hd = 80
+    q = torch.randn(B, n, H, hd, generator=gen, device="cuda").to(dt)
+    kc, vc = (torch.randn(B, S, K, hd, generator=gen, device="cuda").to(dt)
+              for _ in range(2))
+    col = torch.arange(S, device="cuda")[None]
+    if lengths is not None:
+        n_ok = torch.as_tensor(lengths, device="cuda")[:, None]
+        kv_pos = torch.where(col < n_ok, col, -1).to(torch.int32)
+        start = (n_ok[:, 0] - n).to(torch.int32)
+    else:
+        kv_pos = torch.where(col < 100, col, -1).to(torch.int32).expand(
+            B, S).contiguous()
+        start = torch.tensor([S - 8, S - 2] * (B // 2), device="cuda")
+        cache = attn_mod.KVCache(k=kc, v=vc, pos=kv_pos)
+        kn, vn = (torch.randn(B, n, K, hd, generator=gen,
+                              device="cuda").to(dt) for _ in range(2))
+        attn_mod.cache_write_chunk(cache, kn, vn, start)
+        torch.cuda.synchronize()
+        fail_unless(bool((kv_pos[1::2, S - 1] == S - 2 + n - 1).all())
+                    and torch.equal(kc[1::2, S - 1], kn[1::2, n - 1]),
+                    "spec_chunk: the last chunk row wins the clamped row")
+        start = start.to(torch.int32)
+    return q, kc.transpose(1, 2), vc.transpose(1, 2), kv_pos, start
+
+
+def chunk_bound_ms(q, k, kv_pos, start, peaks):
+    """Least time of a chunk call: each slot's valid K/V rows (those of
+    its last query row, which every other row's are a subset of) read
+    once per kv head, q and out, kv_pos and start, over HBM bandwidth;
+    or 4 * hd operations per visible (query, key) pair and head at the
+    peak of the cache's type."""
+    B, n, H, hd = q.shape
+    K = k.shape[1]
+    qpos = da_mod.chunk_positions(start, n)                       # [B, n]
+    ok = (kv_pos[:, None] >= 0) & (kv_pos[:, None] <= qpos[..., None])
+    pairs = int(ok.sum())
+    rows = int(ok[:, -1].sum())
+    nbytes = (2 * rows * K * hd * k.element_size()
+              + 2 * q.numel() * q.element_size()
+              + kv_pos.numel() * 4 + B * 4)
+    rate = peaks["bf16" if k.dtype == torch.bfloat16 else "f32"]
+    t_bytes, t_ops = nbytes / peaks["hbm"], 4 * hd * H * pairs / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", pairs, ok)
+
+
+def phase_spec_chunk(peaks):
+    """The chunk entry (``decode_attention_chunk_cuda``) against its plain
+    version and, row by row, against the single-query decode kernel at
+    ``start + j`` (``torch.equal``), timed beside its bound, n
+    single-query launches and SDPA with the [B, H, n, S] mask; ->
+    (the largest error, the serving row)."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    F = torch.nn.functional
+    max_err, main = 0.0, None
+    for name, dt, B, n, S, lengths in SPEC_CHUNK_CASES:
+        q, k, v, kv_pos, start = _chunk_inputs(dt, B, n, S, lengths, gen)
+        kern = lambda: da_mod.decode_attention_chunk_cuda(  # noqa: E731
+            q, k, v, kv_pos, start)
+        plain = lambda: da_mod.decode_attention_chunk_plain(  # noqa: E731
+            q, k, v, kv_pos, start)
+        starts = [start + j for j in range(n)]
+        singles = lambda: [da_mod.decode_attention_cuda(  # noqa: E731
+            q[:, j], k, v, kv_pos, starts[j]) for j in range(n)]
+        da_mod.chunk_launches = da_mod.combine_launches = 0
+        got = kern()
+        fail_unless(da_mod.chunk_launches == 1,
+                    f"spec_chunk {name}: one launch counted per call")
+        plan = da_mod.decode_span_plan(B * n, 32, S, 80)
+        fail_unless(da_mod.combine_launches == plan.combine,
+                    f"spec_chunk {name}: {da_mod.combine_launches} span "
+                    f"merges for {plan.spans} spans")
+        want, rows = plain(), singles()
+        torch.cuda.synchronize()
+        bound_ms, bound_by, pairs, ok = chunk_bound_ms(q, k, kv_pos, start,
+                                                       peaks)
+        fail_unless(bool(ok.any(-1).all()),
+                    f"spec_chunk {name}: every query row has a valid key")
+        fail_unless(bool(torch.isfinite(got.float()).all()),
+                    f"spec_chunk {name}: non-finite output")
+        equal = [bool(torch.equal(got[:, j], rows[j])) for j in range(n)]
+        fail_unless(all(equal), f"spec_chunk {name}: row j == the single "
+                                f"query at start + j: {equal}")
+        err = (got.float() - want.float()).abs().max().item()
+        row_err = row_scaled_error(got, want)
+        f32 = dt == torch.float32
+        tol = F32_TOL if f32 else BF16_TOL
+        fail_unless(err <= tol, f"spec_chunk {name}: kernel vs plain max abs "
+                                f"err {err} > {tol}")
+        fail_unless(f32 or row_err <= ATTN_BF16_ROW_TOL,
+                    f"spec_chunk {name}: row-scaled err {row_err} > "
+                    f"{ATTN_BF16_ROW_TOL}")
+        mask = ok[:, None]                                   # [B,1,n,S]
+        qh = q.transpose(1, 2)                               # [B,H,n,hd]
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qh, k, v, attn_mask=mask)
+        lib_err = (lib().transpose(1, 2).float() - want.float()).abs().max(
+        ).item()
+        it = 20 if S > 1024 else 200
+        row = dict(phase="spec_chunk", kernel="decode_attention_chunk",
+                   case=name, B=B, n=n, H=32, K=32, S=S, hd=80,
+                   dtype=str(dt).replace("torch.", ""),
+                   valid_pairs=pairs, spans=plan.spans,
+                   combine_launches=int(plan.combine),
+                   rows_equal_single_query=True, max_abs_err=err, tol=tol,
+                   row_scaled_err=row_err,
+                   row_tol=None if f32 else ATTN_BF16_ROW_TOL,
+                   ms=graph_ms(kern, it), call_ms=time_ms(kern, it),
+                   plain_ms=graph_ms(plain, max(it // 10, 2)),
+                   single_query_launches_ms=graph_ms(singles, it),
+                   library_ms=graph_ms(lib, it),
+                   library_computes="scaled_dot_product_attention, "
+                                    "[B, H, n, S] mask",
+                   library_max_abs_err=lib_err,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        row["share_of_bound"] = bound_ms / row["ms"]
+        emit(**row)
+        max_err = max(max_err, err)
+        if name == "serving_bf16":
+            main = row
+    return max_err, main
+
+
+def _aligned_copy(model, from_layer: int):
+    """A copy of ``model`` whose layers ``from_layer`` .. are the identity
+    on the residual stream (their attention and MLP output projections
+    zeroed), so a draft of the first ``from_layer`` layers agrees with
+    the full model up to the two passes' rounding."""
+    m = copy.deepcopy(model)
+    with torch.no_grad():
+        for layer in m.layers[from_layer:]:
+            layer.mix.wo.zero_()
+            if layer.mix.has_bias:
+                layer.mix.bo.zero_()
+            layer.mlp.w_down.zero_()
+            if hasattr(layer.mlp, "b_down"):
+                layer.mlp.b_down.zero_()
+    return m
+
+
+def _spec_greedy(model, prompts, n_new, depth, draft_layers):
+    """Lockstep greedy speculative decode, the engine's macro-step without
+    its retire masks (every row decodes ``n_new`` tokens): per step, the
+    draft's ``depth`` tokens, one verify chunk, the accepted prefix and
+    the full model's next token.  -> (tokens [B, n_new], the verify
+    logits each token was chosen from [B, n_new, V]), on the CPU."""
+    B, S = prompts.shape
+    cache = tfm.init_cache(model.cfg, B, S + n_new + depth + 1,
+                           device=model.device)
+    draft = model.draft_prefix(draft_layers)
+    logits, cache = model.prefill(prompts, cache)
+    toks = [[int(t)] for t in logits[:, -1].argmax(-1).cpu()]
+    seen = [[row] for row in logits[:, -1].float().cpu()]
+    pos = torch.full((B,), S, dtype=torch.long, device=model.device)
+    while min(len(t) for t in toks) < n_new:
+        tok = torch.tensor([t[-1] for t in toks],
+                           device=model.device)[:, None]
+        dtok, dpos, drafts = tok, pos, []
+        for _ in range(depth):
+            lg, _ = draft.decode_chunk(dtok, cache, dpos)
+            dtok, dpos = lg[:, 0].argmax(-1)[:, None], dpos + 1
+            drafts.append(dtok)
+        lg, _ = model.decode_chunk(torch.cat([tok, *drafts], 1), cache, pos)
+        full = lg.argmax(-1).cpu()
+        dr = torch.cat(drafts, 1).cpu()
+        lgc = lg.float().cpu()
+        adv = []
+        for b in range(B):
+            a = 0
+            while a < depth and dr[b, a] == full[b, a]:
+                a += 1
+            for j in range(a + 1):
+                toks[b].append(int(full[b, j]))
+                seen[b].append(lgc[b, j])
+            adv.append(a + 1)
+        pos = pos + torch.tensor(adv, device=model.device)
+    return (torch.tensor([t[:n_new] for t in toks]),
+            torch.stack([torch.stack(s[:n_new]) for s in seen]))
+
+
+def _chunk_vs_step(model, prompts, n=SPEC_DEPTH + 1):
+    """The verify chunk's logits against ``n`` sequential decode steps at
+    the same positions after the same prefill, fed the steps' greedy
+    tokens: the largest difference over the largest |logit|."""
+    B, S = prompts.shape
+    caches = [tfm.init_cache(model.cfg, B, S + n, device=model.device)
+              for _ in range(2)]
+    logits = [model.prefill(prompts, c)[0] for c in caches][0]
+    tok, toks, steps = logits[:, -1].argmax(-1)[:, None], [], []
+    for j in range(n):
+        toks.append(tok)
+        lg, _ = model.decode_step(tok, caches[1], S + j)
+        steps.append(lg)
+        tok = lg[:, -1].argmax(-1)[:, None]
+    chunk, _ = model.decode_chunk(torch.cat(toks, 1), caches[0], S)
+    step = torch.cat(steps, 1).float()
+    return ((chunk.float() - step).abs().max().item()
+            / step.abs().max().item())
+
+
+def phase_parity_spec(lm):
+    """Speculative against non-speculative tokens on the card.  Published
+    width at depth 2 in f32 with f32 caches (TF32 off, PyTorch's default,
+    printed), D = 3 over a one-layer draft, greedy and sampled, aligned
+    (layer 1 the identity) and seeded weights, 16 requests of 16 + 16
+    tokens through the captured engines: the same tokens for every
+    request.  The verify chunk's logits against sequential steps at both
+    depths.  At full depth in bf16 (the served model, draft of 8 layers),
+    lockstep greedy: the token agreement, and every first divergence a
+    near-tie (its top-2 gap at most twice the two paths' logit difference
+    there), printed."""
+    cfg = get_config(ARCH)
+    tf32 = bool(torch.backends.cuda.matmul.allow_tf32)
+    fail_unless(not tf32, "parity_spec: TF32 off for the f32 products")
+    cfg2 = cfg.replace(n_layers=2, dtype="float32")
+    seeded = tfm.init_lm(cfg2, 0, device="cuda")
+    models = {"seeded": seeded, "aligned": _aligned_copy(seeded, 1)}
+    init_cache = tfm.init_cache
+    tfm.init_cache = functools.partial(init_cache, dtype=torch.float32)
+    results = {}
+    try:
+        for wname, m in models.items():
+            for mode in ("greedy", "sampled"):
+                runs = {}
+                for depth in (SPEC_DEPTH, 0):
+                    eng = cont.ContinuousBatchingEngine(
+                        cfg2.replace(draft_layers=1 if depth else 0), m,
+                        n_slots=8, max_seq=serve.GEN_MAX_SEQ, device="cuda",
+                        draft_depth=depth)
+                    reqs = _graph_requests(cfg.vocab, mode == "sampled")
+                    st = eng.serve(reqs, prompt_len=serve.GEN_PROMPT_LEN)
+                    runs[depth] = ([r.generated for r in reqs], st)
+                (spec, st), (plain, _) = runs[SPEC_DEPTH], runs[0]
+                same = [a == b for a, b in zip(spec, plain)]
+                fail_unless(all(same), f"parity_spec depth-2 f32 {wname} "
+                                       f"{mode}: spec tokens == non-spec, "
+                                       f"per request: {same}")
+                results[f"{wname}_{mode}"] = dict(
+                    requests_equal=sum(same), acceptance_rate=st[
+                        "acceptance_rate"],
+                    accepted_per_step=st["accepted_per_step"],
+                    captures=st["captures"])
+        prompts = np.random.default_rng(11).integers(0, cfg.vocab, (8, 16))
+        d2_chunk = _chunk_vs_step(seeded, prompts)
+    finally:
+        tfm.init_cache = init_cache
+    del models, seeded
+    full_chunk = _chunk_vs_step(lm, prompts)
+    spec, s_logits = _spec_greedy(lm, prompts, 16, SPEC_DEPTH,
+                                  SPEC_DRAFT_LAYERS)
+    _, plain, p_logits = _greedy_lockstep(lm, prompts, 16,
+                                          dtype=torch.bfloat16)
+    divergences = []
+    for r in range(spec.shape[0]):
+        differ = (spec[r] != plain[r]).nonzero()
+        if len(differ) == 0:
+            continue
+        i = int(differ[0])
+        top2 = p_logits[r, i].topk(2).values
+        gap = (top2[0] - top2[1]).item()
+        step_err = (s_logits[r, i] - p_logits[r, i]).abs().max().item()
+        divergences.append(dict(row=r, step=i, top2_gap=gap,
+                                verify_vs_step_logit_err=step_err,
+                                near_tie=gap <= 2 * step_err))
+    fail_unless(all(d["near_tie"] for d in divergences),
+                f"parity_spec full-depth bf16: a divergence that is not a "
+                f"near-tie: {divergences}")
+    emit(phase="parity_spec", tf32=tf32, depth=SPEC_DEPTH,
+         depth2_f32=results,
+         depth2_f32_chunk_vs_step_logit_err_over_max=d2_chunk,
+         full_bf16_chunk_vs_step_logit_err_over_max=full_chunk,
+         full_bf16_draft_layers=SPEC_DRAFT_LAYERS,
+         full_bf16_greedy_token_agreement=float(
+             (spec == plain).float().mean()),
+         full_bf16_divergences=divergences,
+         nvidia_smi=nvidia_smi("name,power.limit"))
+
+
+def _drive_spec_windows(engine, reqs):
+    """``_drive_windows`` for a speculative or plain session: -> (tokens
+    per request, per window: decode seconds, issue seconds, tokens
+    emitted, slot-steps live and the live depth; the session)."""
+    sess = engine.start_session(serve.GEN_PROMPT_LEN)
+    for r in reqs:
+        sess.push(r)
+    wins = []
+    while not sess.idle:
+        d0, p0, i0, h0 = (sess.device_s, sess.prefill_s, sess.issue_s,
+                          sess.host_syncs)
+        o0, a0 = sess.occupied_slot_steps, sess.spec_accepted
+        sess.advance()
+        if sess.host_syncs > h0:
+            slot_steps = sess.occupied_slot_steps - o0
+            wins.append(dict(
+                dec=sess.device_s - d0 - (sess.prefill_s - p0),
+                issue=sess.issue_s - i0,
+                tokens=slot_steps + sess.spec_accepted - a0,
+                slot_steps=slot_steps, depth=sess.last_depth))
+    return [r.generated for r in reqs], wins, sess
+
+
+def phase_decode_graph_spec(lm):
+    """The speculative window at full width: 8 slots, a draft of the
+    first 8 layers, D = 3, 16 requests of 16 + 16 tokens (two refill
+    waves), with aligned weights (layers 8-31 the identity) and the
+    served model's seeded ones, greedy and sampled, uncaptured and
+    captured: the same tokens, one capture per session and kind (in the
+    aligned greedy session while the live depth moves), decode launches
+    = D x 8 x macro-steps and chunk launches = 32 x macro-steps with
+    replays counted; ms per emitted token and per macro-step, the card's
+    busy share, acceptance, tokens per macro-step, the modelled energy
+    per token, and the non-speculative captured ms per step on the same
+    weights."""
+    cfg = lm.cfg
+    spec_cfg = cfg.replace(draft_layers=SPEC_DRAFT_LAYERS)
+    weights = {"aligned": _aligned_copy(lm, SPEC_DRAFT_LAYERS), "seeded": lm}
+    out = {}
+    for wname, model in weights.items():
+        # the non-speculative captured step on the same weights
+        eng = cont.ContinuousBatchingEngine(cfg, model, n_slots=8,
+                                            max_seq=serve.GEN_MAX_SEQ,
+                                            device="cuda")
+        plain_toks, pw, _ = _drive_spec_windows(
+            eng, _graph_requests(cfg.vocab, False))
+        plain_ms = 1e3 * float(np.mean([w["dec"] for w in pw[1:]])) / (
+            eng.sync_every)
+        for mode in ("greedy", "sampled"):
+            runs = {}
+            for capture in (False, True):
+                eng = cont.ContinuousBatchingEngine(
+                    spec_cfg, model, n_slots=8, max_seq=serve.GEN_MAX_SEQ,
+                    device="cuda", capture=capture, draft_depth=SPEC_DEPTH)
+                da_mod.launches = da_mod.chunk_launches = 0
+                toks, wins, sess = _drive_spec_windows(
+                    eng, _graph_requests(cfg.vocab, mode == "sampled"))
+                torch.cuda.synchronize()
+                macro = sess.host_syncs * eng.sync_every
+                launches = (da_mod.launches, da_mod.chunk_launches)
+                want = (SPEC_DEPTH * SPEC_DRAFT_LAYERS * macro,
+                        cfg.n_layers * macro)
+                fail_unless(launches == want,
+                            f"decode_graph_spec {wname} {mode} capture="
+                            f"{capture}: launches {launches} for {macro} "
+                            f"macro-steps")
+                runs[capture] = dict(toks=toks, wins=wins, sess=sess,
+                                     eng=eng, launches=launches)
+            e, g = runs[False], runs[True]
+            fail_unless(g["toks"] == e["toks"],
+                        f"decode_graph_spec {wname} {mode}: captured tokens "
+                        f"== uncaptured")
+            other = "greedy" if mode == "sampled" else "sampled"
+            fail_unless(g["eng"].decode_captures == {mode: 1, other: 0}
+                        and e["eng"].decode_capture_count == 0,
+                        f"decode_graph_spec {wname} {mode}: one capture of "
+                        f"its kind: {g['eng'].decode_captures}")
+            depths = [w["depth"] for w in g["wins"]]
+            if wname == "aligned" and mode == "greedy":
+                fail_unless(len(set(depths)) >= 2,
+                            f"decode_graph_spec aligned: the live depth "
+                            f"moved: {depths}")
+            if mode == "greedy":
+                agree = sum(a == b for a, b in zip(g["toks"], plain_toks))
+            graph = g["sess"]._graphs[mode].graph
+            window_ms = _elapsed_ms(
+                lambda: [graph.replay() for _ in range(5)]) / 5
+            st = g["sess"].stats()
+            k = g["eng"].sync_every
+            steady = g["wins"][1:]
+            wall = 1e3 * float(np.mean([w["dec"] for w in steady]))
+            per_slot = (sum(w["tokens"] for w in steady)
+                        / max(sum(w["slot_steps"] for w in steady), 1))
+            row = dict(
+                ms_per_macro_step=wall / k,
+                tokens_per_live_slot_macro_step=per_slot,
+                ms_per_token=wall / k / per_slot,
+                ms_per_token_over_nonspec_step=wall / k / per_slot / plain_ms,
+                device_ms_per_macro_step=window_ms / k,
+                device_ms_per_token=window_ms / k / per_slot,
+                window_ms=wall, window_device_ms=window_ms,
+                window_issue_ms=1e3 * float(np.mean(
+                    [w["issue"] for w in steady])),
+                card_busy_share=window_ms / wall,
+                uncaptured_ms_per_macro_step=1e3 * float(np.mean(
+                    [w["dec"] for w in e["wins"][1:]])) / k,
+                first_window_ms=1e3 * g["wins"][0]["dec"],
+                windows=len(g["wins"]), macro_steps=g["sess"].host_syncs * k,
+                live_macro_steps=st["decode_steps"],
+                acceptance_rate=st["acceptance_rate"],
+                accepted_per_step=st["accepted_per_step"],
+                energy_per_token_model=st["energy_per_token_model"],
+                live_depths=depths,
+                launches=dict(decode=g["launches"][0],
+                              chunk=g["launches"][1]),
+                nonspec_captured_ms_per_step=plain_ms)
+            if mode == "greedy":
+                row["requests_equal_to_nonspec"] = agree
+            emit(phase="decode_graph_spec", weights=wname, mode=mode,
+                 layers=cfg.n_layers, draft_layers=SPEC_DRAFT_LAYERS,
+                 depth=SPEC_DEPTH, slots=8, sync_every=k,
+                 requests=GRAPH_REQUESTS, new_tokens=GRAPH_NEW,
+                 refill_waves=g["sess"].prefill_calls, tokens_equal=True,
+                 captures_by_kind=g["eng"].decode_captures, **row,
+                 clocks_power_temp=nvidia_smi(
+                     "clocks.sm,power.draw,temperature.gpu"),
+                 nvidia_smi=nvidia_smi("name,power.limit"))
+            out[f"{wname}_{mode}"] = row
+            del runs, e, g, graph
+    del weights
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_generate_spec():
+    """The launcher with ``--draft-depth 3 --draft-layers 8`` on
+    stablelm-3b at published width: every request answered, the flash,
+    decode and chunk kernels launched (counters zeroed just before, read
+    just after), the window one captured graph; -> the launch counts."""
+    args = serve.parser().parse_args(
+        ["--device", "cuda", "--mode", "generate", "--arch", ARCH,
+         "--requests", "32", "--new-tokens", "16", "--slots", "8",
+         "--controller", "bio", "--draft-depth", str(SPEC_DEPTH),
+         "--draft-layers", str(SPEC_DRAFT_LAYERS)])
+    fa_mod.launches = 0
+    da_mod.launches = da_mod.paged_launches = da_mod.chunk_launches = 0
+    t0 = time.perf_counter()
+    summary, server = serve.serve_generate(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"flash_attention": fa_mod.launches,
+                "decode_attention": da_mod.launches,
+                "decode_attention_chunk": da_mod.chunk_launches}
+    fail_unless(da_mod.paged_launches == 0,
+                "spec: the contiguous pool runs no paged kernel")
+    vocab = get_config(ARCH).vocab
+    resp = server.responses
+    fail_unless(sorted(r.rid for r in resp) == list(range(args.requests)),
+                "spec: every request answered once")
+    admitted = [r for r in resp if r.admitted]
+    fail_unless(len(admitted) > 0 and all(
+        isinstance(r.output, list) and 1 <= len(r.output) <= args.new_tokens
+        and all(0 <= t < vocab for t in r.output) for r in admitted),
+        "spec: 1..16 token ids inside the vocabulary each")
+    fail_unless(all(n > 0 for n in launches.values()),
+                f"spec: flash, decode and chunk kernels launched: {launches}")
+    fail_unless(summary["window"] == "graph" and summary["captures"] == 1
+                and summary["mode"] == "spec",
+                f"spec: the window one captured graph: {summary}")
+    eng = server.engine.engine
+    fail_unless(eng.draft_depth == SPEC_DEPTH
+                and eng.cfg.draft_layers == SPEC_DRAFT_LAYERS
+                and eng.params.cfg.n_layers == 32,
+                "spec: published width, D = 3 over 8 draft layers")
+    macro = summary["host_syncs"] * eng.sync_every
+    decode_s = summary["device_s"] - summary["prefill_s"]
+    emit(phase="serve_generate_spec", seconds=secs, launches=launches,
+         admitted=len(admitted),
+         tokens_per_busy_s=summary["tokens_generated"] / summary["busy_s"],
+         decode_ms_per_macro_step=decode_s / macro * 1e3,
+         prefill_ms_per_call=(summary["prefill_s"]
+                              / summary["prefill_calls"] * 1e3),
+         **summary)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1870,7 +2423,7 @@ def _full_depth_f32_gate(cfg, prompts, n_new=16):
     for impl in ("auto", "xla"):
         m.attn_impl = impl
         ssd_mod.launches = 0
-        res[impl] = _greedy_f32_cache(m, prompts, n_new)
+        res[impl] = _greedy_lockstep(m, prompts, n_new)
         fail_unless((ssd_mod.launches > 0) == (impl == "auto"),
                     f"ssm f32 gate: {impl} ran the SSD kernel "
                     f"{ssd_mod.launches} times")
@@ -1921,10 +2474,10 @@ def phase_parity_generate_ssm(model):
     m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
     prompts = rng.integers(0, cfg.vocab, (2, 300)).astype(np.int32)
     ssd_mod.launches = 0
-    lg, tg, _ = _greedy_f32_cache(m_gpu, prompts, 8)
+    lg, tg, _ = _greedy_lockstep(m_gpu, prompts, 8)
     fail_unless(ssd_mod.launches > 0, "ssm parity: the card's run went "
                                       "through the SSD kernel")
-    lc, tc, _ = _greedy_f32_cache(m_cpu.eval(), prompts, 8)
+    lc, tc, _ = _greedy_lockstep(m_cpu.eval(), prompts, 8)
     err = (lg - lc).abs().max().item()
     fail_unless(bool(torch.isfinite(lg).all()) and err <= LOGITS_TOL,
                 f"ssm depth-2 f32 prefill logits card vs CPU: {err}")
@@ -2045,6 +2598,7 @@ def main(argv: list[str]) -> int:
     phase_breakdown(cfg, model, x, peaks)
     del model, x
     attn = phase_attention(peaks)
+    spec_err, spec_main = phase_spec_chunk(peaks)
     phase_sampling_keys(get_config(ARCH).vocab)
     phase_serve_generate_smoke()
     gen_launches, lm = phase_serve_generate()
@@ -2056,7 +2610,11 @@ def main(argv: list[str]) -> int:
     phase_decode_graph(ARCH, lm.cfg, lm)
     phase_decode_graph(f"{ARCH}-paged", lm.cfg.replace(kv_block_size=PAGED_BS),
                        lm)
+    phase_parity_spec(lm)
+    phase_decode_graph_spec(lm)
     del lm
+    torch.cuda.empty_cache()
+    spec_launches = phase_serve_generate_spec()
     phase_serve_generate_sampled()
     ssd = phase_ssd(peaks)
     ssd_launches, ssm = phase_serve_generate_ssm()
@@ -2110,6 +2668,15 @@ def main(argv: list[str]) -> int:
             oracle="paged_decode_attention_shim (src/repro/kernels/"
                    "decode_attention.py:291): gather + decode_attention, "
                    "torch.equal in every paged case"),
+        dict(kernel_entry(
+            "decode_attention_chunk", "decode_attention.cu",
+            "src/repro/models/attention.py:446",
+            None, spec_launches["decode_attention_chunk"], spec_err,
+            spec_main),
+            note="the port's own entry on #2's body: no TPU kernel, the "
+                 "reference attends the verify chunk in einsum "
+                 "(chunk_attend); launches from serve_generate_spec",
+            single_query_launches_ms=spec_main["single_query_launches_ms"]),
         dict(kernel_entry("ssd_scan", "ssd_scan.cu",
                           "src/repro/kernels/ssd_scan.py:31",
                           "src/repro/kernels/ssd_scan.py:_ssd_kernel",

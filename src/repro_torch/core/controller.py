@@ -187,6 +187,60 @@ class AdmissionController:
         return AdmissionMiddleware(self)
 
 
+@dataclass
+class DraftDepthController:
+    """Energy-aware speculative-depth governor (closed-loop), the
+    reference's ``repro.core.controller.DraftDepthController``.
+
+    Picks the live draft depth ``d`` for the self-speculative decode
+    window by minimising MODELLED joules per emitted token:
+
+        cost(d)   = 1 + d * draft_cost / tau_scale
+        tokens(d) = 1 + p + p^2 + ... + p^d      (p = acceptance EWMA)
+        d*        = argmin_{1 <= d <= max_depth} cost(d) / tokens(d)
+
+    ``draft_cost`` is the shallow pass's relative price
+    (draft_layers / n_layers, the bandwidth-bound step model);
+    ``tau_scale`` is the brownout coupling the engine mirrors from the
+    admission controller — a shrunken basin (< 1) inflates the
+    perceived draft price.  Pure host-side arithmetic: the chosen depth
+    reaches the window as a device scalar, so moving it never recaptures
+    the window's CUDA graph."""
+    max_depth: int = 4
+    draft_cost: float = 0.25
+    alpha: float = 0.25              # acceptance EWMA smoothing
+    tau_scale: float = 1.0
+    acceptance: float = 0.5          # optimistic prior
+    n_proposed: int = field(default=0, init=False)
+    n_accepted: int = field(default=0, init=False)
+    history: list = field(default_factory=list, init=False)
+
+    def observe(self, accepted: int, proposed: int) -> None:
+        """Fold one window's draft outcomes into the acceptance EWMA."""
+        if proposed <= 0:
+            return
+        self.n_proposed += proposed
+        self.n_accepted += accepted
+        rate = accepted / proposed
+        self.acceptance += self.alpha * (rate - self.acceptance)
+        self.history.append((rate, self.acceptance))
+
+    def decide(self) -> int:
+        p = min(max(self.acceptance, 0.01), 0.99)
+        c = self.draft_cost / max(self.tau_scale, 1e-6)
+        best_d, best_j = 1, float("inf")
+        for d in range(1, max(self.max_depth, 1) + 1):
+            tokens = (1.0 - p ** (d + 1)) / (1.0 - p)
+            j = (1.0 + d * c) / tokens
+            if j < best_j:
+                best_d, best_j = d, j
+        return best_d
+
+    @property
+    def acceptance_rate(self) -> float:
+        return self.n_accepted / max(self.n_proposed, 1)
+
+
 def gate_batch(L: torch.Tensor, tau: torch.Tensor | float, *,
                E: float, C: float, cost: CostModel,
                rule: str = "le") -> torch.Tensor:

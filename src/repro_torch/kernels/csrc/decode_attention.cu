@@ -1,8 +1,14 @@
 // Flash-decode: one new token per slot against a contiguous or ring KV cache,
-// or against a shared paged block pool read in place through a block table.
+// or against a shared paged block pool read in place through a block table;
+// and n new tokens per slot against a contiguous cache (the speculative
+// verify chunk).
 //
 // Replaces the TPU kernels src/repro/kernels/decode_attention.py:_decode_kernel
 // (entry decode_attention) and :_paged_kernel (entry paged_decode_attention).
+// The chunk entry (decode_attention_chunk) is the port's own: the reference
+// attends the verify chunk in einsum (src/repro/models/attention.py:446); the
+// port runs it on this body so that row j of a chunk attends with the single
+// query's numerics.
 // q [B, H, hd], k/v [B, K, S, hd] (GQA: query head h reads kv head h / G,
 // G = H / K), kv_pos [B, S] int32 (absolute position held in each cache row,
 // -1 = empty), cur [B] int32 (the query's position) -> out [B, H, hd] in q's
@@ -46,6 +52,14 @@
 // out directly: one launch, no scratch.  Longer caches write each span's
 // (max, sum, acc) in f32 to scratch [B, H, spans, hd + 2] that the wrapper
 // allocates, and combine_kernel merges the spans in span order.
+//
+// The chunk: q [B, n, H, hd] and out [B, n, H, hd], cur = start [B], query
+// row j of slot b at position start[b] + j.  The grid runs over the B * n
+// query rows; a query row reads q, writes out (and its spans' scratch rows)
+// by its own index and k, v, kv_pos by its slot, and goes through the same
+// code as a single query at that position: row j of a chunk equals, byte for
+// byte, the single-query kernel at cur = start + j over the same cache.  Its
+// K/V rows are read once per query row, not shared across the n rows.
 //
 // Invariance: the span boundaries, the tiles and every sum's order are
 // functions of the logical row index alone, and a masked or absent row, a
@@ -112,9 +126,13 @@ struct DecodeArgs {
   int bs;
   int bs_shift;      // log2(bs) when bs is a power of two, else -1
   int64_t t_sb, t_sj;
-  // spans: 1 writes out directly; more write part [B, H, spans, hd + 2]
+  // spans: 1 writes out directly; more write part [rows, H, spans, hd + 2]
   int spans;
   float* part;
+  // query rows per slot: 1 (one token), or the chunk's n, with q and out
+  // stepping a slot's rows by q_sn / o_sn
+  int nq;
+  int64_t q_sn, o_sn;
 };
 
 template <typename T>
@@ -157,7 +175,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
   __shared__ float sm_l[kWarps][NH];
   __shared__ float sm_acc[kWarps][NH][kMaxHd];
 
-  const int b = blockIdx.x;
+  const int r = blockIdx.x;                   // query row: slot b, query j
+  const int b = r / a.nq;
+  const int jq = r - b * a.nq;
   const int kh = blockIdx.y;
   const int G = a.H / a.K;
   const int grp = blockIdx.z / a.spans;
@@ -170,9 +190,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
   const int sl = lane & 7;                    // lane within the subgroup
   const int hd = a.hd;
   const int nchunk = hd / VEC;
-  const int cur = a.cur[b];
+  const int cur = a.cur[b] + jq;
 
-  const TQ* qb = static_cast<const TQ*>(a.q) + b * a.q_sb;
+  const TQ* qb = static_cast<const TQ*>(a.q) + b * a.q_sb + jq * a.q_sn;
   const TKV* kb = static_cast<const TKV*>(a.k) + b * a.k_sb + kh * a.k_sh;
   const TKV* vb = static_cast<const TKV*>(a.v) + b * a.v_sb + kh * a.v_sh;
   const int32_t* pb = a.kv_pos + b * a.p_sb;
@@ -350,11 +370,11 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
     }
     const int h = kh * G + g0 + g;
     if (a.spans == 1) {
-      TQ* ob = static_cast<TQ*>(a.out) + b * a.o_sb;
+      TQ* ob = static_cast<TQ*>(a.out) + b * a.o_sb + jq * a.o_sn;
       store(ob + h * a.o_sh + d, num / fmaxf(sum, 1e-30f));
     } else {
       float* pp =
-          a.part + ((static_cast<int64_t>(b) * a.H + h) * a.spans + sp) *
+          a.part + ((static_cast<int64_t>(r) * a.H + h) * a.spans + sp) *
                        (hd + 2);
       pp[d] = num;
       if (d == 0) {
@@ -365,19 +385,22 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
   }
 }
 
-// merges the spans of one (slot, query head) in span order; a span with no
-// valid row (max -1e30, sum 0, acc 0) adds exactly 0
+// merges the spans of one (query row, query head) in span order; a span with
+// no valid row (max -1e30, sum 0, acc 0) adds exactly 0
 template <typename TQ>
 __global__ void __launch_bounds__(kCombineThreads)
     combine_kernel(const DecodeArgs a) {
-  const int b = blockIdx.x;
+  const int r = blockIdx.x;
+  const int b = r / a.nq;
+  const int jq = r - b * a.nq;
   const int h = blockIdx.y;
   const int hd = a.hd;
   const float* pp =
-      a.part + (static_cast<int64_t>(b) * a.H + h) * a.spans * (hd + 2);
+      a.part + (static_cast<int64_t>(r) * a.H + h) * a.spans * (hd + 2);
   float mx = kNeg;
   for (int sp = 0; sp < a.spans; ++sp) mx = fmaxf(mx, pp[sp * (hd + 2) + hd]);
-  TQ* ob = static_cast<TQ*>(a.out) + b * a.o_sb + h * a.o_sh;
+  TQ* ob =
+      static_cast<TQ*>(a.out) + b * a.o_sb + jq * a.o_sn + h * a.o_sh;
   for (int d = threadIdx.x; d < hd; d += kCombineThreads) {
     float sum = 0.0f, num = 0.0f;
     for (int sp = 0; sp < a.spans; ++sp) {
@@ -393,12 +416,13 @@ __global__ void __launch_bounds__(kCombineThreads)
 template <typename TQ, typename TKV, bool kPaged, int NH, int DPL>
 int launch_body(const DecodeArgs& a, int B, cudaStream_t stream) {
   const int G = a.H / a.K;
-  const dim3 grid(static_cast<unsigned>(B), static_cast<unsigned>(a.K),
+  const unsigned rows = static_cast<unsigned>(B) * static_cast<unsigned>(a.nq);
+  const dim3 grid(rows, static_cast<unsigned>(a.K),
                   static_cast<unsigned>((G + NH - 1) / NH * a.spans));
   decode_kernel<TQ, TKV, kPaged, NH, DPL><<<grid, kThreads, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.spans == 1) return static_cast<int>(err);
-  const dim3 cgrid(static_cast<unsigned>(B), static_cast<unsigned>(a.H));
+  const dim3 cgrid(rows, static_cast<unsigned>(a.H));
   combine_kernel<TQ><<<cgrid, kCombineThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -432,6 +456,7 @@ extern "C" int decode_attention_span_rows() { return kSpan; }
                  v_sb, v_sh, v_ss, p_sb, p_ss, o_sb, o_sh, scale, window};     \
     a.spans = spans;                                                           \
     a.part = static_cast<float*>(part);                                        \
+    a.nq = 1;                                                                  \
     return launch<TQ, TKV, false>(a, B, stream);                               \
   }
 
@@ -439,6 +464,35 @@ DECODE_ENTRY(decode_attention_f32_f32, float, float)
 DECODE_ENTRY(decode_attention_f32_bf16, float, __nv_bfloat16)
 DECODE_ENTRY(decode_attention_bf16_f32, __nv_bfloat16, float)
 DECODE_ENTRY(decode_attention_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
+
+// the verify chunk: q / out [B, n, H, hd] with strides (q_sb, q_sn, q_sh, 1)
+// and (o_sb, o_sn, o_sh, 1), start [B]: query row j of slot b at position
+// start[b] + j; part [B * n, H, spans, hd + 2] when spans > 1
+#define CHUNK_ENTRY(NAME, TQ, TKV)                                             \
+  extern "C" int NAME(const void* q, const void* k, const void* v,             \
+                      const void* kv_pos, const void* start, void* out, int B, \
+                      int n, int H, int K, int S, int hd, int64_t q_sb,        \
+                      int64_t q_sn, int64_t q_sh, int64_t k_sb, int64_t k_sh,  \
+                      int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,  \
+                      int64_t p_sb, int64_t p_ss, int64_t o_sb, int64_t o_sn,  \
+                      int64_t o_sh, float scale, int window, int spans,        \
+                      void* part, void* stream) {                              \
+    DecodeArgs a{q,    k,    v,    static_cast<const int32_t*>(kv_pos),        \
+                 static_cast<const int32_t*>(start),                           \
+                 out,  H,    K,    S,    hd,   q_sb, q_sh, k_sb, k_sh, k_ss,   \
+                 v_sb, v_sh, v_ss, p_sb, p_ss, o_sb, o_sh, scale, window};     \
+    a.spans = spans;                                                           \
+    a.part = static_cast<float*>(part);                                        \
+    a.nq = n;                                                                  \
+    a.q_sn = q_sn;                                                             \
+    a.o_sn = o_sn;                                                             \
+    return launch<TQ, TKV, false>(a, B, stream);                               \
+  }
+
+CHUNK_ENTRY(decode_attention_chunk_f32_f32, float, float)
+CHUNK_ENTRY(decode_attention_chunk_f32_bf16, float, __nv_bfloat16)
+CHUNK_ENTRY(decode_attention_chunk_bf16_f32, __nv_bfloat16, float)
+CHUNK_ENTRY(decode_attention_chunk_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
 
 // k/v: the pool [NB, bs, K, hd] with strides (bs * k_srow, k_srow, k_sh, 1)
 // (blocks back to back) and NB * bs < 2^31; tbl [B, MB] with strides
@@ -485,6 +539,7 @@ DECODE_ENTRY(decode_attention_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
     a.t_sj = t_sj;                                                             \
     a.spans = spans;                                                           \
     a.part = static_cast<float*>(part);                                        \
+    a.nq = 1;                                                                  \
     return launch<TQ, TKV, true>(a, B, stream);                                \
   }
 

@@ -52,6 +52,23 @@ in a mostly empty cache of many spans give the same bytes too
 not range-checked on the card (that would cost a host sync): the
 allocator keeps them in range, and the plain version raises on one
 that is not.
+
+``decode_attention_chunk(q, k, v, kv_pos, start, window=)``: n new
+tokens per slot against a contiguous cache, the speculative verify
+chunk: q [B,n,H,hd]; k/v [B,K,S,hd]; kv_pos [B,S]; start [B] int32 ->
+[B,n,H,hd], query row j of slot b at position ``start[b] + j``.  The
+reference has no kernel here (its ``chunk_attend`` is einsum); this
+entry is the port's own, on the same body as ``decode_attention``, so
+that the verify attends with step decode's numerics:
+
+  - on CUDA tensors it launches the body over the B * n query rows,
+    each row through the same code as a single query at its position,
+    so row j equals ``decode_attention_cuda`` at ``cur = start + j``
+    over the same cache byte for byte; it adds one to
+    ``chunk_launches`` per call (and one to ``combine_launches`` when
+    the span merge runs);
+  - on CPU tensors it runs ``decode_attention_chunk_plain``:
+    ``decode_attention_plain`` over the B * n query rows.
 """
 from __future__ import annotations
 
@@ -65,15 +82,17 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.runtime import check_kernel_tensors
 
-# kernel calls since the last reset, contiguous and paged (a split call
-# counts once), and launches of the span merge; ``chip_smoke.py`` zeroes
+# kernel calls since the last reset, contiguous, paged and chunk (a split
+# call counts once), and launches of the span merge; ``chip_smoke.py`` zeroes
 # them before it drives the main path and reads them after.  A CUDA graph
 # made by ``kernels.graphs.CountedGraph`` adds its launches at every
 # replay.
 launches = 0
 paged_launches = 0
+chunk_launches = 0
 combine_launches = 0
-COUNTERS = ("launches", "paged_launches", "combine_launches")
+COUNTERS = ("launches", "paged_launches", "chunk_launches",
+            "combine_launches")
 
 SPAN = 1024              # logical rows per span: kSpan of the CUDA source
 
@@ -165,6 +184,12 @@ def _library() -> ctypes.CDLL:
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                               ctypes.c_void_p, ctypes.c_void_p])
             fn.restype = ctypes.c_int
+            fn = getattr(lib, f"decode_attention_chunk_{tq}_{tkv}")
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                           + [ctypes.c_int64] * 14
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
     lib.decode_attention_error_string.argtypes = [ctypes.c_int]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
     lib.decode_attention_span_rows.restype = ctypes.c_int
@@ -175,6 +200,37 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _check_contiguous_args(what, q, k, v, kv_pos, cur_pos, window,
+                           q_dims: int) -> None:
+    """The contiguous entries' checks: q [B,H,hd] (``q_dims`` 3) or
+    [B,n,H,hd] (4) against k/v [B,K,S,hd], kv_pos [B,S], cur_pos or
+    start [B]."""
+    check_kernel_tensors(what, {"q": q, "k": k, "v": v}, dtypes=_TYPES,
+                         align=True)
+    _check_rows16(what, {"k": k, "v": v})
+    check_kernel_tensors(what, {"kv_pos": kv_pos, "cur_pos": cur_pos},
+                         dtypes={torch.int32}, align=False, device=q.device)
+    shape = "[B,H,hd]" if q_dims == 3 else "[B,n,H,hd]"
+    if q.dim() != q_dims or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{what} needs q {shape} and k/v [B,K,S,hd], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    K, S = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or K == 0 or H % K:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do "
+                         f"not agree on batch, head_dim or heads (H % K)")
+    if tuple(kv_pos.shape) != (B, S) or tuple(cur_pos.shape) != (B,):
+        raise ValueError(f"kv_pos must be [B,S] = {(B, S)} and the "
+                         f"positions [B], got {tuple(kv_pos.shape)}, "
+                         f"{tuple(cur_pos.shape)}")
+    if hd % 8 or not 0 < hd <= 256:
+        raise ValueError(f"head_dim must be a multiple of 8 in [8, 256], "
+                         f"got {hd}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+
+
 def decode_attention_cuda(q, k, v, kv_pos, cur_pos, *,
                           window: int = 0) -> torch.Tensor:
     """The CUDA kernel; raises unless every tensor lies on one sm_90
@@ -183,30 +239,10 @@ def decode_attention_cuda(q, k, v, kv_pos, cur_pos, *,
     and cur_pos are int32, hd is a multiple of 8 up to 256 and H a
     multiple of K."""
     global launches, combine_launches
-    check_kernel_tensors("decode attention", {"q": q, "k": k, "v": v},
-                         dtypes=_TYPES, align=True)
-    _check_rows16("decode attention", {"k": k, "v": v})
-    check_kernel_tensors("decode attention",
-                         {"kv_pos": kv_pos, "cur_pos": cur_pos},
-                         dtypes={torch.int32}, align=False, device=q.device)
-    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"decode attention needs q [B,H,hd] and k/v "
-                         f"[B,K,S,hd], got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    _check_contiguous_args("decode attention", q, k, v, kv_pos, cur_pos,
+                           window, 3)
     B, H, hd = q.shape
     K, S = k.shape[1], k.shape[2]
-    if k.shape[0] != B or k.shape[3] != hd or K == 0 or H % K:
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do "
-                         f"not agree on batch, head_dim or heads (H % K)")
-    if tuple(kv_pos.shape) != (B, S) or tuple(cur_pos.shape) != (B,):
-        raise ValueError(f"kv_pos must be [B,S] = {(B, S)} and cur_pos "
-                         f"[B], got {tuple(kv_pos.shape)}, "
-                         f"{tuple(cur_pos.shape)}")
-    if hd % 8 or not 0 < hd <= 256:
-        raise ValueError(f"head_dim must be a multiple of 8 in [8, 256], "
-                         f"got {hd}")
-    if window < 0:
-        raise ValueError(f"window must be >= 0, got {window}")
     cur_pos = cur_pos.contiguous()
     out = torch.empty(B, H, hd, dtype=q.dtype, device=q.device)
     if B == 0 or H == 0:
@@ -240,6 +276,74 @@ def decode_attention(q, k, v, kv_pos, cur_pos, *,
         return decode_attention_plain(q, k, v, kv_pos, cur_pos,
                                       window=window)
     return decode_attention_cuda(q, k, v, kv_pos, cur_pos, window=window)
+
+
+# ---------------------------------------------------------------------------
+# the verify chunk: n query rows per slot
+# ---------------------------------------------------------------------------
+
+def chunk_positions(start: torch.Tensor, n: int) -> torch.Tensor:
+    """[B, n] int32: query row j of slot b sits at ``start[b] + j``."""
+    return (start.long()[:, None]
+            + torch.arange(n, device=start.device)).to(torch.int32)
+
+
+def decode_attention_chunk_plain(q, k, v, kv_pos, start, *,
+                                 window: int = 0) -> torch.Tensor:
+    """q [B,n,H,hd]; k/v [B,K,S,hd]; kv_pos [B,S]; start [B] ->
+    [B,n,H,hd]: ``decode_attention_plain`` over the B * n query rows,
+    each with its slot's cache and its own position."""
+    B, n, H, hd = q.shape
+    cur = chunk_positions(start, n).reshape(B * n)
+    o = decode_attention_plain(
+        q.reshape(B * n, H, hd), k.repeat_interleave(n, dim=0),
+        v.repeat_interleave(n, dim=0), kv_pos.repeat_interleave(n, dim=0),
+        cur, window=window)
+    return o.reshape(B, n, H, hd)
+
+
+def decode_attention_chunk_cuda(q, k, v, kv_pos, start, *,
+                                window: int = 0) -> torch.Tensor:
+    """The CUDA kernel over the B * n query rows; raises as
+    ``decode_attention_cuda`` does (q [B,n,H,hd]; start [B] int32)."""
+    global chunk_launches, combine_launches
+    _check_contiguous_args("decode attention chunk", q, k, v, kv_pos, start,
+                           window, 4)
+    B, n, H, hd = q.shape
+    K, S = k.shape[1], k.shape[2]
+    start = start.contiguous()
+    out = torch.empty(B, n, H, hd, dtype=q.dtype, device=q.device)
+    if B == 0 or n == 0 or H == 0:
+        return out
+    lib = _library()
+    fn = getattr(lib, f"decode_attention_chunk_{_TYPES[q.dtype]}_"
+                      f"{_TYPES[k.dtype]}")
+    plan = decode_span_plan(B * n, H, S, hd)
+    part = _scratch(plan, q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 kv_pos.data_ptr(), start.data_ptr(), out.data_ptr(),
+                 B, n, H, K, S, hd, *q.stride()[:3], *k.stride()[:3],
+                 *v.stride()[:3], *kv_pos.stride(), *out.stride()[:3],
+                 1.0 / math.sqrt(hd), int(window), plan.spans,
+                 None if part is None else part.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"decode attention chunk kernel launch failed: "
+                           f"{lib.decode_attention_error_string(err).decode()}")
+    chunk_launches += 1
+    combine_launches += plan.combine
+    return out
+
+
+def decode_attention_chunk(q, k, v, kv_pos, start, *,
+                           window: int = 0) -> torch.Tensor:
+    """The CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if q.device.type == "cpu":
+        return decode_attention_chunk_plain(q, k, v, kv_pos, start,
+                                            window=window)
+    return decode_attention_chunk_cuda(q, k, v, kv_pos, start, window=window)
 
 
 # ---------------------------------------------------------------------------

@@ -13,9 +13,10 @@ Dispatch policy (``impl=``), the port of ``repro.kernels.ops``:
 
 ``entropy_stats`` carries the classify path; ``flash_attention`` (every
 prefill) and ``decode_attention`` (every decode step) carry the
-generate path, and ``paged_decode_attention`` every decode step over
-the paged pool; ``ssd_scan`` and ``ssd_chunked`` every prefill of an
-SSD (Mamba-2) stack.
+generate path, ``paged_decode_attention`` every decode step over
+the paged pool, and ``decode_attention_chunk`` (the port's own entry on
+the flash-decode body) every speculative verify chunk; ``ssd_scan``
+and ``ssd_chunked`` every prefill of an SSD (Mamba-2) stack.
 """
 from __future__ import annotations
 
@@ -67,6 +68,21 @@ def decode_attention(q, k, v, kv_pos, cur_pos, *, window=0,
         return _da.decode_attention_cuda(q, k, v, kv_pos, cur_pos,
                                          window=window)
     return _da.decode_attention(q, k, v, kv_pos, cur_pos, window=window)
+
+
+def decode_attention_chunk(q, k, v, kv_pos, start, *, window=0,
+                           impl: str = "auto"):
+    """q [B,n,H,hd]; k/v [B,K,S,hd]; kv_pos [B,S]; start [B] ->
+    [B,n,H,hd]: n query rows per slot at positions start .. start+n-1,
+    each attending as ``decode_attention`` at its own position."""
+    _check(impl)
+    if impl == "ref":
+        return _da.decode_attention_chunk_plain(q, k, v, kv_pos, start,
+                                                window=window)
+    if impl == "cuda":
+        return _da.decode_attention_chunk_cuda(q, k, v, kv_pos, start,
+                                               window=window)
+    return _da.decode_attention_chunk(q, k, v, kv_pos, start, window=window)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, kv_pos, cur_pos,

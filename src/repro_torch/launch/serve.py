@@ -43,9 +43,14 @@ every slot, prefill runs the CUDA SSD scan kernel in every layer and a
 decode step updates the state in place.  ``--temperature T`` (with
 ``--top-k`` and ``--top-p``) samples every token from the reference's
 (seed, request, position)-folded threefry keys; ``--temperature 0`` (the
-default) is greedy, byte for byte the argmax path.  On the card every
-decode window after a session's first of its kind is the replay of one
-CUDA graph.
+default) is greedy, byte for byte the argmax path.  ``--draft-depth D``
+decodes self-speculatively: each window step drafts D tokens through
+the first ``--draft-layers`` layers (0: ``n_layers - 1``) and verifies
+them in one full-model chunk, the emitted tokens those of the
+non-speculative path; the summary gains ``acceptance_rate``,
+``accepted_per_step``, ``energy_per_token_model`` and
+``draft_depth_live``.  On the card every decode window after a
+session's first of its kind is the replay of one CUDA graph.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode generate
     PYTHONPATH=src python -m repro_torch.launch.serve --mode generate \
@@ -58,6 +63,8 @@ CUDA graph.
         --mode generate --arch mamba2-780m --smoke --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --mode generate --smoke --temperature 0.8 --top-k 50
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mode generate --smoke --draft-depth 2
 """
 from __future__ import annotations
 
@@ -230,20 +237,25 @@ def serve_classifier(args):
 
 GEN_MAX_SEQ = 128      # the reference launcher's decode pool extent
 GEN_PROMPT_LEN = 16
-# the session's stats carried into the summary (the paged ones when paged)
+# the session's stats carried into the summary (the paged ones when paged,
+# the speculative ones when speculative: ref launch/serve.py:446-458)
 DECODE_STATS = ("mode", "decode_steps", "occupancy", "host_syncs",
                 "prefill_calls", "device_s", "prefill_s", "window",
                 "window_issue_s", "capture_s", "captures", "pool_blocks",
                 "blocks_allocated", "blocks_freed", "peak_blocks_in_use",
-                "free_blocks")
+                "free_blocks", "draft_layers", "spec_proposed",
+                "spec_accepted", "acceptance_rate", "accepted_per_step",
+                "energy_per_token_model", "draft_depth_live")
 
 
 def generate_config(args):
     """``--arch`` at published width (``--smoke``: its smoke config),
     depth cut by ``--layers``, attention dispatch ``--attn-impl``, the
-    KV layout ``--kv-block-size`` / ``--kv-pool-blocks``, and the
-    engine's sampling defaults ``--temperature`` / ``--top-k`` /
-    ``--top-p`` (the reference's ``_apply_sampling_cfg``)."""
+    KV layout ``--kv-block-size`` / ``--kv-pool-blocks``, the engine's
+    sampling defaults ``--temperature`` / ``--top-k`` / ``--top-p`` and
+    the draft prefix ``--draft-layers``, which ``--draft-depth`` > 0
+    with ``--draft-layers 0`` resolves to ``n_layers - 1`` (the
+    reference's ``_apply_sampling_cfg``)."""
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     cfg = cfg.replace(attn_impl=args.attn_impl,
                       kv_block_size=args.kv_block_size,
@@ -252,7 +264,11 @@ def generate_config(args):
                       sample_top_k=args.top_k, sample_top_p=args.top_p)
     if args.layers is not None:
         cfg = cfg.replace(n_layers=args.layers)
-    return cfg
+    draft_layers = args.draft_layers
+    if args.draft_depth > 0 and draft_layers == 0:
+        # auto: the deepest shallow-exit prefix the stack allows
+        draft_layers = max(cfg.n_layers - 1, 1)
+    return cfg.replace(draft_layers=draft_layers)
 
 
 def serve_generate(args):
@@ -262,7 +278,8 @@ def serve_generate(args):
     cfg = generate_config(args)
     model = tfm.init_lm(cfg, args.seed, device=device)
     engine = ContinuousBatchingEngine(cfg, model, n_slots=args.slots,
-                                     max_seq=GEN_MAX_SEQ, device=device)
+                                     max_seq=GEN_MAX_SEQ, device=device,
+                                     draft_depth=args.draft_depth)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab, size=(args.requests,
                                                GEN_PROMPT_LEN)
@@ -301,6 +318,7 @@ def serve_generate(args):
         device=(torch.cuda.get_device_name(device)
                 if device.type == "cuda" else "cpu"),
         n_layers=cfg.n_layers, d_model=cfg.d_model, slots=args.slots,
+        temperature=args.temperature, draft_depth=args.draft_depth,
         tokens_generated=sum(len(r.output) for r in responses
                              if isinstance(r.output, list)),
         p50_latency_ms=float(np.percentile(lat, 50)) * 1e3,
@@ -347,6 +365,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="generate mode: nucleus sampling mass "
                          "(1.0 = no cap)")
+    ap.add_argument("--draft-depth", type=int, default=0,
+                    help="generate mode: self-speculative decode — "
+                         "draft up to this many tokens per step with "
+                         "a shallow prefix of the model, verify them in "
+                         "one full-model pass (0 = off)")
+    ap.add_argument("--draft-layers", type=int, default=0,
+                    help="layers in the shallow-exit draft prefix "
+                         "(0 = auto n_layers-1 when --draft-depth>0)")
     ap.add_argument("--path",
                     choices=["direct", "batched", "dynamic-batch",
                              "gated", "gated-in-graph", "auto"],

@@ -299,6 +299,69 @@ def decode_attend(q: torch.Tensor, cache: KVCache, *, pos,
     return attend(q, cache.k, cache.v, bias, scale)
 
 
+def cache_write_chunk(cache: KVCache, k_new: torch.Tensor,
+                      v_new: torch.Tensor, start) -> KVCache:
+    """Write S tokens per row at per-row absolute ``start`` positions
+    WITHOUT ring wrap-around, IN PLACE, and return ``cache`` (the
+    speculative write, ref ``attention.py:423-443``).
+
+    Rows past the cache extent are CLAMPED onto the last row C-1
+    instead of wrapping modulo C, so a chunk issued near the ``max_seq``
+    stop never overwrites a slot's early prompt rows.  The spill row's
+    ``pos`` lands >= C-1, and the engine's emission guard keeps every
+    emitted query position < C-1, so it is never attended.  Several
+    chunk rows may clamp onto C-1: the LAST of them wins, as in the
+    reference's scatter, and every write to that row carries the last
+    row's values, so the result does not hang on the order in which the
+    card applies a scatter with repeated indices."""
+    B, C = cache.k.shape[:2]
+    S = k_new.shape[1]
+    dev = cache.k.device
+    start = torch.as_tensor(start, device=dev).long().expand(B)
+    steps = torch.arange(S, device=dev)
+    posm = start[:, None] + steps[None, :]                      # [B, S]
+    idx = posm.clamp(max=C - 1)
+    src = torch.where(idx == C - 1, S - 1, steps[None, :])      # the winner
+    b = torch.arange(B, device=dev)[:, None]
+    cache.k[b, idx] = k_new[b, src].to(cache.k.dtype)
+    cache.v[b, idx] = v_new[b, src].to(cache.v.dtype)
+    cache.pos[b, idx] = posm[b, src].to(torch.int32)
+    return cache
+
+
+def chunk_attend(q: torch.Tensor, cache: KVCache, *, qpos,
+                 window: int = 0, scale: float | None = None):
+    """Multi-token decode attention on the einsum path (the speculative
+    verify step, ref ``attention.py:446-461``): q [B, S, H, hd] with
+    per-query absolute positions ``qpos`` [B, S]; the validity rule is
+    :func:`decode_attend`'s per query row, so at S == 1 this is
+    ``decode_attend``."""
+    qpos = torch.as_tensor(qpos, device=q.device)
+    k_pos = cache.pos[:, None, :]                               # [B,1,C]
+    valid = (k_pos >= 0) & (k_pos <= qpos[..., None])
+    if window:
+        valid = valid & (qpos[..., None] - k_pos < window)
+    bias = torch.where(valid, 0.0, NEG_INF).float()[:, None, None]
+    return attend(q, cache.k, cache.v, bias, scale)
+
+
+def chunk_attend_kernel(q, cache: KVCache, *, start, window: int = 0,
+                        impl: str = "auto") -> torch.Tensor:
+    """The verify chunk through ``ops.decode_attention_chunk``: q
+    [B,S,H,hd], query row j of slot b at ``start[b] + j``, against the
+    cache read in place; on the card the flash-decode body attends each
+    row as a single query at its position.  Same validity rule as
+    :func:`chunk_attend`."""
+    from repro_torch.kernels import ops
+    B = q.shape[0]
+    st = torch.as_tensor(start, device=q.device)
+    if st.dtype != torch.int32 or st.dim() == 0:
+        st = st.to(torch.int32).expand(B).contiguous()
+    return ops.decode_attention_chunk(q, cache.k.transpose(1, 2),
+                                      cache.v.transpose(1, 2), cache.pos, st,
+                                      window=window, impl=impl)
+
+
 # ---------------------------------------------------------------------------
 # the paged pool (ref attention.py:343-421)
 # ---------------------------------------------------------------------------

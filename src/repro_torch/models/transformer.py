@@ -13,6 +13,9 @@ code, as in the reference:
   - ``prefill``      full sequence, writes the decode cache
   - ``decode_step``  one token per row against the cache, at a scalar
                      position (lockstep) or a [B] one (continuous)
+  - ``decode_chunk`` n tokens per row at per-row positions, written
+                     without ring wrap (the speculative verify, and the
+                     draft's steps through ``draft_prefix``)
 
 Attention dispatch (``attn_impl``, the reference's
 ``transformer.py:294-296`` rule): on a CUDA tensor ``"auto"`` takes the
@@ -21,7 +24,11 @@ flash-decode for a decode step), which raise on a card that is not
 sm_90; on a CPU tensor ``"auto"`` takes the model's einsum path,
 bitwise equal to ``"xla"``, as the reference does off the TPU;
 ``"ref"`` takes the kernels' plain versions and ``"cuda"`` forces the
-kernels.  A prefix-LM batch would stay on the einsum path.  The same
+kernels.  A verify chunk takes the flash-decode body's chunk entry on
+the card, each query row attending as a decode step at its position,
+and ``chunk_attend`` on the einsum path (the reference's, which off the
+TPU shares step decode's numerics).  A prefix-LM batch would stay on
+the einsum path.  The same
 field and rule route an SSD stack's chunked scan (prefill and forward):
 the CUDA SSD kernel on the card, the model's own chunked algorithm on
 the CPU under ``"auto"`` and ``"xla"``; a decode step's single-step
@@ -44,10 +51,11 @@ state, as the reference's ``full`` mode.
 
 Not in this slice, and raising with the slice that brings them: MLA
 and RG-LRU layers, mixed stacks, MoE, encoder-decoder and prefix-LM
-models (the model-families slice), and ``decode_chunk`` (the
-speculative-decoding slice).
+models (the model-families slice).
 """
 from __future__ import annotations
+
+import copy
 
 import torch
 from torch import nn
@@ -60,7 +68,6 @@ from repro_torch.models import ssd
 from repro_torch.models.nn import param
 
 FAMILIES_SLICE = "the model-families slice (ROADMAP queue 1 item 12)"
-SPEC_SLICE = "the speculation slice (ROADMAP queue 1 item 9)"
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -286,7 +293,9 @@ class LM(nn.Module):
         """Temporal mixing: projections, rotary, attention through the
         kernels or the einsum path, and the cache write (into the paged
         pool through ``table`` at the step's ``rows`` when they are
-        given; the step has written ``pos`` already)."""
+        given; the step has written ``pos`` already).  ``chunk`` mode
+        writes S rows per slot from ``cur`` without ring wrap; one row
+        attends as a decode step, more through the chunk entry."""
         cfg, p = self.cfg, layer.mix
         q, k, v = attn.project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads,
                                    cfg.head_dim)
@@ -303,6 +312,18 @@ class LM(nn.Module):
                 o = attn.causal_attention(q, k, v, window=self.window)
             if mode == "prefill":
                 attn.cache_write(kv, k, v, 0)
+        elif mode == "chunk":
+            attn.cache_write_chunk(kv, k, v, cur)
+            if kernel and x.shape[1] == 1:
+                o = attn.decode_attend_kernel(q, kv, pos=cur,
+                                              window=self.window,
+                                              impl=self.attn_impl)
+            elif kernel:
+                o = attn.chunk_attend_kernel(q, kv, start=cur,
+                                             window=self.window,
+                                             impl=self.attn_impl)
+            else:
+                o = attn.chunk_attend(q, kv, qpos=pos, window=self.window)
         elif table is not None:
             attn.paged_write_rows(kv.k, kv.v, k, v, rows)
             if kernel:
@@ -406,13 +427,61 @@ class LM(nn.Module):
                         rope=self._rope(positions), pos=pos, cur=cur)
         return self.unembed(h), cache
 
+    @torch.no_grad()
     def decode_chunk(self, tokens, cache: Cache, pos):
-        if cache is not None and cache.block_table is not None:
+        """Multi-token decode, the speculative-verify primitive (ref
+        ``transformer.py:639-670``): ``tokens`` [B, n] are consumed at
+        per-row absolute positions ``pos[b] .. pos[b]+n-1`` in ONE pass
+        with causal intra-chunk attention, written by
+        ``cache_write_chunk`` (clamped at the cache's last row, never
+        wrapped); returns (logits [B, n, V], cache).  Row j's logits
+        condition on what a decode step at ``pos + j`` would see.
+        Contiguous homogeneous attention stacks only.  At n = 1 it is a
+        decode step whose write does not wrap: the speculative window's
+        draft steps."""
+        cfg = self.cfg
+        kinds = set(cfg.block_kinds)
+        if not kinds <= {"attn", "local_attn"} or cfg.family == "encdec":
+            raise ValueError(
+                f"decode_chunk needs a pure attention stack (attn / "
+                f"local_attn); got kinds={sorted(kinds)} family={cfg.family}")
+        if cache is None:
+            raise ValueError("decode_chunk writes a decode cache; got None")
+        if cache.block_table is not None:
             raise ValueError(
                 "decode_chunk supports the contiguous KV layout only; run "
                 "the paged pool with draft_depth == 0")
-        raise NotImplementedError(f"decode_chunk (the speculative verify "
-                                  f"step) comes with {SPEC_SLICE}")
+        tokens = self._tokens(tokens)
+        B, n = tokens.shape
+        start = torch.as_tensor(pos, device=self.device).long().expand(B)
+        positions = start[:, None] + torch.arange(n, device=self.device)
+        h = self.embed(tokens)
+        h = self._stack(h, mode="chunk", cache=cache,
+                        rope=self._rope(positions), pos=positions,
+                        cur=start.to(torch.int32))
+        cache.length = start.max() + n
+        return self.unembed(h), cache
+
+    def draft_prefix(self, n: int) -> "LM":
+        """The self-speculative draft (ref ``transformer.py:673-690``):
+        an ``LM`` over the FIRST ``n`` layers of this homogeneous stack,
+        sharing the embedding, final norm and unembedding (shallow exit).
+        No weight is copied: the view holds the same parameter tensors,
+        and it runs against the full model's cache, whose first ``n``
+        layers it reads and writes."""
+        cfg = self.cfg
+        if not cfg.homogeneous:
+            raise ValueError(
+                "self-speculative drafting slices a layer prefix, which "
+                "needs a homogeneous stack")
+        if not 0 < n < cfg.n_layers:
+            raise ValueError(
+                f"draft prefix must satisfy 0 < n < n_layers, got n={n} "
+                f"with n_layers={cfg.n_layers}")
+        view = copy.copy(self)
+        view._modules = dict(self._modules)
+        view.layers = nn.ModuleList(self.layers[:n])
+        return view
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:

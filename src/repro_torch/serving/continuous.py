@@ -1,7 +1,7 @@
 """Continuous batching for LM decode, ported from
 ``repro.serving.continuous`` (the contiguous KV layout, the paged
-block pool and the recurrent state of an SSD stack; sampling; the
-legacy per-step loop; no speculation).
+block pool and the recurrent state of an SSD stack; sampling;
+self-speculative windows; the legacy per-step loop).
 
 A fixed pool of B slots over one shared KV cache; every decode step
 advances ALL slots (each at its own absolute position, the decoder's
@@ -72,11 +72,32 @@ Invariants, as the reference's:
   per-step host loop (``_serve_legacy``): a batch-1 prefill per
   request, one host sync per step.  It is the third parity path, held
   against the window; contiguous and SSD stacks only, as the reference
-  refuses paged configs.
+  refuses paged configs.  It steps the full model one token at a time
+  whatever ``draft_depth`` is, as the reference's does.
+- **Self-speculative windows (``draft_depth`` D > 0).**  Each of the
+  window's ``sync_every`` macro-steps drafts D tokens through the first
+  ``cfg.draft_layers`` layers (``draft_prefix``), verifies ``[tok,
+  drafts]`` in one full-model ``decode_chunk``, and emits the longest
+  accepted prefix plus the full model's own next token, every emitted
+  token the full model's sample under the same position-folded key, so
+  the stream equals the non-speculative one (ref
+  ``continuous.py:427-518``).  The live depth (``current_depth``, the
+  ``DraftDepthController``'s choice) caps acceptance only: it reaches
+  the window as the session's ``depth_cap`` device scalar, written
+  before each window, so moving it never recaptures the graph; the
+  window always drafts D steps, as the reference's.  The reference
+  drafts on a sliced scratch copy of the first layers' cache and
+  discards it; the port drafts IN PLACE with ``decode_chunk``'s
+  clamped, non-wrapping write: every row a draft writes (``pos ..
+  pos+D-1``, clamped at C-1) is rewritten by the verify (``pos ..
+  pos+D``, clamped), and a draft row whose position is >= C-1 feeds
+  only drafts that are never emitted or compared, so tokens and stats
+  equal the reference's on the contiguous full-attention stack.  (On a
+  windowed ring cache the reference's scratch draft wraps where the
+  port's clamps: its drafts, and so its acceptance, may differ there.)
+  Paged and SSD engines refuse D > 0 with the reference's errors.
 
-Not in this slice: ``insert_prefilled`` (the disaggregated hand-off)
-and self-speculative windows; a configuration that asks for one of
-them raises.
+Not in this slice: ``insert_prefilled`` (the disaggregated hand-off).
 """
 from __future__ import annotations
 
@@ -87,7 +108,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.controller import AdmissionController
+from repro_torch.core.controller import (AdmissionController,
+                                         DraftDepthController)
 from repro_torch.kernels.graphs import CountedGraph
 from repro_torch.kernels.runtime import resolve_device, synchronize
 from repro_torch.models import transformer as tfm
@@ -341,18 +363,49 @@ class ContinuousBatchingEngine:
     n_slots: int = 8
     max_seq: int = 256
     controller: AdmissionController | None = None
-    sync_every: int = 8              # decode steps per host sync
-    draft_depth: int = 0             # speculation: not in this slice
+    sync_every: int = 8              # decode (macro-)steps per host sync
+    # self-speculative decoding: > 0 makes each window step a macro-step
+    # that drafts ``draft_depth`` tokens through the first
+    # ``cfg.draft_layers`` layers and verifies them in one full-model
+    # chunk.  The draft depth is the CEILING; the live depth (the session's
+    # ``depth_cap`` device scalar) is the energy lever ``spec_controller``
+    # moves with no new capture
+    draft_depth: int = 0
     device: str | torch.device = "cuda"
     capture: bool | str = "auto"     # the decode window as a CUDA graph
+    spec_controller: DraftDepthController | None = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.sync_every = max(int(self.sync_every), 1)
-        if self.draft_depth != 0:
-            raise NotImplementedError(
-                f"draft_depth={self.draft_depth}: self-speculative decoding "
-                f"comes with {tfm.SPEC_SLICE}")
+        cfg = self.cfg
+        # the reference's checks, in its order (ref continuous.py:339-364)
+        if self.draft_depth < 0:
+            raise ValueError(
+                f"draft_depth must be >= 0, got {self.draft_depth}")
+        if self.draft_depth > 0:
+            if cfg.paged_kv:
+                raise ValueError(
+                    "self-speculative decoding serves the contiguous "
+                    "KV layout only (the verify chunk is a multi-row "
+                    "scatter the paged pool cannot express); set "
+                    "draft_depth=0 for paged engines")
+            if cfg.draft_layers <= 0:
+                raise ValueError(
+                    "draft_depth > 0 needs cfg.draft_layers in "
+                    "[1, n_layers) — the draft is a shallow prefix of "
+                    "the same stack")
+            kinds = set(cfg.block_kinds)
+            if not kinds <= {"attn", "local_attn"} \
+                    or cfg.family == "encdec":
+                raise ValueError(
+                    f"self-speculative decoding needs a pure attention "
+                    f"stack; got kinds={sorted(kinds)} "
+                    f"family={cfg.family}")
+            if self.spec_controller is None:
+                self.spec_controller = DraftDepthController(
+                    max_depth=self.draft_depth,
+                    draft_cost=cfg.draft_layers / cfg.n_layers)
         tfm.check_supported(self.cfg)
         if self.capture == "auto":
             self.graphed = self.device.type == "cuda"
@@ -369,6 +422,9 @@ class ContinuousBatchingEngine:
         # windows captured, by kind, over every session of this engine
         self.decode_captures = {"greedy": 0, "sampled": 0}
         self.params = self.params.to(self.device).eval()
+        # the draft: a view over the first draft_layers layers, no copy
+        self.draft = (self.params.draft_prefix(cfg.draft_layers)
+                      if self.draft_depth > 0 else None)
         self.paged = self.cfg.paged_kv
         if self.paged:
             tfm._check_paged_supported(self.cfg)
@@ -392,6 +448,25 @@ class ContinuousBatchingEngine:
                               top_k=self.cfg.sample_top_k,
                               top_p=self.cfg.sample_top_p,
                               seed=self.cfg.sampling_seed)
+
+    def current_depth(self) -> int:
+        """Live speculative depth for the next window: the
+        spec_controller's energy-aware choice, clamped into
+        [1, draft_depth] (the captured ceiling); ref
+        ``continuous.py:543-559``."""
+        if self.draft_depth <= 0:
+            return 0
+        if self.spec_controller is None:
+            return self.draft_depth
+        if self.controller is not None:
+            # brownout / admission pressure couples in: a shrunken
+            # admission basin inflates the perceived draft cost
+            self.spec_controller.tau_scale = self.controller.tau_scale
+        d = self.spec_controller.decide()
+        d = max(1, min(int(d), self.draft_depth))
+        if self.controller is not None:
+            self.controller.draft_depth_norm = d / self.draft_depth
+        return d
 
     def init_cache(self, batch: int, max_seq: int | None = None, *,
                    layout: str = "auto") -> tfm.Cache:
@@ -426,6 +501,73 @@ class ContinuousBatchingEngine:
             toks.append(nxt)
             emitted.append(active)
             pos, remaining, active = new_pos, new_rem, alive
+        return (cur_tok, pos, active, remaining, torch.stack(toks),
+                torch.stack(emitted))
+
+    @torch.no_grad()
+    def step_window_spec(self, pool, cur_tok, pos, active, remaining, eos,
+                         depth_cap, sampling=None):
+        """``sync_every`` speculative macro-steps (ref
+        ``continuous.py:427-518``), the pool updated in place.  Each
+        drafts ``draft_depth`` tokens through the draft prefix (the token
+        at position q sampled with ``step_keys(skey, q)``), verifies
+        ``[tok, drafts]`` in one ``decode_chunk``, samples the full model
+        at ``pos+1 .. pos+D+1`` under the same keys, and emits along the
+        acceptance chain: emission j is live while every draft before it
+        matched the full model and ``j <= depth_cap`` (a device scalar),
+        and EOS, budget and the ``max_seq - 1`` stop retire a slot inside
+        the chain as the per-step window does.  Returns the new
+        (cur_tok, pos, active, remaining) and the tokens and emission
+        masks, both [k * (D+1), B] in emission order; no host sync."""
+        model, draft = self.params, self.draft
+        D, last = self.draft_depth, self.max_seq - 1
+        n = D + 1
+        B = cur_tok.shape[0]
+        ar = torch.arange(n, device=pos.device)
+
+        def pick(logits, keys_at, reps=1):
+            """Tokens from logits [rows, V]: argmax, or ``sample_token``
+            with the slots' rows repeated ``reps`` times."""
+            if sampling is None:
+                return logits.argmax(-1)
+            skey, temp, topk, topp = sampling
+            if reps > 1:
+                skey, temp, topk, topp = (x.repeat_interleave(reps, 0)
+                                          for x in sampling)
+            return smp.sample_token(smp.step_keys(skey, keys_at), logits,
+                                    temp, topk, topp)
+
+        toks, emitted = [], []
+        for _ in range(self.sync_every):
+            dtok, dpos, drafts = cur_tok, pos, []
+            for _ in range(D):
+                lg, _ = draft.decode_chunk(dtok, pool, dpos)
+                t = pick(lg[:, 0], dpos + 1)
+                drafts.append(t)
+                dtok, dpos = t[:, None], dpos + 1
+            chunk = torch.cat([cur_tok, torch.stack(drafts, 1)], 1)
+            logits, _ = model.decode_chunk(chunk, pool, pos)     # [B, n, V]
+            posm = pos[:, None] + 1 + ar
+            full = pick(logits.reshape(B * n, -1), posm.reshape(-1),
+                        reps=n).reshape(B, n)
+            tokc, posc, remc, actc = cur_tok[:, 0], pos, remaining, active
+            ok = torch.ones_like(active)
+            for j in range(n):
+                cand = full[:, j]
+                if j:
+                    ok = (ok & (drafts[j - 1] == full[:, j - 1])
+                          & (j <= depth_cap))
+                emit = actc & ok
+                new_pos = torch.where(emit, posc + 1, posc)
+                new_rem = torch.where(emit, remc - 1, remc)
+                retire = emit & ((new_rem <= 0) | (new_pos >= last)
+                                 | (cand == eos))
+                tokc = torch.where(emit, cand, tokc)
+                posc, remc = new_pos, new_rem
+                actc = actc & ~retire
+                toks.append(cand)
+                emitted.append(emit)
+            cur_tok, pos, remaining, active = tokc[:, None], posc, remc, actc
         return (cur_tok, pos, active, remaining, torch.stack(toks),
                 torch.stack(emitted))
 
@@ -624,9 +766,15 @@ class DecodeSession:
         self._topk = torch.zeros(B, dtype=torch.long, device=dev)
         self._topp = torch.ones(B, dtype=torch.float32, device=dev)
         self._temp_h = np.zeros(B, np.float32)
-        # the window's tokens, emission masks and live flags, [2k+1, B]:
-        # the one copy the host reads per window
-        self._packed = torch.zeros(2 * engine.sync_every + 1, B,
+        # the live speculative depth, written before each window: a
+        # device scalar the captured window reads, so it moves with no
+        # new capture
+        self._depth_cap = torch.zeros((), dtype=torch.long, device=dev)
+        # the window's tokens, emission masks and live flags, [2m+1, B]
+        # with m = k steps, or k * (D+1) emissions of k macro-steps: the
+        # one copy the host reads per window
+        self._emissions = engine.sync_every * (engine.draft_depth + 1)
+        self._packed = torch.zeros(2 * self._emissions + 1, B,
                                    dtype=torch.long, device=dev)
         self._graphs: dict[str, CountedGraph] = {}
         self._active_host = np.zeros(B, bool)
@@ -650,6 +798,11 @@ class DecodeSession:
         self.issue_s = 0.0              # of the windows': issuing them
         self.capture_s = 0.0            # of which capturing graphs
         self.captures = 0
+        # speculative decode telemetry
+        self.spec_proposed = 0          # drafted tokens offered to verify
+        self.spec_accepted = 0          # drafts the full model confirmed
+        self.spec_draft_slot_steps = 0  # shallow passes (energy model)
+        self.last_depth = engine.draft_depth
 
     # -- state --------------------------------------------------------------
     @property
@@ -860,6 +1013,11 @@ class DecodeSession:
         # reference's lax.cond, decided on the host)
         kind = ("sampled" if (self._temp_h[self._active_host] > 0).any()
                 else "greedy")
+        spec = eng.draft_depth > 0
+        if spec:
+            depth = eng.current_depth()
+            self.last_depth = depth
+            self._depth_cap.fill_(depth)
         t0 = time.perf_counter()
         self._run_window(kind)
         t1 = time.perf_counter()
@@ -868,13 +1026,27 @@ class DecodeSession:
         packed = self._packed.cpu().numpy()
         self.device_s += time.perf_counter() - t0
         self.issue_s += t1 - t0
-        k = eng.sync_every
-        toks_h = packed[:k]
-        emit_h = packed[k:2 * k].astype(bool)
-        active_h = packed[2 * k].astype(bool)
+        m = self._emissions
+        toks_h = packed[:m]                   # chronological
+        emit_h = packed[m:2 * m].astype(bool)
+        active_h = packed[2 * m].astype(bool)
         self.host_syncs += 1
-        self.decode_steps += int(emit_h.any(axis=1).sum())
-        self.occupied_slot_steps += int(emit_h.sum())
+        # (macro-)slot accounting (ref continuous.py:1306-1322): emission 0
+        # of a step marks the slots live for it (one full pass each); a
+        # macro-step's emissions 1.. are its accepted drafts
+        emit3 = emit_h.reshape(eng.sync_every, eng.draft_depth + 1, -1)
+        live = emit3[:, 0, :]
+        self.decode_steps += int(live.any(axis=1).sum())
+        self.occupied_slot_steps += int(live.sum())
+        if spec:
+            accepted = int(emit3[:, 1:, :].sum())
+            proposed = int(live.sum()) * depth
+            self.spec_accepted += accepted
+            self.spec_proposed += proposed
+            self.spec_draft_slot_steps += proposed
+            if eng.spec_controller is not None:
+                eng.spec_controller.observe(accepted=accepted,
+                                            proposed=proposed)
         completed: list[GenRequest] = list(done_at_prefill)
         for s in range(eng.n_slots):
             r = self.slots[s]
@@ -894,11 +1066,17 @@ class DecodeSession:
     def _window(self, kind: str) -> None:
         """One window over the session's own tensors: ``step_window``,
         then its results written back into them in place."""
+        eng = self.engine
         sampling = ((self._skey, self._temp, self._topk, self._topp)
                     if kind == "sampled" else None)
-        cur, pos, act, rem, toks, emitted = self.engine.step_window(
-            self._pool, self._cur_tok, self._pos, self._active,
-            self._remaining, self._eos, sampling)
+        state = (self._pool, self._cur_tok, self._pos, self._active,
+                 self._remaining, self._eos)
+        if eng.draft_depth > 0:
+            cur, pos, act, rem, toks, emitted = eng.step_window_spec(
+                *state, self._depth_cap, sampling)
+        else:
+            cur, pos, act, rem, toks, emitted = eng.step_window(*state,
+                                                                sampling)
         self._cur_tok.copy_(cur)
         self._pos.copy_(pos)
         self._active.copy_(act)
@@ -963,4 +1141,26 @@ class DecodeSession:
                 blocks_freed=self.blocks_freed,
                 peak_blocks_in_use=self.peak_blocks_in_use,
                 free_blocks=len(self._free_blocks))
+        if eng.draft_depth > 0:
+            # ref continuous.py:1369-1389.  The modelled energy charges
+            # one unit per full-stack slot pass and draft_layers/n_layers
+            # per shallow pass at the LIVE depth, over tokens emitted
+            # (greedy decode is exactly 1.0 on this scale); the window
+            # itself runs all draft_depth drafts whatever the live depth
+            emitted = self.occupied_slot_steps + self.spec_accepted
+            c = eng.cfg.draft_layers / eng.cfg.n_layers
+            cost = (self.occupied_slot_steps
+                    + self.spec_draft_slot_steps * c)
+            out.update(
+                mode="spec",
+                draft_depth=eng.draft_depth,
+                draft_depth_live=self.last_depth,
+                draft_layers=eng.cfg.draft_layers,
+                spec_proposed=self.spec_proposed,
+                spec_accepted=self.spec_accepted,
+                acceptance_rate=(self.spec_accepted
+                                 / max(self.spec_proposed, 1)),
+                accepted_per_step=(emitted
+                                   / max(self.occupied_slot_steps, 1)),
+                energy_per_token_model=(cost / max(emitted, 1)))
         return out

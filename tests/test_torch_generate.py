@@ -215,14 +215,23 @@ def test_slot_clock_matches_jax():
     assert tc.free_at == [0.0] * 3 and tc.busy(now) == 0
 
 
-def test_sampling_and_speculation_raise_until_their_slice(pair):
-    """Speculation still raises, naming its slice.  Sampling's slice has
-    landed: a sampled config and a sampled request are served (their
-    parity with the reference is ``tests/test_torch_decode_window.py``)."""
+def test_sampling_and_speculation_serve_on_cpu(pair):
+    """Both slices have landed: an engine with ``draft_depth=2`` over a
+    one-layer draft serves the plain engine's tokens, and a sampled
+    config and a sampled request are served (their parity with the
+    reference is ``tests/test_torch_spec.py`` and
+    ``tests/test_torch_decode_window.py``)."""
     tcfg, model = pair[2], pair[3]
-    with pytest.raises(NotImplementedError, match="speculat"):
-        tcont.ContinuousBatchingEngine(tcfg, model, draft_depth=2,
-                                       device="cpu")
+    runs = []
+    for cfg, depth in ((tcfg.replace(draft_layers=1), 2), (tcfg, 0)):
+        reqs = [tcont.GenRequest(rid=i, prompt=np.arange(4, dtype=np.int32)
+                                 + i, max_new=5) for i in range(3)]
+        stats = tcont.ContinuousBatchingEngine(
+            cfg, model, n_slots=2, max_seq=MAX_SEQ, draft_depth=depth,
+            device="cpu").serve(reqs)
+        runs.append(([r.generated for r in reqs], stats["mode"]))
+    assert runs == [(runs[1][0], "spec"), (runs[1][0], "fused")]
+    assert [len(g) for g in runs[0][0]] == [5, 5, 5]
     eng = tcont.ContinuousBatchingEngine(tcfg.replace(temperature=0.5), model,
                                          n_slots=2, max_seq=MAX_SEQ,
                                          device="cpu")

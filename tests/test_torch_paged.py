@@ -481,9 +481,10 @@ def test_paged_misconfigurations_raise(pair):
         model.prefill(np.zeros((2, 8), np.int32), pool)
     with pytest.raises(ValueError, match="contiguous"):
         model.decode_chunk(np.zeros((2, 2), np.int32), pool, 0)
-    with pytest.raises(NotImplementedError, match="speculat"):
-        tcont.ContinuousBatchingEngine(tcfg.replace(kv_block_size=BS),
-                                       model, draft_depth=2, device="cpu")
+    with pytest.raises(ValueError, match="contiguous"):
+        tcont.ContinuousBatchingEngine(
+            tcfg.replace(kv_block_size=BS, draft_layers=1), model,
+            draft_depth=2, device="cpu")
 
 
 def test_launcher_paged_smoke_on_cpu(tmp_path):

@@ -410,9 +410,20 @@ def test_cuda_impl_refuses_cpu_and_paged_refuses_ssd(pair):
         tcont.ContinuousBatchingEngine(paged, model, device="cpu")
     with pytest.raises(ValueError, match="paged KV pool"):
         tcont.pool_hbm_bytes(paged, 2, 16)
-    with pytest.raises(NotImplementedError, match="speculat"):
-        tcont.ContinuousBatchingEngine(tcfg, model, draft_depth=2,
-                                       device="cpu")
+    # speculation refuses an SSD stack with the reference's errors: no
+    # draft prefix configured, then not a pure attention stack
+    for draft_layers in (0, 1):
+        with pytest.raises(ValueError) as want:
+            jcont.ContinuousBatchingEngine(
+                pair[0].replace(draft_layers=draft_layers), pair[1],
+                n_slots=2, max_seq=16, draft_depth=2)
+        with pytest.raises(ValueError) as got:
+            tcont.ContinuousBatchingEngine(
+                tcfg.replace(draft_layers=draft_layers), model, n_slots=2,
+                max_seq=16, draft_depth=2, device="cpu")
+        assert str(got.value) == str(want.value)
+        assert ("draft_layers" if draft_layers == 0
+                else "pure attention stack") in str(got.value)
 
 
 def test_launcher_generate_mamba_smoke_on_cpu(tmp_path):

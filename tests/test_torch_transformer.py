@@ -214,9 +214,20 @@ def test_other_families_raise_with_their_slice(arch, what):
     paged_local = tget(ARCH).replace(kv_block_size=16, window=16)
     with pytest.raises(ValueError, match="paged KV pool"):
         ttfm.init_cache(paged_local, 2, 64, device="cpu")
+    # the speculative verify: decode_chunk needs a cache, and a working
+    # chunk's logits are the decode steps' at the same positions
     model = ttfm.init_lm(tget(ARCH), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="speculation slice"):
+    with pytest.raises(ValueError, match="decode cache"):
         model.decode_chunk(np.zeros((1, 2), np.int32), None, 0)
+    toks = _tokens(1, 6, model.cfg.vocab)
+    caches = [ttfm.init_cache(model.cfg, 1, 8, torch.float32, device="cpu")
+              for _ in range(2)]
+    for c in caches:
+        model.prefill(toks[:, :4], c)
+    chunk, _ = model.decode_chunk(toks[:, 4:], caches[0], 4)
+    steps = [model.decode_step(toks[:, 4 + j:5 + j], caches[1], 4 + j)[0]
+             for j in range(2)]
+    assert (chunk.float() - torch.cat(steps, 1).float()).abs().max() < TOL
 
 
 def test_seeded_init_is_deterministic_and_finite():
