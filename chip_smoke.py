@@ -44,7 +44,9 @@ not 0.  Phases:
                1e-4; bf16 to 3e-2 and each row to 2^-6 of its largest
                output) at the generate path's shapes, long shapes (one
                user's 8192-row context among them), ragged and GQA +
-               window cases and the smoke configuration's hd 32, timed
+               window cases, granite-moe-3b-a800m's G = 3 shapes (24
+               query heads over 8 KV heads of 64: ``*_granite``) and the
+               smoke configuration's hd 32, timed
                beside their bounds and ``scaled_dot_product_attention``
                with the same mask (a yardstick only: the port never calls
                it; for the paged kernel on the pre-gathered view, the
@@ -52,7 +54,8 @@ not 0.  Phases:
                shim, byte for byte; a decode call's spans and span-merge
                launches; then ``decode_invariance``: the serving case's
                valid rows in a 128-row and in a mostly empty 4096-row
-               cache, contiguous and paged, all equal byte for byte;
+               cache, contiguous and paged, all equal byte for byte, at
+               stablelm's 32/32 heads of 80 and granite's 24/8 of 64;
      spec_chunk — the verify chunk's entry on the flash-decode body
                (``decode_attention_chunk_cuda``, n query rows per slot)
                against its plain version (f32 to 1e-4; bf16 to 3e-2 and
@@ -66,8 +69,11 @@ not 0.  Phases:
                [B, H, n, S] mask;
      sampling_keys — at 8 slots x the vocabulary: ``step_keys`` and the
                Gumbel bits on the card equal the port's numpy threefry bit
-               for bit, the Gumbel floats the CPU's within 2 eps of
-               max(1, |g|); the cost of one sampled step by graph replay,
+               for bit, the Gumbel floats within 2 eps of max(1, |g|) of
+               float64 from the same bits (the CPU's float32 distance to
+               it printed, and a ``sampling_keys_cpu_fault`` line, which
+               fails nothing, where the CPU is past it); the cost of one
+               sampled step by graph replay,
                part by part (keys, Gumbel noise, sort, masks), beside the
                greedy argmax;
      serve_generate_smoke — the launcher's ``--smoke`` generate run (hd
@@ -173,8 +179,40 @@ not 0.  Phases:
                depth in bf16, kernel path against ``attn_impl="xla"``;
  16. breakdown_generate_ssm — one mamba2 decode step at 8 slots, device
                time and time from Python, beside its bytes bound;
- 17. kernels — one line with every kernel's numbers (the chunk entry too);
- 18. the last line: ``{"ok": true, "device": {...}}``.
+ 17. the MoE and MLA families (``families``; each model freed before
+               the next is built): ``moe_layer`` — one granite MoE layer
+               at published width in f32 (40 experts of 512, top-8) on
+               the card and the CPU from the same weights and inputs, at
+               capacity factor 0.5 (tokens drop) and 1.25: routing equal,
+               outputs within 1e-4, the dropped count; then
+               granite-moe-3b-a800m (32 layers, d 1536, bf16, seeded)
+               through the launcher, 32 requests of 16 + 16 tokens over 8
+               slots, on the contiguous pool (``serve_generate_moe``:
+               flash and flash-decode launched, nothing else) and on a
+               paged pool of 16-row blocks (``serve_generate_moe_paged``:
+               flash and paged flash-decode), each with the counters
+               zeroed just before and read just after, ms per step and
+               per prefill call, tokens per busy second and the weight
+               bytes beside their read at the HBM peak; ``step_moe``: one
+               decode step's device ms, ms from Python and kernels (the
+               profiler); ``parity_generate_moe``: depth 2 in f32, TF32
+               off, the kernel path against the kernels' plain versions
+               (``attn_impl="ref"``) on the same weights, equal tokens for
+               16 requests, the logits' largest difference, and at full
+               depth in bf16 the lockstep greedy agreement;
+               ``decode_graph`` for granite; then minicpm3-4b (62 layers,
+               d 2560, MLA, bf16, seeded) through the launcher greedy
+               (``serve_generate_mla``) and sampled
+               (``serve_generate_mla_sampled``), no attention kernel
+               launched; ``step_mla``; ``parity_generate_mla``: depth 2
+               in f32, the card against the CPU, equal tokens for 16
+               requests and prefill logits within 1e-3; ``decode_graph``
+               for minicpm3;
+ 18. kernels — one line with every kernel's numbers (the chunk entry
+               too; each attention kernel's launches summed over its
+               main paths, stablelm's and granite's, with
+               ``launches_by_path``, and granite's G = 3 case as ``g3``);
+ 19. the last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero without CUDA or without the repo.
 """
@@ -723,6 +761,15 @@ ATTN_CASES = [
     dict(name="decode_main_f32q", kind="decode", B=8, H=32, K=32, S=128,
          hd=80, qdt=torch.float32, kvdt=torch.bfloat16, window=0,
          lengths=list(range(17, 33, 2)), ring=False, iters=200),
+    # granite-moe-3b-a800m's: 24 query heads over 8 KV heads (G = 3), hd 64
+    dict(name="prefill_granite", kind="flash", B=8, H=24, K=8, S=16, hd=64,
+         qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0, iters=200),
+    dict(name="decode_granite", kind="decode", B=8, H=24, K=8, S=128,
+         hd=64, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         lengths=list(range(17, 33, 2)), ring=False, iters=200),
+    dict(name="paged_granite", kind="paged", B=8, H=24, K=8, S=128, hd=64,
+         bs=16, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         lengths=list(range(17, 33, 2)), iters=200),
     # long shapes
     dict(name="prefill_long", kind="flash", B=1, H=32, K=32, S=2048, hd=80,
          qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0, iters=5),
@@ -941,16 +988,20 @@ def phase_attention(peaks):
         if case["name"] in ("prefill_main", "decode_main_bf16q",
                             "paged_main"):
             out[name]["main"] = row
-    phase_decode_invariance(gen)
+        if case["name"].endswith("_granite"):
+            out[name]["granite"] = row
+    for H, K, hd in ((32, 32, 80), (24, 8, 64)):     # stablelm, granite
+        phase_decode_invariance(gen, H, K, hd)
     return out
 
 
-def phase_decode_invariance(gen):
-    """The serving decode case (8 slots, 17-31 valid rows, bf16) in a
-    128-row cache (one span) and with the same rows in a 4096-row cache
-    whose other rows are empty (several spans, the span merge), both
-    layouts (paged at bs 16): four results, equal byte for byte."""
-    B, H, K, hd, bs = 8, 32, 32, 80, PAGED_BS
+def phase_decode_invariance(gen, H, K, hd):
+    """The serving decode case (8 slots, 17-31 valid rows, bf16) of H
+    query heads over K KV heads of hd in a 128-row cache (one span) and
+    with the same rows in a 4096-row cache whose other rows are empty
+    (several spans, the span merge), both layouts (paged at bs 16): four
+    results, equal byte for byte."""
+    B, bs = 8, PAGED_BS
     lengths = list(range(17, 33, 2))
     q = torch.randn(B, H, hd, generator=gen, device="cuda").to(torch.bfloat16)
     rows = [torch.randn(B, 128, K, hd, generator=gen,
@@ -1452,8 +1503,10 @@ def phase_parity_paged(model):
 # ---------------------------------------------------------------------------
 
 SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
-# |g_card - g_cpu| <= GUMBEL_ULPS * eps * max(1, |g|): the two logs may
-# round their last bits apart (tests/test_torch_sampling.py)
+# |g_card - g_f64| <= GUMBEL_ULPS * eps * max(1, |g|), g_f64 the Gumbel
+# float computed in float64 from the same bits and rounded to float32:
+# the card's two float32 logs may round their last bits apart from it
+# (tests/test_torch_sampling.py)
 GUMBEL_ULPS = 2.0
 GRAPH_REQUESTS, GRAPH_NEW = 16, 16       # two refill waves of 8 slots
 
@@ -1461,10 +1514,13 @@ GRAPH_REQUESTS, GRAPH_NEW = 16, 16       # two refill waves of 8 slots
 def phase_sampling_keys(vocab: int):
     """On the card, at the window's shapes (8 slots, the vocabulary):
     ``step_keys`` and the Gumbel bits equal the port's numpy threefry bit
-    for bit; the Gumbel floats the CPU's from the same bits within
-    GUMBEL_ULPS; the sampled token beside the CPU's on the same bf16
-    logits (printed); and the cost of sampling one step by graph replay,
-    part by part, beside the greedy argmax."""
+    for bit; the Gumbel floats within GUMBEL_ULPS of float64 from the same
+    bits (the CPU's float32 distance to it printed beside, and a
+    ``sampling_keys_cpu_fault`` line where the CPU is past the limit,
+    which fails nothing: the card is what is checked); the sampled token
+    beside the CPU's on the same bf16 logits (printed); and the cost of
+    sampling one step by graph replay, part by part, beside the greedy
+    argmax."""
     B, V = 8, vocab
     rng = np.random.default_rng(8)
     keys = np.stack([smp.request_key(0, rid) for rid in range(B)])
@@ -1481,33 +1537,41 @@ def phase_sampling_keys(vocab: int):
                               np.arange(V, dtype=np.uint64)[None])
     fail_unless(np.array_equal(bits.cpu().numpy(), (y0 ^ y1).astype(np.int64)),
                 "sampling_keys: Gumbel bits on the card == numpy threefry")
+    # the yardstick: the uniform u from the same bits (exact f32
+    # arithmetic, the same on any IEEE machine), then -log(-log(u)) in
+    # float64, rounded to float32; the card and the CPU are each held to
+    # it, the card's distance gating, the CPU's printed
     g = smp.gumbel_from_bits(bits).cpu().double()
     g_cpu = smp.gumbel_from_bits(bits.cpu()).double()
-    eps = ((g - g_cpu).abs() / (torch.finfo(torch.float32).eps
-                                * g_cpu.abs().clamp_min(1.0))).reshape(-1)
+    bc = bits.cpu()
+    f = ((bc >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.clamp_min(f * (1.0 - tiny) + tiny, tiny).double()
+    g64 = (-torch.log(-torch.log(u))).float().double()
+    scale = torch.finfo(torch.float32).eps * g64.abs().clamp_min(1.0)
+    eps = ((g - g64).abs() / scale).reshape(-1)
+    eps_cpu = ((g_cpu - g64).abs() / scale).reshape(-1)
     ulps, worst = eps.max().item(), int(eps.argmax())
-    if ulps > GUMBEL_ULPS:              # the CPU's parts, for the record
-        bad = (eps > GUMBEL_ULPS).nonzero()[:, 0]
-        bc = bits.cpu().reshape(-1)
-        f = ((bc >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-        lg = -torch.log(f[worst:worst + 1])
+    cpu_ulps = eps_cpu.max().item()
+    if cpu_ulps > GUMBEL_ULPS:          # the CPU's parts, for the record
+        bad = (eps_cpu > GUMBEL_ULPS).nonzero()[:, 0]
+        cw = int(eps_cpu.argmax())
         emit(phase="sampling_keys_cpu_fault", bad_first=int(bad[0]),
              bad_last=int(bad[-1]), bad=len(bad),
              bad_rows=torch.bincount(bad // V, minlength=B).tolist(),
-             u=f[worst].item(), neg_log_u_cpu=lg.item(),
-             neg_log_u_f64=-math.log(max(f[worst].item(), 1e-38)),
-             neg_log_u_card=(-torch.log(f[worst:worst + 1].cuda())).item(),
-             again_cpu_max_eps=((smp.gumbel_from_bits(bits.cpu()).double()
-                                 - g).abs().max().item()
-                                / torch.finfo(torch.float32).eps))
+             u=f.reshape(-1)[cw].item(),
+             gumbel_cpu=g_cpu.reshape(-1)[cw].item(),
+             gumbel_f64=g64.reshape(-1)[cw].item(),
+             gumbel_card=g.reshape(-1)[cw].item(),
+             cpu_max_eps_vs_f64=cpu_ulps,
+             cpu=f"{torch.backends.cpu.get_cpu_capability()}, "
+                 f"{torch.get_num_threads()} threads")
     fail_unless(ulps <= GUMBEL_ULPS,
-                f"sampling_keys: Gumbel floats card vs CPU {ulps} eps "
+                f"sampling_keys: Gumbel floats card vs float64 {ulps} eps "
                 f"({int((eps > GUMBEL_ULPS).sum())} elements; the worst: "
                 f"bits {int(bits.reshape(-1)[worst])}, card "
-                f"{g.reshape(-1)[worst].item()!r}, CPU "
-                f"{g_cpu.reshape(-1)[worst].item()!r}; "
-                f"{torch.backends.cpu.get_cpu_capability()}, "
-                f"{torch.get_num_threads()} threads)")
+                f"{g.reshape(-1)[worst].item()!r}, float64 "
+                f"{g64.reshape(-1)[worst].item()!r})")
     gen = torch.Generator(device="cuda").manual_seed(8)
     logits = (torch.randn(B, V, generator=gen, device="cuda") * 3).to(
         torch.bfloat16)
@@ -1529,8 +1593,8 @@ def phase_sampling_keys(vocab: int):
     }
     ms = {name: graph_ms(fn, 20) for name, fn in parts.items()}
     emit(phase="sampling_keys", slots=B, vocab=V, step_keys_equal=True,
-         gumbel_bits_equal=True, gumbel_max_eps_vs_cpu=ulps,
-         gumbel_eps_tol=GUMBEL_ULPS,
+         gumbel_bits_equal=True, gumbel_max_eps_vs_f64=ulps,
+         gumbel_eps_tol=GUMBEL_ULPS, cpu_gumbel_max_eps_vs_f64=cpu_ulps,
          sampled_tokens_equal_cpu=int((tok == tok_cpu).sum()),
          graph_ms=ms, sampling_over_argmax_ms=ms["sample_token"] - ms["argmax"],
          nvidia_smi=nvidia_smi("name,power.limit"))
@@ -1573,7 +1637,8 @@ def phase_decode_graph(name: str, cfg, model) -> dict:
     capture) in ms per step, issue ms, and the card's busy share: one
     window's device time (its graph replayed) over the window's time."""
     out = {}
-    counter = (None if cfg.block_kinds[0] == "ssd" else
+    # SSD and MLA stacks decode with no attention kernel
+    counter = (None if cfg.block_kinds[0] in ("ssd", "mla") else
                "paged_launches" if cfg.paged_kv else "launches")
     for mode in ("greedy", "sampled"):
         runs = {}
@@ -2540,6 +2605,339 @@ def phase_breakdown_generate_ssm(model, peaks):
          profiler=prof if prof is not None else "no device time recorded")
 
 
+# ---------------------------------------------------------------------------
+# the MoE and MLA families: granite-moe-3b-a800m and minicpm3-4b
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, MLA_ARCH = "granite-moe-3b-a800m", "minicpm3-4b"
+# one MoE layer in f32, card against CPU: the same products over D = 1536
+# and F = 512 summed in another order, a difference of order 1e-6 of
+# outputs of order 1; a token routed to another expert row moves its
+# output by its own size
+MOE_LAYER_TOL = 1e-4
+_COUNTERS = ((fa_mod, "launches"), (da_mod, "launches"),
+             (da_mod, "paged_launches"), (da_mod, "chunk_launches"),
+             (ssd_mod, "launches"))
+
+
+def _zero_counters() -> None:
+    for mod, name in _COUNTERS:
+        setattr(mod, name, 0)
+
+
+def _attention_launches() -> dict:
+    return {"flash_attention": fa_mod.launches,
+            "decode_attention": da_mod.launches,
+            "paged_decode_attention": da_mod.paged_launches,
+            "decode_attention_chunk": da_mod.chunk_launches,
+            "ssd_scan": ssd_mod.launches}
+
+
+def phase_moe_layer():
+    """One granite MoE layer at published width in f32 (D 1536, 40 experts
+    of 512, top-8), seeded weights, on the card and on the CPU from the
+    same weights and inputs: one refill wave's 128 tokens at capacity
+    factor 0.5 (12 rows per expert for 1,024 assignments: tokens drop)
+    and at the config's 1.25, and a decode step's 8 at 0.5 (the capacity
+    is the group, 8: nothing can drop).  The routing (expert, row, kept)
+    equal, the outputs within MOE_LAYER_TOL, the dropped count printed
+    beside the card's ms (graph replay)."""
+    from repro_torch.models import moe as moe_mod
+    cfg = get_config(MOE_ARCH)
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    p = moe_mod.MoEParams(D, E, F, device="cuda")
+    p.reset_parameters(gen)
+    pc = moe_mod.MoEParams(D, E, F, device="cpu")
+    pc.load_state_dict({k: v.cpu() for k, v in p.state_dict().items()})
+    rows = []
+    for n, cf in ((128, 0.5), (8, 0.5), (128, cfg.capacity_factor)):
+        x = torch.from_numpy(np.random.default_rng(n).standard_normal(
+            (1, n, D)).astype(np.float32))
+        xg = x.cuda()
+        r_card = moe_mod.route(p.router, xg, cfg.top_k, cf)
+        r_cpu = moe_mod.route(pc.router, x, cfg.top_k, cf)
+        same = [torch.equal(a.cpu(), b) for a, b in zip(r_card[2:5],
+                                                        r_cpu[2:5])]
+        fail_unless(all(same), f"moe_layer n={n} cf={cf}: routing card == "
+                               f"CPU (experts, rows, kept): {same}")
+        y, aux = moe_mod.moe_forward(p, xg, top_k=cfg.top_k,
+                                     capacity_factor=cf)
+        yc, auxc = moe_mod.moe_forward(pc, x, top_k=cfg.top_k,
+                                       capacity_factor=cf)
+        torch.cuda.synchronize()
+        err = (y.cpu() - yc).abs().max().item()
+        fail_unless(bool(torch.isfinite(y).all()) and err <= MOE_LAYER_TOL,
+                    f"moe_layer n={n} cf={cf}: card vs CPU {err}")
+        dropped = int((~r_card[4]).sum())
+        if (n, cf) == (128, 0.5):
+            fail_unless(dropped > 0, f"moe_layer n={n} cf={cf}: tokens "
+                                     f"dropped")
+        ms = graph_ms(lambda: moe_mod.moe_forward(  # noqa: B023
+            p, xg, top_k=cfg.top_k, capacity_factor=cf, need_aux=False), 20)
+        rows.append(dict(tokens=n, capacity_factor=cf, capacity=r_card[5],
+                         assignments=n * cfg.top_k, dropped=dropped,
+                         dropped_cpu=int((~r_cpu[4]).sum()),
+                         routing_equal=True, max_abs_err=err,
+                         max_abs_y=y.abs().max().item(), tol=MOE_LAYER_TOL,
+                         aux_card=aux.item(), aux_cpu=auxc.item(), ms=ms))
+    emit(phase="moe_layer", arch=MOE_ARCH, d_model=D, experts=E,
+         d_ff_expert=F, top_k=cfg.top_k, dtype="float32", cases=rows)
+    del p, pc
+
+
+def _weight_bytes(model) -> int:
+    return sum(t.numel() * t.element_size() for t in model.parameters())
+
+
+def _step_profile(model, peaks) -> dict:
+    """One decode step of the served model at 8 slots after a 16-token
+    prefill: device ms (graph replay), ms from Python, the profiler's
+    kernels, and the weight bytes beside their read at the HBM peak (the
+    step's least time: an MoE step reads every expert, as the dense
+    dispatch does)."""
+    cfg = model.cfg
+    B = 8
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab, (B, 16))
+    cache = tfm.init_cache(cfg, B, serve.GEN_MAX_SEQ, device="cuda")
+    model.prefill(prompts, cache)
+    tok = torch.zeros(B, 1, dtype=torch.long, device="cuda")
+    pos = torch.full((B,), 16, dtype=torch.long, device="cuda")
+
+    def step():
+        model.decode_step(tok, cache, pos)
+
+    call = time_ms(step, 5)
+    dev = graph_ms(step, 1, replays=10)
+    try:
+        prof = _profile_step(step)
+    except Exception as e:          # the profiler is untried on the card
+        prof = {"error": repr(e)[:200]}
+    wbytes = _weight_bytes(model)
+    return dict(step_ms=dev, step_call_ms=call,
+                device_busy_share_of_call=dev / call,
+                kernels_per_step=(prof or {}).get("kernels"),
+                weight_bytes=wbytes,
+                weight_bytes_bound_ms=wbytes / peaks["hbm"] * 1e3,
+                profiler=prof if prof is not None
+                else "no device time recorded")
+
+
+def _serve_family(arch, extra, phase, kernels, peaks):
+    """The launcher's generate run of ``arch`` at published width (32
+    requests of 16 + 16 tokens over 8 slots, bio controller), the launch
+    counters zeroed just before and read just after: every request
+    answered, 1..16 ids inside the vocabulary, the window one captured
+    graph, every kernel of ``kernels`` launched and no other; -> (the
+    launches, the served model)."""
+    args = serve.parser().parse_args(
+        ["--device", "cuda", "--mode", "generate", "--arch", arch,
+         "--requests", "32", "--new-tokens", "16", "--slots", "8",
+         "--controller", "bio", *extra])
+    _zero_counters()
+    t0 = time.perf_counter()
+    summary, server = serve.serve_generate(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _attention_launches()
+    cfg = get_config(arch)
+    resp = server.responses
+    fail_unless(sorted(r.rid for r in resp) == list(range(args.requests)),
+                f"{phase}: every request answered once")
+    admitted = [r for r in resp if r.admitted]
+    fail_unless(len(admitted) > 0 and all(
+        isinstance(r.output, list) and 1 <= len(r.output) <= args.new_tokens
+        and all(0 <= t < cfg.vocab for t in r.output) for r in admitted),
+        f"{phase}: 1..16 token ids inside the vocabulary each")
+    fail_unless(all((launches[k] > 0) == (k in kernels) for k in launches),
+                f"{phase}: launched exactly {kernels}: {launches}")
+    fail_unless(summary["window"] == "graph" and summary["captures"] == 1,
+                f"{phase}: the window one captured graph: {summary}")
+    model = server.engine.engine.params
+    fail_unless(model.cfg.n_layers == cfg.n_layers
+                and model.cfg.d_model == cfg.d_model
+                and model.emb.dtype == torch.bfloat16,
+                f"{phase}: published width, every layer, bf16")
+    if "--kv-block-size" in extra:
+        fail_unless(summary["blocks_allocated"] == summary["blocks_freed"],
+                    f"{phase}: every block given back: {summary}")
+    steps_run = summary["host_syncs"] * server.engine.engine.sync_every
+    decode_s = summary["device_s"] - summary["prefill_s"]
+    wbytes = _weight_bytes(model)
+    emit(phase=phase, seconds=secs, launches=launches,
+         admitted=len(admitted),
+         tokens_per_busy_s=summary["tokens_generated"] / summary["busy_s"],
+         decode_ms_per_step=decode_s / steps_run * 1e3,
+         prefill_ms_per_call=(summary["prefill_s"]
+                              / summary["prefill_calls"] * 1e3),
+         weight_bytes=wbytes,
+         weight_bytes_bound_ms=wbytes / peaks["hbm"] * 1e3,
+         nvidia_smi=nvidia_smi("name,power.limit"), **summary)
+    del server
+    return launches, model
+
+
+def _engine_tokens(cfg, model, *, capture="auto", sampled=False):
+    """16 requests of 16 + 16 tokens through a fresh 8-slot engine."""
+    eng = cont.ContinuousBatchingEngine(cfg, model, n_slots=8,
+                                        max_seq=serve.GEN_MAX_SEQ,
+                                        device=model.device, capture=capture)
+    reqs = _graph_requests(cfg.vocab, sampled)
+    eng.serve(reqs, prompt_len=serve.GEN_PROMPT_LEN)
+    return [r.generated for r in reqs]
+
+
+def _f32_caches():
+    """Patch ``tfm.init_cache`` to f32 caches; -> the original."""
+    init_cache = tfm.init_cache
+    tfm.init_cache = functools.partial(init_cache, dtype=torch.float32)
+    return init_cache
+
+
+def phase_parity_generate_moe(model):
+    """granite at published width, depth 2, f32 weights and caches, TF32
+    off: the kernel path (``attn_impl="auto"``, flash and flash-decode,
+    the window captured) against the kernels' plain versions
+    (``attn_impl="ref"``, uncaptured) on the same weights, 16 requests of
+    16 + 16 tokens: equal greedy tokens for every request, and the
+    lockstep logits' largest difference printed.  The served model at
+    full depth in bf16: lockstep greedy agreement of the two paths,
+    printed."""
+    cfg = get_config(MOE_ARCH)
+    tf32 = bool(torch.backends.cuda.matmul.allow_tf32)
+    fail_unless(not tf32, "parity_generate_moe: TF32 off")
+    cfg2 = cfg.replace(n_layers=2, dtype="float32")
+    m = tfm.init_lm(cfg2, 0, device="cuda")
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (8, 16))
+    toks, launches, lock = {}, {}, {}
+    for impl, capture in (("auto", "auto"), ("ref", False)):
+        m.attn_impl = impl
+        _zero_counters()
+        init_cache = _f32_caches()
+        try:
+            toks[impl] = _engine_tokens(cfg2, m, capture=capture)
+        finally:
+            tfm.init_cache = init_cache
+        launches[impl] = _attention_launches()
+        lock[impl] = _greedy_lockstep(m, prompts, 8)     # f32 cache
+    m.attn_impl = "auto"
+    fail_unless(launches["auto"]["flash_attention"] > 0
+                and launches["auto"]["decode_attention"] > 0
+                and not any(launches["ref"].values()),
+                f"parity_generate_moe: kernels on the auto path only: "
+                f"{launches}")
+    same = [a == b for a, b in zip(toks["auto"], toks["ref"])]
+    fail_unless(all(same), f"parity_generate_moe depth-2 f32: kernel path "
+                           f"tokens == plain path, per request: {same}")
+    prefill_err = (lock["auto"][0] - lock["ref"][0]).abs().max().item()
+    step_err = (lock["auto"][2] - lock["ref"][2]).abs().max().item()
+    del m
+    full = {}
+    for impl in ("auto", "ref"):
+        model.attn_impl = impl
+        full[impl] = _greedy_lockstep(model, prompts, 16,
+                                      dtype=torch.bfloat16)[1]
+    model.attn_impl = "auto"
+    emit(phase="parity_generate_moe", tf32=tf32,
+         depth2_f32_requests_equal=sum(same), requests=len(same),
+         depth2_f32_lockstep_tokens_equal=bool(
+             torch.equal(lock["auto"][1], lock["ref"][1])),
+         depth2_f32_prefill_logits_max_abs_err=prefill_err,
+         depth2_f32_step_logits_max_abs_err=step_err,
+         depth2_launches=launches,
+         full_bf16_greedy_token_agreement=float(
+             (full["auto"] == full["ref"]).float().mean()))
+
+
+def phase_parity_generate_mla():
+    """minicpm3 at published width, depth 2, f32 weights and caches, TF32
+    off, the card against the CPU on the same weights (no kernel runs on
+    this path: it holds the card's numerics): 16 requests of 16 + 16
+    tokens through the continuous engine, equal greedy tokens for every
+    request, and lockstep logits' largest difference printed."""
+    cfg = get_config(MLA_ARCH)
+    tf32 = bool(torch.backends.cuda.matmul.allow_tf32)
+    fail_unless(not tf32, "parity_generate_mla: TF32 off")
+    cfg2 = cfg.replace(n_layers=2, dtype="float32")
+    m_gpu = tfm.init_lm(cfg2, 0, device="cuda")
+    m_cpu = tfm.LM(cfg2, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
+    m_cpu.eval()
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (8, 16))
+    init_cache = _f32_caches()
+    try:
+        _zero_counters()
+        toks_gpu = _engine_tokens(cfg2, m_gpu)
+        launches = _attention_launches()
+        toks_cpu = _engine_tokens(cfg2, m_cpu)
+    finally:
+        tfm.init_cache = init_cache
+    lg = _greedy_lockstep(m_gpu, prompts, 8)                 # f32 caches
+    lc = _greedy_lockstep(m_cpu, prompts, 8)
+    fail_unless(not any(launches.values()),
+                f"parity_generate_mla: no attention kernel: {launches}")
+    same = [a == b for a, b in zip(toks_gpu, toks_cpu)]
+    fail_unless(all(same), f"parity_generate_mla depth-2 f32: card tokens "
+                           f"== CPU, per request: {same}")
+    prefill_err = (lg[0] - lc[0]).abs().max().item()
+    fail_unless(bool(torch.isfinite(lg[0]).all())
+                and prefill_err <= LOGITS_TOL,
+                f"parity_generate_mla: prefill logits card vs CPU "
+                f"{prefill_err}")
+    emit(phase="parity_generate_mla", tf32=tf32,
+         depth2_f32_requests_equal=sum(same), requests=len(same),
+         depth2_f32_lockstep_tokens_equal=bool(torch.equal(lg[1], lc[1])),
+         depth2_f32_prefill_logits_max_abs_err=prefill_err,
+         depth2_f32_step_logits_max_abs_err=(lg[2] - lc[2]).abs().max()
+         .item(), logits_tol=LOGITS_TOL)
+    del m_gpu, m_cpu
+
+
+def phase_families(peaks) -> dict:
+    """This slice's paths: ``moe_layer``; granite-moe-3b-a800m through the
+    launcher on the contiguous and the paged pool (``serve_generate_moe``,
+    ``serve_generate_moe_paged``), its decode step (``step_moe``),
+    ``parity_generate_moe`` and ``decode_graph``; then minicpm3-4b
+    through the launcher greedy and sampled (``serve_generate_mla``,
+    ``serve_generate_mla_sampled``), its step, ``parity_generate_mla``
+    and ``decode_graph``.  Each model is freed before the next is built;
+    -> each served path's launches."""
+    t0 = time.perf_counter()
+    phase_moe_layer()
+    launches = {}
+    launches["serve_generate_moe"], model = _serve_family(
+        MOE_ARCH, [], "serve_generate_moe",
+        ("flash_attention", "decode_attention"), peaks)
+    launches["serve_generate_moe_paged"], paged = _serve_family(
+        MOE_ARCH, ["--kv-block-size", str(PAGED_BS)],
+        "serve_generate_moe_paged",
+        ("flash_attention", "paged_decode_attention"), peaks)
+    del paged
+    torch.cuda.empty_cache()
+    emit(phase="step_moe", arch=MOE_ARCH, slots=8,
+         **_step_profile(model, peaks))
+    phase_parity_generate_moe(model)
+    phase_decode_graph(MOE_ARCH, model.cfg, model)
+    del model
+    torch.cuda.empty_cache()
+    sampled = ["--temperature", str(SAMPLED["temperature"]), "--top-k",
+               str(SAMPLED["top_k"]), "--top-p", str(SAMPLED["top_p"])]
+    launches["serve_generate_mla"], model = _serve_family(
+        MLA_ARCH, [], "serve_generate_mla", (), peaks)
+    launches["serve_generate_mla_sampled"], other = _serve_family(
+        MLA_ARCH, sampled, "serve_generate_mla_sampled", (), peaks)
+    del other
+    torch.cuda.empty_cache()
+    emit(phase="step_mla", arch=MLA_ARCH, slots=8,
+         **_step_profile(model, peaks))
+    phase_parity_generate_mla()
+    phase_decode_graph(MLA_ARCH, model.cfg, model)
+    del model
+    torch.cuda.empty_cache()
+    emit(phase="families", seconds=time.perf_counter() - t0)
+    return launches
+
+
 def kernel_entry(name, src, replaces, tpu_kernel, launches, max_err, main):
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -2621,6 +3019,38 @@ def main(argv: list[str]) -> int:
     phase_parity_generate_ssm(ssm)
     phase_breakdown_generate_ssm(ssm, peaks)
     phase_decode_graph(SSM_ARCH, ssm.cfg, ssm)
+    del ssm
+    torch.cuda.empty_cache()
+    fam = phase_families(peaks)
+    moe, moe_paged = fam["serve_generate_moe"], fam["serve_generate_moe_paged"]
+    by_path = {
+        "flash_attention": {
+            "serve_generate": gen_launches["flash_attention"],
+            "serve_generate_moe": moe["flash_attention"],
+            "serve_generate_moe_paged": moe_paged["flash_attention"]},
+        "decode_attention": {
+            "serve_generate": gen_launches["decode_attention"],
+            "serve_generate_moe": moe["decode_attention"]},
+        "paged_decode_attention": {
+            "serve_generate_paged": paged_launches,
+            "serve_generate_moe_paged": moe_paged["paged_decode_attention"]},
+    }
+
+    def attention_entry(name, src_line, tpu, extra=None):
+        """An attention kernel's line: the stablelm main case's numbers,
+        granite's G = 3 case beside them, launches summed over this
+        kernel's main paths."""
+        g3 = attn[name]["granite"]
+        return dict(kernel_entry(
+            name, "decode_attention.cu" if "decode" in name
+            else "flash_attention.cu", src_line, tpu,
+            sum(by_path[name].values()), attn[name]["max_err"],
+            attn[name]["main"]), launches_by_path=by_path[name],
+            g3={k: g3[k] for k in ("case", "H", "K", "hd", "ms", "call_ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "max_abs_err",
+                                   "row_scaled_err")}, **(extra or {}))
+
     entropy = {
         "name": "entropy_stats",
         "route": "cuda",
@@ -2646,28 +3076,22 @@ def main(argv: list[str]) -> int:
     }
     emit(kernels=[
         entropy,
-        kernel_entry("flash_attention", "flash_attention.cu",
-                     "src/repro/kernels/flash_attention.py:26",
-                     "src/repro/kernels/flash_attention.py:_flash_kernel",
-                     gen_launches["flash_attention"],
-                     attn["flash_attention"]["max_err"],
-                     attn["flash_attention"]["main"]),
-        kernel_entry("decode_attention", "decode_attention.cu",
-                     "src/repro/kernels/decode_attention.py:45",
-                     "src/repro/kernels/decode_attention.py:_decode_kernel",
-                     gen_launches["decode_attention"],
-                     attn["decode_attention"]["max_err"],
-                     attn["decode_attention"]["main"]),
-        dict(kernel_entry(
-            "paged_decode_attention", "decode_attention.cu",
+        attention_entry("flash_attention",
+                        "src/repro/kernels/flash_attention.py:26",
+                        "src/repro/kernels/flash_attention.py:_flash_kernel"),
+        attention_entry("decode_attention",
+                        "src/repro/kernels/decode_attention.py:45",
+                        "src/repro/kernels/decode_attention.py:"
+                        "_decode_kernel"),
+        attention_entry(
+            "paged_decode_attention",
             "src/repro/kernels/decode_attention.py:167",
             "src/repro/kernels/decode_attention.py:_paged_kernel",
-            paged_launches, attn["paged_decode_attention"]["max_err"],
-            attn["paged_decode_attention"]["main"]),
-            shim_ms=attn["paged_decode_attention"]["main"]["shim_ms"],
-            oracle="paged_decode_attention_shim (src/repro/kernels/"
-                   "decode_attention.py:291): gather + decode_attention, "
-                   "torch.equal in every paged case"),
+            dict(shim_ms=attn["paged_decode_attention"]["main"]["shim_ms"],
+                 oracle="paged_decode_attention_shim (src/repro/kernels/"
+                        "decode_attention.py:291): gather + "
+                        "decode_attention, torch.equal in every paged "
+                        "case")),
         dict(kernel_entry(
             "decode_attention_chunk", "decode_attention.cu",
             "src/repro/models/attention.py:446",

@@ -40,7 +40,14 @@ request waits in the queue while the pool cannot hold its budget.
 ``--arch mamba2-780m`` serves the attention-free SSD stack (48 layers,
 d 1536, state 128 per head): its pool is the f32 recurrent state of
 every slot, prefill runs the CUDA SSD scan kernel in every layer and a
-decode step updates the state in place.  ``--temperature T`` (with
+decode step updates the state in place.  ``--arch granite-moe-3b-a800m``
+serves the MoE family (32 layers, 24 query heads over 8 KV heads of 64,
+40 experts of which each token takes 8, dropped past capacity as the
+reference drops them), contiguous, paged or speculative;
+``--arch minicpm3-4b`` the MLA family (62 layers, a 256 + 32-feature
+latent per token in the pool, decoded in latent space in plain
+PyTorch), contiguous; ``--arch dbrx-132b`` (264 GB in bf16) only with
+``--smoke``.  ``--temperature T`` (with
 ``--top-k`` and ``--top-p``) samples every token from the reference's
 (seed, request, position)-folded threefry keys; ``--temperature 0`` (the
 default) is greedy, byte for byte the argmax path.  ``--draft-depth D``
@@ -61,6 +68,10 @@ session's first of its kind is the replay of one CUDA graph.
         --mode generate --smoke --kv-block-size 8 --kv-pool-blocks 9
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --mode generate --arch mamba2-780m --smoke --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mode generate --arch granite-moe-3b-a800m --smoke --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mode generate --arch minicpm3-4b --smoke --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --mode generate --smoke --temperature 0.8 --top-k 50
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \

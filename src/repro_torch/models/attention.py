@@ -90,10 +90,11 @@ def out_proj(p: AttnParams, o: torch.Tensor) -> torch.Tensor:
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            bias: torch.Tensor | None = None,
            scale: float | None = None) -> torch.Tensor:
-    """Masked GQA attention: q [B,Sq,H,hd], k/v [B,Skv,K,hd] (H = K*G)
-    -> [B,Sq,H,hd].  ``bias`` broadcasts against the scores
-    [B,K,G,Sq,Skv]; ``None`` is the all-visible mask (the reference adds
-    zeros there, which changes no bit)."""
+    """Masked GQA attention: q [B,Sq,H,hd], k [B,Skv,K,hd] (H = K*G) and
+    v [B,Skv,K,hd_v] -> [B,Sq,H,hd_v] (MLA's v is narrower than its q
+    and k).  ``bias`` broadcasts against the scores [B,K,G,Sq,Skv];
+    ``None`` is the all-visible mask (the reference adds zeros there,
+    which changes no bit)."""
     B, Sq, H, hd = q.shape
     K = k.shape[2]
     G = H // K
@@ -108,7 +109,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # weights rounded to v's dtype, products summed in f32 (the
     # reference's preferred_element_type=float32)
     o = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype).float(), v.float())
-    return o.reshape(B, Sq, K * G, hd).to(q.dtype)
+    return o.reshape(B, Sq, K * G, v.shape[-1]).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -79,8 +79,10 @@ def distilbert_from_numpy(cfg: dict, tree, *, device="cuda") -> DistilBERT:
 def unstack_layers(flat: dict[str, np.ndarray],
                    n_layers: int) -> dict[str, np.ndarray]:
     """The reference stacks a homogeneous stack's layer leaves
-    (``layers/mix/wq`` [L, d, H*hd]); the port keeps one module per
-    layer (``layers/0/mix/wq`` [d, H*hd]).  Split every stacked
+    (``layers/mix/wq`` [L, d, H*hd], an MoE layer's experts
+    ``layers/moe/w_gate`` [L, E, D, F], MLA's ``layers/mix/w_uk`` [L, r,
+    H, nope]); the port keeps one module per layer (``layers/0/mix/wq``
+    [d, H*hd]).  Split every stacked
     ``layers/*`` leaf along its first axis; raise when that axis is
     not ``n_layers`` long.  Already per-layer keys pass through."""
     out = {}

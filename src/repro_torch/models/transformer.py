@@ -1,12 +1,16 @@
-"""Decoder LM for attention and SSD stacks, ported from
-``repro.models.transformer``.
+"""Decoder LM for attention, MLA and SSD stacks, dense or MoE, ported
+from ``repro.models.transformer``.
 
 One pre-norm residual stack: per layer, GQA attention (``attn``) or
 sliding-window attention (``local_attn``, a ring cache of ``window``
-rows) with partial rotary on interleaved pairs, or the Mamba-2 SSD
-block (``ssd``, ``models.ssd``), then a dense channel mix (SwiGLU with
-SiLU or tanh-GELU, or the biased GELU MLP) when ``d_ff`` > 0; a final
-norm and a tied or untied unembedding.  Three modes share the layer
+rows) with partial rotary on interleaved pairs, Multi-head Latent
+Attention (``mla``, ``models.mla``) or the Mamba-2 SSD block (``ssd``,
+``models.ssd``), then the channel mix: the MoE FFN (``models.moe``)
+when ``cfg.n_experts`` > 0, else a dense one (SwiGLU with SiLU or
+tanh-GELU, or the biased GELU MLP) when ``d_ff`` > 0; a final norm and
+a tied or untied unembedding.  ``forward`` returns the MoE layers'
+summed load-balance loss beside the logits, as the reference does; the
+other modes discard it, as the reference's do.  Three modes share the layer
 code, as in the reference:
 
   - ``forward``      full sequence, no cache
@@ -44,13 +48,16 @@ stacks one pool per layer, k/v [L, NB, bs, K, hd] and pos [L, B, C],
 with one block table [B, MB] on the cache shared by every layer; it is
 decode-only, as the reference's: a prompt is prefilled into a
 contiguous row cache and scattered into the pool
-(``serving.continuous.paged_slot_write``).  An SSD stack's cache is its
-recurrent state, stacked and written in place: conv [L, B, W-1, ch]
-and h [L, B, H, hd, N], both f32; ``forward`` starts from a zero
-state, as the reference's ``full`` mode.
+(``serving.continuous.paged_slot_write``).  An MLA stack's cache is its
+latent, c_kv [L, B, C, r] and k_rope [L, B, C, rope] in the cache
+dtype, with pos [L, B, C]; it has no paged layout, as the reference's.
+An SSD stack's cache is its recurrent state, stacked and written in
+place: conv [L, B, W-1, ch] and h [L, B, H, hd, N], both f32;
+``forward`` starts from a zero state, as the reference's ``full``
+mode.
 
-Not in this slice, and raising with the slice that brings them: MLA
-and RG-LRU layers, mixed stacks, MoE, encoder-decoder and prefix-LM
+Not in this slice, and raising with the slice that brings them: RG-LRU
+layers, stacks that mix layer kinds, encoder-decoder and prefix-LM
 models (the model-families slice).
 """
 from __future__ import annotations
@@ -63,6 +70,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mla
+from repro_torch.models import moe
 from repro_torch.models import nn as nn_
 from repro_torch.models import ssd
 from repro_torch.models.nn import param
@@ -76,22 +85,28 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice does not port, naming the slice."""
-    kinds = sorted(set(cfg.block_kinds) - {"attn", "local_attn", "ssd"})
+    """Raise for what the port does not serve yet, naming the slice."""
+    kinds = sorted(set(cfg.block_kinds)
+                   - {"attn", "local_attn", "mla", "ssd"})
     if kinds:
         raise NotImplementedError(
             f"{cfg.arch_id}: layer kinds {kinds} come with {FAMILIES_SLICE}")
-    if "ssd" in cfg.block_kinds and not cfg.homogeneous:
+    if not cfg.homogeneous:
         raise NotImplementedError(
-            f"{cfg.arch_id}: a stack mixing SSD and attention layers comes "
-            f"with {FAMILIES_SLICE}")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: MoE comes with {FAMILIES_SLICE}")
+            f"{cfg.arch_id}: a stack mixing layer kinds "
+            f"{sorted(set(cfg.block_kinds))} comes with {FAMILIES_SLICE}")
     if cfg.family == "encdec" or cfg.prefix_lm:
         raise NotImplementedError(
             f"{cfg.arch_id}: encoder-decoder and prefix-LM models come "
             f"with {FAMILIES_SLICE}")
+
+
+def mla_config(cfg: ModelConfig) -> mla.MLAConfig:
+    return mla.MLAConfig(
+        n_heads=cfg.n_heads, q_lora_rank=cfg.q_lora_rank,
+        kv_lora_rank=cfg.kv_lora_rank, qk_nope_dim=cfg.qk_nope_dim,
+        qk_rope_dim=cfg.qk_rope_dim, v_head_dim=cfg.v_head_dim,
+        rope_theta=cfg.rope_theta)
 
 
 def paged_geometry(cfg: ModelConfig, batch: int,
@@ -122,26 +137,35 @@ def _check_paged_supported(cfg: ModelConfig) -> None:
 
 
 class Layer(nn.Module):
-    """One residual block: ``norm1``, ``mix`` (attention, or the SSD
-    block for an ``ssd`` stack), and the channel mix ``norm2`` + ``mlp``
-    when ``cfg.d_ff`` > 0."""
+    """One residual block: ``norm1``, ``mix`` (attention, MLA, or the
+    SSD block), and the channel mix ``norm2`` + ``moe`` for an MoE
+    config, else ``norm2`` + ``mlp`` when ``cfg.d_ff`` > 0 (the
+    reference's ``init_layer`` keys)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         d, dt = cfg.d_model, torch_dtype(cfg.dtype)
+        kind = cfg.block_kinds[0]
         self.norm1 = nn_.norm(cfg.norm, d, device=device)
-        if cfg.block_kinds[0] == "ssd":
+        if kind == "ssd":
             self.mix = ssd.SSDParams(d, expand=cfg.ssm_expand,
                                      headdim=cfg.ssm_headdim,
                                      d_state=cfg.ssm_state,
                                      conv_width=cfg.ssm_conv, device=device,
                                      dtype=dt)
+        elif kind == "mla":
+            self.mix = mla.MLAParams(d, mla_config(cfg), device=device,
+                                     dtype=dt)
         else:
             self.mix = attn.AttnParams(d, cfg.n_heads, cfg.n_kv_heads,
                                        cfg.head_dim, bias=cfg.qkv_bias,
                                        device=device, dtype=dt)
-        self.mlp = None
-        if cfg.d_ff:
+        self.mlp = self.moe = None
+        if cfg.is_moe:
+            self.norm2 = nn_.norm(cfg.norm, d, device=device)
+            self.moe = moe.MoEParams(d, cfg.n_experts, cfg.d_ff_expert,
+                                     device=device, dtype=dt)
+        elif cfg.d_ff:
             self.norm2 = nn_.norm(cfg.norm, d, device=device)
             if cfg.act == "gelu_mlp":
                 self.mlp = nn_.MLP(d, cfg.d_ff, device=device, dtype=dt)
@@ -154,8 +178,9 @@ class Layer(nn.Module):
             if m is not None:
                 m.reset_parameters()
         self.mix.reset_parameters(gen)
-        if self.mlp is not None:
-            self.mlp.reset_parameters(gen)
+        for m in (self.mlp, self.moe):
+            if m is not None:
+                m.reset_parameters(gen)
 
 
 class Cache:
@@ -163,26 +188,36 @@ class Cache:
     attention stack holds k/v [L, B, C, K, hd] and pos [L, B, C] int32
     (-1 = empty); a paged pool holds k/v [L, NB, bs, K, hd] and
     ``block_table`` [B, MB] int32 (None on the contiguous layout).  An
-    SSD stack holds its recurrent state instead, conv [L, B, W-1, ch]
-    and h [L, B, H, hd, N] f32, and no k/v/pos.  ``length`` is the
-    number of tokens consumed (a device scalar after a continuous step,
-    so reading it costs no host sync)."""
+    MLA stack holds its latent, c_kv [L, B, C, r] and k_rope [L, B, C,
+    rope], with pos, and no k/v.  An SSD stack holds its recurrent state
+    instead, conv [L, B, W-1, ch] and h [L, B, H, hd, N] f32, and no
+    k/v/pos.  ``length`` is the number of tokens consumed (a device
+    scalar after a continuous step, so reading it costs no host sync)."""
 
     def __init__(self, k=None, v=None, pos=None, length=0,
                  block_table: torch.Tensor | None = None, *, conv=None,
-                 h=None):
+                 h=None, c_kv=None, k_rope=None):
         self.k, self.v, self.pos, self.length = k, v, pos, length
         self.block_table = block_table
         self.conv, self.h = conv, h
+        self.c_kv, self.k_rope = c_kv, k_rope
 
     @property
     def recurrent(self) -> bool:
         return self.h is not None
 
+    @property
+    def latent(self) -> bool:
+        return self.c_kv is not None
+
     def layer(self, i: int):
-        """Layer i's views: an ``attn.KVCache`` or an ``ssd.SSDState``."""
+        """Layer i's views: an ``attn.KVCache``, an ``mla.MLACache`` or an
+        ``ssd.SSDState``."""
         if self.recurrent:
             return ssd.SSDState(conv=self.conv[i], h=self.h[i])
+        if self.latent:
+            return mla.MLACache(c_kv=self.c_kv[i], k_rope=self.k_rope[i],
+                                pos=self.pos[i])
         return attn.KVCache(k=self.k[i], v=self.v[i], pos=self.pos[i])
 
     @property
@@ -200,7 +235,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     prefills contiguous ROW caches even when its pool is paged).  A
     windowed stack keeps a ring of ``window`` rows.  An SSD stack's
     state is f32 whatever ``dtype``, and its size does not depend on
-    ``max_seq``."""
+    ``max_seq``; an MLA stack's latent is ``dtype``, as the reference's
+    (``transformer.py:159``)."""
     if layout not in ("auto", "contiguous", "paged"):
         raise ValueError(f"unknown cache layout {layout!r}")
     check_supported(cfg)
@@ -225,6 +261,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                                 conv_width=cfg.ssm_conv, device=dev)
         return Cache(conv=st.conv.reshape(L, batch, *st.conv.shape[1:]),
                      h=st.h.reshape(L, batch, *st.h.shape[1:]))
+    if cfg.block_kinds[0] == "mla":
+        lat = mla.init_mla_cache(L * batch, max_seq, mla_config(cfg), dtype,
+                                 device=dev)
+        return Cache(c_kv=lat.c_kv.reshape(L, batch, max_seq, -1),
+                     k_rope=lat.k_rope.reshape(L, batch, max_seq, -1),
+                     pos=lat.pos.reshape(L, batch, max_seq))
     window = cfg.window if cfg.block_kinds[0] == "local_attn" else 0
     C = min(max_seq, window) if window else max_seq
     return Cache(
@@ -249,9 +291,13 @@ class LM(nn.Module):
             self.unemb = param(d, V, device=device, dtype=dt)
         self.layers = nn.ModuleList(Layer(cfg, device=device)
                                     for _ in range(cfg.n_layers))
-        self.recurrent = cfg.block_kinds[0] == "ssd"
-        self.window = cfg.window if cfg.block_kinds[0] == "local_attn" else 0
-        self.rotary_dim = int(cfg.head_dim * cfg.rope_pct)
+        kind = cfg.block_kinds[0]
+        self.recurrent = kind == "ssd"
+        self.latent = kind == "mla"
+        self.window = cfg.window if kind == "local_attn" else 0
+        # MLA rotates only the rope part of q and k, over all of it
+        self.rotary_dim = (cfg.qk_rope_dim if self.latent
+                           else int(cfg.head_dim * cfg.rope_pct))
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         nn_.embed_init_(self.emb, gen)
@@ -343,6 +389,34 @@ class LM(nn.Module):
                 o = attn.decode_attend(q, kv, pos=pos, window=self.window)
         return attn.out_proj(p, o)
 
+    def _mla(self, layer: Layer, x, *, mode, lc, rope, pos):
+        """Temporal mixing of an MLA layer (ref ``_mla_mix``,
+        ``transformer.py:363-373``): the expanded form for ``forward``
+        and prefill (whose latents go to the cache from position 0), the
+        absorbed decode for a step.  ``decode_chunk`` refuses MLA before
+        it gets here, as the reference's does."""
+        if mode == "full":
+            return mla.mla_attention(layer.mix, x, rope=rope)
+        if mode == "prefill":
+            return mla.mla_prefill(layer.mix, lc, x, rope=rope)
+        return mla.mla_decode(layer.mix, x, lc, pos=pos, rope=rope)[0]
+
+    def _channel(self, layer: Layer, h, aux: list | None):
+        """The channel mix (ref ``_channel_mix``, ``transformer.py:
+        255-270``): the MoE FFN, whose load-balance loss is appended to
+        ``aux`` when a list is given, or the dense MLP, or nothing."""
+        if layer.moe is not None:
+            cfg = self.cfg
+            y, a = moe.moe_forward(layer.moe, layer.norm2(h), top_k=cfg.top_k,
+                                   capacity_factor=cfg.capacity_factor,
+                                   need_aux=aux is not None)
+            if aux is not None:
+                aux.append(a)
+            return h + y
+        if layer.mlp is not None:
+            return h + layer.mlp(layer.norm2(h))
+        return h
+
     def _ssd(self, layer: Layer, x, *, mode, state):
         """Temporal mixing of an SSD layer: the chunked scan (through
         the kernel dispatch on ``attn_impl``'s rule) for prefill and
@@ -352,7 +426,8 @@ class LM(nn.Module):
         return ssd.ssd_block(layer.mix, x, state, chunk=self.cfg.ssm_chunk,
                              single_step=mode == "decode", impl=impl)
 
-    def _stack(self, h, *, mode, cache=None, rope, pos=None, cur=None):
+    def _stack(self, h, *, mode, cache=None, rope, pos=None, cur=None,
+               aux: list | None = None):
         table = cache.block_table if cache is not None else None
         rows = None
         if table is not None and mode == "decode":
@@ -366,12 +441,14 @@ class LM(nn.Module):
             lc = cache.layer(i) if cache is not None else None
             if self.recurrent:
                 h = h + self._ssd(layer, layer.norm1(h), mode=mode, state=lc)
+            elif self.latent:
+                h = h + self._mla(layer, layer.norm1(h), mode=mode, lc=lc,
+                                  rope=rope, pos=pos)
             else:
                 h = h + self._attn(layer, layer.norm1(h), mode=mode, kv=lc,
                                    rope=rope, pos=pos, cur=cur, table=table,
                                    rows=rows)
-            if layer.mlp is not None:
-                h = h + layer.mlp(layer.norm2(h))
+            h = self._channel(layer, h, aux)
         return h
 
     def _tokens(self, tokens) -> torch.Tensor:
@@ -380,12 +457,15 @@ class LM(nn.Module):
     # -- modes ----------------------------------------------------------------
     @torch.no_grad()
     def forward(self, tokens):
-        """Full-sequence logits [B, S, V]; returns (logits, aux_loss)."""
+        """Full-sequence logits [B, S, V]; returns (logits, aux_loss): the
+        MoE layers' load-balance losses summed, f32 (0 without MoE)."""
         tokens = self._tokens(tokens)
         h = self.embed(tokens)
         rope = self._rope(torch.arange(tokens.shape[1], device=self.device))
-        h = self._stack(h, mode="full", rope=rope)
-        return self.unembed(h), torch.zeros((), device=self.device)
+        aux = []
+        h = self._stack(h, mode="full", rope=rope, aux=aux)
+        return self.unembed(h), (torch.stack(aux).sum() if aux else
+                                 torch.zeros((), device=self.device))
 
     @torch.no_grad()
     def prefill(self, tokens, cache: Cache):
@@ -436,7 +516,8 @@ class LM(nn.Module):
         ``cache_write_chunk`` (clamped at the cache's last row, never
         wrapped); returns (logits [B, n, V], cache).  Row j's logits
         condition on what a decode step at ``pos + j`` would see.
-        Contiguous homogeneous attention stacks only.  At n = 1 it is a
+        Contiguous homogeneous attention stacks only (an MoE channel mix
+        routes the chunk's B*n tokens as one group).  At n = 1 it is a
         decode step whose write does not wrap: the speculative window's
         draft steps."""
         cfg = self.cfg

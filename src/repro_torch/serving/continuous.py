@@ -43,12 +43,15 @@ Invariants, as the reference's:
   call into a row cache whose rows are then written into their slots
   (``slot_write``), with the per-slot decode state set in the same
   pass; the first token is sampled with ``step_keys(skey, plen)``.
-  The reference pads that batch to a power-of-two bucket so each
-  bucket compiles once; PyTorch compiles nothing per shape, so the
-  port prefills only the real rows (sampling is row by row, so the
-  padding changes no token).  The prompt length keeps the reference's
-  rule (``prompt_len``, or the wave's longest prompt rounded up to a
-  bucket), since positions depend on it.
+  The reference pads that batch to a power-of-two bucket of zero-token
+  rows so each bucket compiles once; PyTorch compiles nothing per
+  shape, so the port prefills only the real rows (sampling is row by
+  row, so the padding changes no token), except on an MoE stack: its
+  router groups every token of the call, the padding rows' included,
+  so which tokens an expert drops depends on them, and the port pads
+  as the reference does (``prefill_rows``).  The prompt length keeps
+  the reference's rule (``prompt_len``, or the wave's longest prompt
+  rounded up to a bucket), since positions depend on it.
 - **Block ownership (paged pool, ``cfg.kv_block_size > 0``).**  KV
   rows live in one shared pool of ``pool_blocks`` x ``kv_block_size``
   rows per layer; a request owns the blocks of its slot's table row
@@ -176,43 +179,47 @@ def slot_write(pool: tfm.Cache, rows: tfm.Cache,
     index and a scatter with repeated indices has no defined order on
     the card.  A repeated valid index raises.  The slot's position row
     is rewritten whole (the prompt's rows, -1 beyond), which retires
-    any validity left by its previous occupant; on an SSD stack the
-    slot's conv tail and SSD state are written whole, which retires the
-    state left by its previous occupant."""
+    any validity left by its previous occupant; so are an MLA slot's
+    latent rows (c_kv, k_rope) beside it.  On an SSD stack the slot's
+    conv tail and SSD state are written whole, which retires the state
+    left by its previous occupant."""
     slot_idx = np.asarray(slot_idx)
     if len(slot_idx) != rows.n_slots:
         raise ValueError(f"{len(slot_idx)} slot indices for a row cache "
                          f"of {rows.n_slots} rows")
-    if pool.recurrent != rows.recurrent:
-        raise ValueError("a recurrent-state cache and a KV cache do not mix")
+    if pool.recurrent != rows.recurrent or pool.latent != rows.latent:
+        raise ValueError("a recurrent-state, latent (MLA) and KV cache do "
+                         "not mix")
     if pool.recurrent:
-        fits = all(p.shape[0] == r.shape[0] and p.shape[2:] == r.shape[2:]
-                   for p, r in ((pool.conv, rows.conv), (pool.h, rows.h)))
-        if not fits:
+        leaves = ((pool.conv, rows.conv), (pool.h, rows.h))
+        if not all(p.shape[0] == r.shape[0] and p.shape[2:] == r.shape[2:]
+                   for p, r in leaves):
             raise ValueError(f"row state {tuple(rows.h.shape)} does not "
                              f"fit pool {tuple(pool.h.shape)}")
-    elif (pool.k.shape[0] != rows.k.shape[0]
-            or pool.k.shape[3:] != rows.k.shape[3:]
-            or rows.k.shape[2] > pool.k.shape[2]):
-        raise ValueError(f"row cache {tuple(rows.k.shape)} does not fit "
-                         f"pool {tuple(pool.k.shape)} — refusing to drop "
-                         f"the prefilled rows")
+    else:
+        leaves = (((pool.c_kv, rows.c_kv), (pool.k_rope, rows.k_rope))
+                  if pool.latent else ((pool.k, rows.k), (pool.v, rows.v)))
+        if not all(p.shape[0] == r.shape[0] and p.shape[3:] == r.shape[3:]
+                   and r.shape[2] <= p.shape[2] for p, r in leaves):
+            raise ValueError(f"row cache {tuple(leaves[0][1].shape)} does "
+                             f"not fit pool {tuple(leaves[0][0].shape)} — "
+                             f"refusing to drop the prefilled rows")
     keep = np.nonzero((slot_idx >= 0) & (slot_idx < pool.n_slots))[0]
     dst = slot_idx[keep]
     if len(set(dst.tolist())) != len(dst):
         raise ValueError(f"repeated slot index in {slot_idx.tolist()}")
     if len(keep) == 0:
         return
-    dev = (pool.h if pool.recurrent else pool.k).device
+    dev = leaves[0][0].device
     src = torch.as_tensor(keep, device=dev)
     dst = torch.as_tensor(dst, device=dev)
     if pool.recurrent:
-        pool.conv[:, dst] = rows.conv[:, src]
-        pool.h[:, dst] = rows.h[:, src]
+        for p, r in leaves:
+            p[:, dst] = r[:, src]
         return
-    Cr, C = rows.k.shape[2], pool.k.shape[2]
-    pool.k[:, dst, :Cr] = rows.k[:, src]
-    pool.v[:, dst, :Cr] = rows.v[:, src]
+    Cr, C = rows.pos.shape[2], pool.pos.shape[2]
+    for p, r in leaves:
+        p[:, dst, :Cr] = r[:, src]
     pos = rows.pos[:, src]
     if Cr < C:
         pos = torch.cat([pos, pos.new_full((*pos.shape[:2], C - Cr), -1)],
@@ -307,19 +314,27 @@ def pool_hbm_bytes(cfg: ModelConfig, n_slots: int, max_seq: int,
     table and the reference's per-layer and cache-wide length scalars,
     counted as it counts them) and their sum, for the layout that
     ``cfg.kv_block_size`` selects.  An SSD stack's pool is its f32
-    recurrent state, which the reference counts whole, its cache-wide
-    length scalar included, as ``kv_bytes``, with no ``meta_bytes``."""
+    recurrent state, and an MLA stack's its latent rows, positions and
+    length scalars: the reference finds no ``kv.k`` leaf in either and
+    counts every byte as ``kv_bytes``, with no ``meta_bytes``
+    (``continuous.py:298-301``)."""
     tfm.check_supported(cfg)
     if cfg.paged_kv:
         tfm._check_paged_supported(cfg)
+    L = cfg.n_layers
+    item = torch.empty((), dtype=dtype).element_size()
+    if cfg.block_kinds[0] == "mla":
+        lat = cfg.kv_lora_rank + cfg.qk_rope_dim
+        total = (L * n_slots * max_seq * (lat * item + 4)   # rows, pos
+                 + 4 * L + 4)                   # per-layer and cache length
+        return {"kv_bytes": total, "meta_bytes": 0, "total_bytes": total}
     if cfg.block_kinds[0] == "ssd":
         d_inner = cfg.ssm_expand * cfg.d_model
         conv = (cfg.ssm_conv - 1) * (d_inner + 2 * cfg.ssm_state)
         state = (d_inner // cfg.ssm_headdim) * cfg.ssm_headdim * cfg.ssm_state
         total = 4 * cfg.n_layers * n_slots * (conv + state) + 4
         return {"kv_bytes": total, "meta_bytes": 0, "total_bytes": total}
-    L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    item = torch.empty((), dtype=dtype).element_size()
+    K, hd = cfg.n_kv_heads, cfg.head_dim
     if cfg.paged_kv:
         mb, C, nb = tfm.paged_geometry(cfg, n_slots, max_seq)
         rows, table = nb * cfg.kv_block_size, n_slots * mb
@@ -337,10 +352,11 @@ def _bucket(n: int) -> int:
     return max(bucket_size(n), n)
 
 
-def _wave_arrays(reqs: list[GenRequest], plen: int):
-    """A refill wave's prompts padded (or cut) to ``plen``, its decode
-    budgets after the prefill's token, and its EOS ids (-1 = none)."""
-    toks = np.zeros((len(reqs), plen), np.int64)
+def _wave_arrays(reqs: list[GenRequest], plen: int, rows: int):
+    """A refill wave's prompts padded (or cut) to ``plen`` in ``rows``
+    rows (zero-token rows past the wave), its decode budgets after the
+    prefill's token, and its EOS ids (-1 = none)."""
+    toks = np.zeros((rows, plen), np.int64)
     rem_new = np.ones(len(reqs), np.int64)
     eos_new = np.full(len(reqs), -1, np.int64)
     for j, r in enumerate(reqs):
@@ -467,6 +483,12 @@ class ContinuousBatchingEngine:
         if self.controller is not None:
             self.controller.draft_depth_norm = d / self.draft_depth
         return d
+
+    def prefill_rows(self, n: int) -> int:
+        """Rows of a refill wave of ``n`` prompts: the reference's
+        power-of-two bucket on an MoE stack, whose routing groups the
+        padding rows with the prompts; ``n`` elsewhere."""
+        return _bucket(n) if self.cfg.is_moe else n
 
     def init_cache(self, batch: int, max_seq: int | None = None, *,
                    layout: str = "auto") -> tfm.Cache:
@@ -838,15 +860,18 @@ class DecodeSession:
         plen = self.prompt_len or min(
             _bucket(max(max(len(r.prompt) for r in reqs), 1)),
             eng.max_seq - 1)
-        toks, rem_new, eos_new = _wave_arrays(reqs, plen)
+        nb = eng.prefill_rows(take)
+        toks, rem_new, eos_new = _wave_arrays(reqs, plen, nb)
         slot_idx = np.asarray(free[:take])
         t0 = time.perf_counter()
-        rows = eng.init_cache(take)
+        rows = eng.init_cache(nb)
         logits, rows = eng.params.prefill(torch.from_numpy(toks).to(dev),
                                           rows)
-        slot_write(self._pool, rows, slot_idx)
-        first_h = self._start_slots(logits, slot_idx, plen, rem_new, eos_new,
-                                    reqs)
+        # padding rows go to slot B, out of range: not written
+        slot_write(self._pool, rows, np.pad(slot_idx, (0, nb - take),
+                                            constant_values=B))
+        first_h = self._start_slots(logits[:take], slot_idx, plen, rem_new,
+                                    eos_new, reqs)
         dt = time.perf_counter() - t0
         self.device_s += dt
         self.prefill_s += dt
@@ -969,8 +994,12 @@ class DecodeSession:
                     for n in needs]
         reqs = [self.queue.pop(0) for _ in wave]
         n, npb = len(reqs), -(-plen // bs)
-        toks, rem_new, eos_new = _wave_arrays(reqs, plen)
-        table_rows = np.zeros((n, eng.blocks_per_slot), np.int32)
+        nb = eng.prefill_rows(n)
+        toks, rem_new, eos_new = _wave_arrays(reqs, plen, nb)
+        # padding rows' entries and slots are out of range: not written
+        table_rows = np.full((nb, eng.blocks_per_slot), eng.pool_blocks,
+                             np.int32)
+        table_rows[:n] = 0
         for j, blocks in enumerate(assigned):        # trash-padded
             table_rows[j, :len(blocks)] = blocks
         slot_idx = np.asarray(free[:n])
@@ -978,13 +1007,15 @@ class DecodeSession:
         self.peak_blocks_in_use = max(self.peak_blocks_in_use,
                                       allocatable - len(self._free_blocks))
         t0 = time.perf_counter()
-        rows = eng.init_cache(n, npb * bs, layout="contiguous")
+        rows = eng.init_cache(nb, npb * bs, layout="contiguous")
         logits, rows = eng.params.prefill(torch.from_numpy(toks).to(dev),
                                           rows)
-        paged_slot_write(self._pool, rows, slot_idx, table_rows,
-                         block_size=bs, n_pref_blocks=npb)
-        first_h = self._start_slots(logits, slot_idx, plen, rem_new, eos_new,
-                                    reqs)
+        paged_slot_write(self._pool, rows,
+                         np.pad(slot_idx, (0, nb - n),
+                                constant_values=eng.n_slots),
+                         table_rows, block_size=bs, n_pref_blocks=npb)
+        first_h = self._start_slots(logits[:n], slot_idx, plen, rem_new,
+                                    eos_new, reqs)
         dt = time.perf_counter() - t0
         self.device_s += dt
         self.prefill_s += dt
