@@ -31,11 +31,34 @@ not 0.  Phases:
                replayed from a CUDA graph), ``call_ms`` the time per call
                issued back to back from Python, and a split row's
                ``cold_ms`` device time on inputs that miss the L2;
-  4. serve   — the full-width DistilBERT with seeded weights through the
-               launcher's ``serve_classifier`` on ``--path gated`` (bio
-               controller, batch 64) and on ``--path auto``; each path runs
+  4. train_classifier — the launcher's ``build_classifier()`` on the card
+               (the reference's 3-layer, d 64 DistilBERT, 150 steps of
+               AdamW), timed; the same init trained on the CPU over the
+               same batches; on the launcher's 2,000 requests the full and
+               exit-1 logits' largest differences, each head's accuracy,
+               and predictions that must agree on 99 % or more; the last
+               ``ce`` must be below the first;
+     serve   — the launcher's ``serve_classifier`` on ``--path gated`` (bio
+               controller, batch 64) and on ``--path auto``, first on the
+               trained default (trained within the run), then with
+               ``--full-width`` (6 layers, d 768, seeded weights); each run
                with the launch counters zeroed just before and read just
                after, and must have launched every kernel of the path;
+     system  — ``tests/test_system.py``'s claims on the card-trained
+               classifier (its fixed latency models, ``ClosedLoopSimulator``,
+               the proxy after 2 layers): open admission 1.0 and bio below
+               0.9, bio's busy time and energy below open's, an accuracy
+               drop under 0.10, the full model at least as accurate as the
+               proxy, mean entropy at difficulty 0.95 above that at 0.2;
+               then ``table3_row``, printed only: bio and bio-adaptive
+               (target 0.58) against open over 2,000 requests, latency
+               models calibrated on the card (time and energy saving %,
+               admission rate, accuracy drop);
+     resnet  — ResNet-18 (100 classes, 64 x 64, seed 1) through
+               ``CallableEngineAdapter`` and ``Server`` on the direct path,
+               100 requests; logits card vs CPU from the same weights in
+               f32 within 1e-4 of the largest; ms per request beside the
+               card's name and power limit;
   5. parity  — the proxy entropy from the kernel against the plain version,
                and full-model logits on the card against the CPU (1e-3);
   6. breakdown — the gated step's parts at batch 64, timed on the card;
@@ -209,9 +232,10 @@ not 0.  Phases:
                requests and prefill logits within 1e-3; ``decode_graph``
                for minicpm3;
  18. kernels — one line with every kernel's numbers (the chunk entry
-               too; each attention kernel's launches summed over its
-               main paths, stablelm's and granite's, with
-               ``launches_by_path``, and granite's G = 3 case as ``g3``);
+               too; each kernel's launches summed over its main paths,
+               with ``launches_by_path``: entropy's the four classify
+               runs, each attention kernel's stablelm's and granite's;
+               granite's G = 3 case as ``g3``);
  19. the last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero without CUDA or without the repo.
@@ -235,6 +259,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.core import (AdaptiveThreshold,  # noqa: E402
+                              AdmissionController, DecayingThreshold,
+                              EnergyMeter, LatencyModel)
 from repro_torch.core.energy import energy_model_for  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
@@ -245,13 +272,20 @@ from repro_torch.kernels.runtime import (ATTN_BF16_ROW_TOL,  # noqa: E402
                                          row_scaled_error)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
-from repro_torch.models import distilbert  # noqa: E402
+from repro_torch.models import distilbert, resnet  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving import continuous as cont  # noqa: E402
 from repro_torch.serving import sampling as smp  # noqa: E402
+from repro_torch.serving import (PATH_DIRECT,  # noqa: E402
+                                 AdmissionMiddleware, CallableEngineAdapter,
+                                 ClassifierEngine, ClosedLoopSimulator,
+                                 DirectPath, DynamicBatcher, InferRequest,
+                                 Oracle, OracleEngine, Server, ServerConfig,
+                                 closed_loop_arrivals)
 from repro_torch.serving.engine import GenerationEngine  # noqa: E402
 from repro_torch.serving.gated import make_gated_classify_step  # noqa: E402
-from repro_torch.training.data import ClassificationData  # noqa: E402
+from repro_torch.training import (ClassificationData,  # noqa: E402
+                                  train_classifier)
 
 F32_TOL = 1e-4          # tests/test_kernels.py:30
 BF16_TOL = 3e-2
@@ -600,6 +634,55 @@ def _two_graphs(x: torch.Tensor, calls: int = 4, rounds: int = 8) -> None:
     del graphs
 
 
+def phase_train_classifier():
+    """The launcher's ``build_classifier()`` on the card, timed; then the
+    same init (drawn on the card from seed 0, copied across) trained on
+    the CPU over the same batches, and the two held against each other
+    on the launcher's 2,000 requests through the served heads (full,
+    and the proxy after ``--exit-layer 1``)."""
+    t0 = time.perf_counter()
+    cfg, model, data, log = serve.build_classifier()
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    fail_unless(log[-1]["ce"] < log[0]["ce"],
+                f"train_classifier: ce {log[0]['ce']} -> {log[-1]['ce']}")
+    init = distilbert.init(cfg, seed=0, device="cuda")
+    cpu_model = distilbert.DistilBERT(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               init.state_dict().items()})
+    t0 = time.perf_counter()
+    cpu_model, cpu_log = train_classifier(
+        cpu_model, data.train_batches(32), steps=150,
+        verbose=False, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    toks, labels, _ = data.sample(2000)
+    heads = {}
+    with torch.inference_mode():
+        for name, m, x in (("card", model, torch.from_numpy(toks).long()
+                            .cuda()),
+                           ("cpu", cpu_model, torch.from_numpy(toks).long())):
+            heads[name] = (m.logits(x).cpu(),
+                           m.early_exit_logits(x, exit_layer=1).cpu())
+    (cf, ce), (pf, pe) = heads["card"], heads["cpu"]
+    agree = float((cf.argmax(-1) == pf.argmax(-1)).float().mean())
+    agree_exit = float((ce.argmax(-1) == pe.argmax(-1)).float().mean())
+    lab = torch.from_numpy(labels).long()
+    fail_unless(bool(torch.isfinite(cf).all() and torch.isfinite(ce).all()),
+                "train_classifier: finite logits")
+    fail_unless(min(agree, agree_exit) >= 0.99,
+                f"train_classifier: card and CPU predictions agree on "
+                f"{agree} (full) and {agree_exit} (exit) of 2,000")
+    emit(phase="train_classifier", steps=150, card_s=card_s, cpu_s=cpu_s,
+         ce_first=log[0]["ce"], ce_last=log[-1]["ce"],
+         cpu_ce_last=cpu_log[-1]["ce"],
+         full_logits_max_abs_diff=(cf - pf).abs().max().item(),
+         exit_logits_max_abs_diff=(ce - pe).abs().max().item(),
+         predictions_agree=agree, exit_predictions_agree=agree_exit,
+         accuracy_full=float((cf.argmax(-1) == lab).float().mean()),
+         accuracy_exit1=float((ce.argmax(-1) == lab).float().mean()))
+    return cfg, model, data
+
+
 def _serve(path: str, extra: list[str]):
     args = serve.parser().parse_args(
         ["--device", "cuda", "--path", path, "--controller", "bio",
@@ -623,16 +706,163 @@ def _serve(path: str, extra: list[str]):
     fail_unless(all(math.isfinite(v) for v in summary.values()
                     if isinstance(v, float)), f"{path}: no NaN in summary")
     fail_unless(launches > 0, f"{path}: entropy kernel launched on the path")
-    emit(phase="serve", seconds=secs,
+    emit(phase="serve", seconds=secs, full_width="--full-width" in extra,
          entropy_launches=launches, **summary)
     return launches
 
 
 def phase_serve():
-    return {
-        "gated": _serve("gated", ["--max-batch", "64", "--requests", "256"]),
-        "auto": _serve("auto", ["--requests", "300"]),
-    }
+    """Each path on the launcher's trained default (trained within the
+    run) and on the full-width model."""
+    out = {}
+    for tag, extra in (("", []), ("_full_width", ["--full-width"])):
+        out["gated" + tag] = _serve(
+            "gated", ["--max-batch", "64", "--requests", "256", *extra])
+        out["auto" + tag] = _serve("auto", ["--requests", "300", *extra])
+    return out
+
+
+def _policy(oracle, labels, em, direct_lat, batched_lat, *, enabled,
+            adaptive_target=None, n=2000):
+    """One Table III policy through ``Server`` + ``OracleEngine``, as
+    ``benchmarks/table3_ablation.py`` runs it (tau_inf 0.6, k 3)."""
+    if adaptive_target is not None:
+        th = AdaptiveThreshold(base=DecayingThreshold(1.0, 0.6, 3.0),
+                               target_rate=adaptive_target, kp=0.6,
+                               ki=0.08)
+    else:
+        th = DecayingThreshold(tau0=1.0, tau_inf=0.6, k=3.0)
+    server = Server(
+        OracleEngine(oracle, DirectPath(direct_lat),
+                     DynamicBatcher(batched_lat, max_batch_size=16,
+                                    queue_window_s=0.004)),
+        ServerConfig(path="auto", energy_model=em),
+        middleware=[AdmissionMiddleware(AdmissionController(
+            threshold=th, enabled=enabled,
+            meter=EnergyMeter(model=em)))])
+    server.serve(closed_loop_arrivals(n, think_s=direct_lat.t_fixed_s * 0.8,
+                                      labels=labels))
+    return server.summary()
+
+
+def phase_system(cfg, model, data):
+    """``tests/test_system.py``'s claims on the card-trained classifier
+    (its fixed latency models, ``ClosedLoopSimulator``, the proxy after
+    2 layers), then a Table III-shaped row pair, printed only, with
+    latency models calibrated on the card."""
+    em = serve.device_energy_model(torch.device("cuda"))
+    engine = ClassifierEngine(cfg, model, exit_layer=2, device="cuda")
+    n = 800
+    toks, labels, _ = data.sample(n)
+    proxy_pred, entropy, _, _ = engine.proxy_scores(toks)
+    full_pred, _ = engine.classify(toks)
+    oracle = Oracle(full_pred=full_pred, proxy_pred=proxy_pred,
+                    entropy=entropy, labels=labels,
+                    proxy_latency=LatencyModel(0.0003, 0.0))
+    reqs = closed_loop_arrivals(n, think_s=0.002)
+
+    def run(enabled):
+        ctrl = AdmissionController(
+            threshold=DecayingThreshold(tau0=1.0, tau_inf=0.45, k=3.0),
+            enabled=enabled, meter=EnergyMeter(model=em))
+        return ClosedLoopSimulator(
+            oracle=oracle, controller=ctrl,
+            direct=DirectPath(LatencyModel(0.002, 0.003)),
+            batched=DynamicBatcher(LatencyModel(0.015, 0.001),
+                                   max_batch_size=16, queue_window_s=0.004),
+            energy_model=em, path="auto").run(reqs)
+
+    m_open, m_bio = run(False), run(True)
+    fail_unless(m_open.admission_rate == 1.0 and m_bio.admission_rate < 0.9,
+                f"system: admission open {m_open.admission_rate}, "
+                f"bio {m_bio.admission_rate}")
+    fail_unless(m_bio.busy_s < m_open.busy_s
+                and m_bio.energy_j < m_open.energy_j,
+                "system: bio saves busy time and energy")
+    fail_unless(m_open.accuracy - m_bio.accuracy < 0.10,
+                f"system: accuracy {m_open.accuracy} -> {m_bio.accuracy}")
+    toks, labels, _ = data.sample(600)
+    proxy_pred, _, _, _ = engine.proxy_scores(toks)
+    full_pred, _ = engine.classify(toks)
+    acc_full = float(np.mean(full_pred == labels))
+    acc_proxy = float(np.mean(proxy_pred == labels))
+    fail_unless(acc_full >= acc_proxy,
+                f"system: full {acc_full} vs proxy {acc_proxy}")
+    diff = np.concatenate([np.full(300, 0.2), np.full(300, 0.95)])
+    toks, _, _ = data.sample(600, difficulty=diff)
+    _, entropy, _, _ = engine.proxy_scores(toks)
+    ent_easy, ent_hard = float(entropy[:300].mean()), float(
+        entropy[300:].mean())
+    fail_unless(ent_hard > ent_easy,
+                f"system: entropy hard {ent_hard} vs easy {ent_easy}")
+    emit(phase="system", open=m_open.summary(), bio=m_bio.summary(),
+         accuracy_full=acc_full, accuracy_proxy=acc_proxy,
+         entropy_easy=ent_easy, entropy_hard=ent_hard)
+    # Table III's shape at latencies measured on the card
+    toks, labels, _ = data.sample(2000)
+    proxy_pred, entropy, _, t_proxy = engine.proxy_scores(toks)
+    full_pred, _ = engine.classify(toks)
+    oracle = Oracle(full_pred=full_pred, proxy_pred=proxy_pred,
+                    entropy=entropy, labels=labels,
+                    proxy_latency=LatencyModel(t_proxy / 2000, 0.0))
+    times = engine.calibrate(seq_len=toks.shape[1], buckets=(1, 4, 16))
+    t_tok = max((times[16] - times[1]) / 15, 1e-5)
+    base = max(times[1] - t_tok, 1e-4)
+    lats = (LatencyModel(base, t_tok), LatencyModel(base * 6, t_tok))
+    std = _policy(oracle, labels, em, *lats, enabled=False)
+    for name, kw in (("bio-controller", {}),
+                     ("bio-adaptive(target=0.58)",
+                      {"adaptive_target": 0.58})):
+        s = _policy(oracle, labels, em, *lats, enabled=True, **kw)
+        emit(phase="table3_row", policy=name, against="standard(open-loop)",
+             time_saving_pct=100 * (std["busy_s"] - s["busy_s"])
+             / std["busy_s"],
+             energy_saving_pct=100 * (std["energy_kwh"] - s["energy_kwh"])
+             / std["energy_kwh"],
+             admission_rate=s["admission_rate"],
+             accuracy_drop_pp=100 * (std["accuracy"] - s["accuracy"]),
+             calibrated_ms={b: t * 1e3 for b, t in times.items()})
+
+
+RESNET_TOL = 1e-4     # of the largest |logit|, card vs CPU, f32, TF32 off
+
+
+def phase_resnet(smi: str):
+    """ResNet-18 (100 classes, 64 x 64, seed 1: the reference's
+    ``resnet_setup``) through ``CallableEngineAdapter`` and ``Server`` on
+    the direct path, 100 requests 0.25 s apart; every answer held against
+    the same weights on the CPU."""
+    model = resnet.init(100, seed=1, device="cuda")
+    cpu_model = resnet.ResNet18(100, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    n = 100
+    imgs = torch.randn(n, 1, 64, 64, 3,
+                       generator=torch.Generator().manual_seed(0))
+    cards = imgs.cuda()
+    server = Server(CallableEngineAdapter(model, name="resnet18"),
+                    ServerConfig(path=PATH_DIRECT))
+    resp = server.serve([InferRequest(rid=i, arrival_s=0.25 * i,
+                                      payload=cards[i]) for i in range(n)])
+    fail_unless(sorted(r.rid for r in resp) == list(range(n))
+                and all(r.path == PATH_DIRECT for r in resp),
+                "resnet: every request answered once on the direct path")
+    got = torch.cat([r.output for r in sorted(resp, key=lambda r: r.rid)])
+    with torch.inference_mode():
+        want = cpu_model(imgs.reshape(n, 64, 64, 3))
+    err = (got.cpu() - want).abs().max().item()
+    scale = want.abs().max().item()
+    fail_unless(got.shape == (n, 100) and bool(torch.isfinite(got).all())
+                and err <= RESNET_TOL * scale,
+                f"resnet: card vs CPU logits {err} of {scale}")
+    lat = np.array([r.latency_s for r in resp])
+    with torch.inference_mode():
+        device_ms = time_ms(lambda: model(cards[0]), 20)
+    emit(phase="resnet", requests=n, image=[64, 64, 3], classes=100,
+         logits_max_abs_err=err, max_abs_logit=scale,
+         ms_per_request=server.busy_s / n * 1e3,
+         p50_latency_ms=float(np.percentile(lat, 50)) * 1e3,
+         device_ms_batch1=device_ms, nvidia_smi=smi)
 
 
 def _gated_batch():
@@ -2986,11 +3216,15 @@ def main(argv: list[str]) -> int:
     if argv:
         decode_graph_only()
         return 0
-    name, _ = phase_device()
+    name, smi = phase_device()
     peaks = PEAKS["pcie" if "pcie" in name.lower() else "sxm"]
     phase_build()
     max_err, main_row, ent_schedules, floor_ms = phase_kernel(peaks)
+    trained = phase_train_classifier()
     launches = phase_serve()
+    phase_system(*trained)
+    del trained
+    phase_resnet(smi)
     cfg, model, x = _gated_batch()
     phase_parity(cfg, model, x)
     phase_breakdown(cfg, model, x, peaks)

@@ -2,20 +2,29 @@
 ``repro.launch.serve`` on one card, in its two modes.
 
 ``--mode classify`` (the default):
-It builds the FULL-WIDTH DistilBERT (6 layers, d 768, 12 heads, vocab
-30522; ``--layers`` cuts depth only) from a flat reference checkpoint
-(``--params PATH.npz``, as ``repro.training.checkpoint.save`` writes
-it) or from a seeded ``torch.Generator``, stands up
-``repro_torch.serving.api.Server`` with the closed-loop controller as
-admission middleware, replays ``ClassificationData(vocab=30522,
-seq_len=128)`` requests on the chosen path, and prints the JSON
-summary.  The port only serves: it trains nothing.
+It trains the reference's classifier first, as ``repro.launch.serve``
+does (``build_classifier``: a 3-layer, d 64 DistilBERT, vocab 600,
+trained 150 steps of ``training.train_classifier`` on
+``ClassificationData(vocab=600, seq_len=32, seed=1)``, on the card),
+stands up ``repro_torch.serving.api.Server`` with the closed-loop
+controller as admission middleware, replays that data's requests on the
+chosen path with the proxy head after ``--exit-layer`` layers, and
+prints the JSON summary.  The classifier is built from seed 0 whatever
+``--seed`` says, as the reference's is, so ``--seed`` moves only the
+arrivals.  ``--full-width`` serves the FULL-WIDTH DistilBERT instead (6
+layers, d 768, 12 heads, vocab 30522; ``--layers`` cuts depth only,
+``--seq-len`` sets the request length, 128 by default) with weights
+drawn from ``--seed``, untrained.  ``--params PATH.npz`` loads a flat
+reference checkpoint (as ``repro.training.checkpoint.save`` writes it)
+into whichever of the two is chosen, and then nothing is trained.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --path gated
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --controller bio --path auto --requests 400
+    PYTHONPATH=src python -m repro_torch.launch.serve --full-width \
+        --path gated --max-batch 64
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-        --layers 1 --requests 32          # plain-PyTorch path, no card
+        --requests 32                     # plain-PyTorch path, no card
 
 ``--path auto`` precomputes an ``Oracle`` with the live engine (proxy
 entropy through the CUDA kernel, full-model predictions), calibrates
@@ -108,6 +117,7 @@ from repro_torch.serving.workload import bursty_arrivals, poisson_arrivals
 from repro_torch.telemetry.carbon import CarbonTracker
 from repro_torch.telemetry.tracker import Tracker
 from repro_torch.training.data import ClassificationData
+from repro_torch.training.train_loop import train_classifier
 
 
 def device_energy_model(device: torch.device) -> EnergyModel:
@@ -117,17 +127,52 @@ def device_energy_model(device: torch.device) -> EnergyModel:
     return EnergyModel()
 
 
-def build_classifier(args, device: torch.device):
-    """Full-width DistilBERT (depth ``--layers``) + the request data."""
-    cfg = distilbert.config(
-        n_layers=6 if args.layers is None else args.layers)
+# the reference's classify model (repro/launch/serve.py:125-132)
+TRAINED_CFG = dict(n_layers=3, d_model=64, n_heads=4, d_ff=128, vocab=600,
+                   max_pos=48)
+TRAINED_SEQ_LEN = 32
+
+
+def build_classifier(seed: int = 0, steps: int = 150, device="cuda"):
+    """The reference's ``build_classifier``: the 3-layer, d 64
+    DistilBERT drawn from ``seed`` and trained ``steps`` steps on
+    ``device`` (the card by default; resolved before anything is
+    built) -> (cfg, model, data, the trainer's log)."""
+    dev = resolve_device(device)
+    cfg = distilbert.config(**TRAINED_CFG)
+    model = distilbert.init(cfg, seed=seed, device=dev)
+    data = ClassificationData(vocab=cfg["vocab"], seq_len=TRAINED_SEQ_LEN,
+                              seed=seed + 1)
+    model, log = train_classifier(model, data.train_batches(32),
+                                  steps=steps, verbose=False, device=dev)
+    return cfg, model, data, log
+
+
+def classify_model(args, device: torch.device):
+    """The served classifier and its request data -> (cfg, model, data):
+    ``build_classifier()`` by default; the full-width model with
+    ``--full-width``; ``--params`` loaded into either, untrained."""
+    if not args.full_width and (args.layers is not None
+                                or args.seq_len is not None):
+        raise ValueError("--layers and --seq-len size the --full-width "
+                         "model; the trained classifier is the "
+                         "reference's")
+    if args.full_width:
+        cfg = distilbert.config(
+            n_layers=6 if args.layers is None else args.layers)
+        seq_len, seed = args.seq_len or 128, args.seed
+    elif not args.params:
+        return build_classifier(device=device)[:3]
+    else:
+        cfg, seq_len, seed = (distilbert.config(**TRAINED_CFG),
+                              TRAINED_SEQ_LEN, 0)
     if args.params:
         model = distilbert_from_numpy(cfg, load_flat_npz(args.params),
                                       device=device)
     else:
-        model = distilbert.init(cfg, seed=args.seed, device=device)
-    data = ClassificationData(vocab=cfg["vocab"], seq_len=args.seq_len,
-                              seed=args.seed + 1)
+        model = distilbert.init(cfg, seed=seed, device=device)
+    data = ClassificationData(vocab=cfg["vocab"], seq_len=seq_len,
+                              seed=seed + 1)
     return cfg, model, data
 
 
@@ -168,7 +213,7 @@ def serve_classifier(args):
                            meter=EnergyMeter(model=em))
     path = canonical_path(args.path)
 
-    cfg, model, data = build_classifier(args, device)
+    cfg, model, data = classify_model(args, device)
     toks, labels, _ = data.sample(args.requests)
     ctrl = make_controller(args.controller, weights=args.weights,
                            target_rate=args.target_rate, energy_model=em)
@@ -394,16 +439,22 @@ def parser() -> argparse.ArgumentParser:
                     choices=["balanced", "performance", "ecology"],
                     default="balanced")
     ap.add_argument("--target-rate", type=float, default=0.6)
+    ap.add_argument("--full-width", action="store_true",
+                    help="classify mode: serve the full-width DistilBERT "
+                         "(6 layers, d 768, seeded from --seed, untrained) "
+                         "instead of the trained 3-layer, d 64 classifier")
     ap.add_argument("--params", default=None, metavar="PATH.npz",
-                    help="flat reference checkpoint (repro.training."
-                         "checkpoint.save); default: seeded init")
+                    help="classify mode: flat reference checkpoint "
+                         "(repro.training.checkpoint.save) loaded into "
+                         "the chosen model, which is then not trained")
     ap.add_argument("--layers", type=int, default=None,
                     help="depth (width stays full); default: 6 encoder "
-                         "layers in classify mode, the arch's own depth "
+                         "layers with --full-width, the arch's own depth "
                          "in generate mode")
     ap.add_argument("--exit-layer", type=int, default=1,
                     help="layers under the early-exit proxy head")
-    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--seq-len", type=int, default=None,
+                    help="--full-width: request length (default 128)")
     ap.add_argument("--requests", type=int, default=2000)
     ap.add_argument("--qps", type=float, default=150.0)
     ap.add_argument("--traffic", choices=["poisson", "bursty"],

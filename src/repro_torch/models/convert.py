@@ -1,4 +1,5 @@
-"""Carry reference (JAX) DistilBERT and decoder-LM weights into the port.
+"""Carry reference (JAX) DistilBERT, decoder-LM and ResNet-18 weights
+into the port.
 
 Two sources, neither needing JAX:
   - the reference's param pytree as numpy arrays (nested dicts and
@@ -9,7 +10,8 @@ Two sources, neither needing JAX:
 Both flatten to the reference's key paths, which are the port module's
 ``state_dict`` keys with '/' for '.'; every weight keeps its reference
 shape (dense ``[d_in, d_out]``, applied as ``x @ W``), so nothing is
-transposed.  A missing or extra key, or a shape that differs, raises —
+transposed but ResNet-18's convolutions (HWIO in the reference, OIHW in
+the port).  A missing or extra key, or a shape that differs, raises —
 as ``repro.training.checkpoint.load_into`` does.
 """
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.distilbert import DistilBERT
+from repro_torch.models.resnet import ResNet18
 from repro_torch.models.transformer import LM
 
 
@@ -107,4 +110,18 @@ def lm_from_numpy(cfg: ModelConfig, tree, *, device="cuda") -> LM:
     key or a shape mismatch, as :func:`load_state` does."""
     model = LM(cfg, device=resolve_device(device))
     load_state(model, unstack_layers(flatten_tree(tree), cfg.n_layers))
+    return model.eval()
+
+
+def resnet_from_numpy(tree, *, device="cuda") -> ResNet18:
+    """A port ResNet-18 on ``device`` holding the weights of the
+    reference's ``resnet.init`` tree (numpy leaves, or an already-flat
+    dict), its class count read from ``fc_b``.  Every 4-D leaf (a
+    convolution) goes HWIO -> OIHW.  Raises on a missing or extra key or
+    a shape mismatch, as :func:`load_state` does."""
+    flat = {k: np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a
+            for k, a in flatten_tree(tree).items()}
+    n_classes = flat["fc_b"].shape[0] if "fc_b" in flat else 1000
+    model = ResNet18(n_classes, device=resolve_device(device))
+    load_state(model, flat)
     return model.eval()

@@ -13,6 +13,8 @@
     statistics.
   - :class:`ContinuousEngineAdapter` — generation through the slot-pool
     decoder's incremental session (the generate path).
+  - :class:`CallableEngineAdapter` — any ``payload -> output`` function
+    (ResNet-18 in the smoke) on the direct path, timed per call.
 
 The invariants are the reference's (virtual time on one monotone
 clock, admission outside the engine, every submitted request in
@@ -28,6 +30,7 @@ from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
+import torch
 
 from repro_torch.kernels.runtime import resolve_device, synchronize
 from repro_torch.serving.api import (PATH_CONTINUOUS, PATH_DIRECT,
@@ -428,3 +431,62 @@ class ContinuousEngineAdapter:
         while not self._session.idle:
             out.extend(self._advance_once(now, ctx))
         return out
+
+
+# ---------------------------------------------------------------------------
+# generic callable backend
+# ---------------------------------------------------------------------------
+
+@dataclass
+class CallableEngineAdapter:
+    """Serve any ``payload -> output`` function on the direct path (no
+    proxy head, so no host-side triage signal).  The first call runs
+    untimed (on the card it creates the context and picks the
+    convolution algorithms); each later call is timed with the card
+    synchronised on both sides."""
+    fn: Callable
+    name: str = "callable"
+    device: str | torch.device = "cuda"
+
+    _free_at: float = field(default=0.0, init=False)
+    _warm: bool = field(default=False, init=False)
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+
+    def capabilities(self) -> EngineCapabilities:
+        return EngineCapabilities(name=self.name, kind="classify",
+                                  paths=(PATH_DIRECT,))
+
+    def warmup(self, ctx) -> None:
+        self._free_at = 0.0
+
+    def load(self) -> LoadState:
+        return LoadState()
+
+    def pressure(self, now: float) -> float:
+        return max(self._free_at - now, 0.0)
+
+    def triage(self, req, now, ctx) -> TriageResult:
+        return TriageResult(L=None)
+
+    @torch.inference_mode()
+    def submit(self, req, path, now, ctx) -> list[Completion]:
+        if not self._warm:
+            self._warm = True
+            self.fn(req.payload)
+        synchronize(self.device)
+        t0 = time.perf_counter()
+        out = self.fn(req.payload)
+        synchronize(self.device)
+        dt = time.perf_counter() - t0
+        start = max(now, self._free_at)
+        finish = start + dt
+        self._free_at = finish
+        return [Completion([req], [out], PATH_DIRECT, start, finish)]
+
+    def step(self, now, ctx) -> list[Completion]:
+        return []
+
+    def drain(self, now, ctx) -> list[Completion]:
+        return []

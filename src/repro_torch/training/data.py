@@ -5,7 +5,8 @@ Two classes, each example built from class-conditioned token
 distributions with a per-example **difficulty** knob.  Difficulty
 controls class separability, so model confidence/entropy varies across
 examples the way it does on real data — exactly the variance the
-controller's L(x) exploits.  Same seed, same tokens as the reference.
+controller's L(x) exploits.  Same seed, same tokens as the reference,
+``train_batches`` included.
 """
 from __future__ import annotations
 
@@ -43,3 +44,17 @@ class ClassificationData:
             keep = rng.random(self.seq_len) >= difficulty[i]
             toks[i] = np.where(keep, cls_toks, toks[i])
         return toks.astype(np.int32), labels.astype(np.int32), difficulty
+
+    def train_batches(self, batch: int, seed: int | None = None):
+        """Infinite (tokens, labels) batches, the i-th drawn with seed
+        ``(seed or self.seed) + i`` (a seed of 0 counts as none), from a
+        copy whose seed is overwritten at each batch: the reference's
+        stream, batch for batch."""
+        ds = ClassificationData(self.vocab, self.seq_len,
+                                self.n_class_tokens,
+                                seed if seed is not None else self.seed + 1)
+        i = 0
+        while True:
+            ds.seed = (seed or self.seed) + i
+            yield ds.sample(batch)[:2]
+            i += 1

@@ -18,10 +18,13 @@ import numpy as np  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
-from repro_torch.models import convert, distilbert, ssd  # noqa: E402
+from repro_torch.models import convert, distilbert, resnet, ssd  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving import continuous, engine, gated  # noqa: E402
-from repro_torch.serving.adapters import GatedEngineAdapter  # noqa: E402
+from repro_torch.serving.adapters import (  # noqa: E402
+    CallableEngineAdapter, GatedEngineAdapter)
+from repro_torch.training import (ClassificationData,  # noqa: E402
+                                  train_classifier)
 
 ROOT = Path(__file__).resolve().parents[1]
 SMALL = dict(n_layers=1, d_model=16, n_heads=2, d_ff=32, vocab=50,
@@ -54,7 +57,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         [sys.executable, "-c", _HYGIENE, str(ROOT / "src"), str(ROOT)],
         capture_output=True, text=True, timeout=120, env=_env(), check=True)
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 45                       # every module was imported
+    assert int(n) >= 61                       # every module was imported
     assert bad.strip() == "[]"
 
 
@@ -64,6 +67,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
     model = distilbert.init(cfg, seed=0, device="cpu")
     tree = {k.replace(".", "/"): v.numpy()
             for k, v in model.state_dict().items()}
+    rtree = {k.replace(".", "/"): v.numpy().transpose(2, 3, 1, 0)
+             if v.dim() == 4 else v.numpy() for k, v in
+             resnet.init(10, device="cpu").state_dict().items()}
+    # no batch is drawn: the trainer resolves its device first
+    batches = iter(())
     calls = [
         lambda: distilbert.init(cfg),
         lambda: convert.distilbert_from_numpy(cfg, tree),
@@ -73,6 +81,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
                                   tau_schedule=lambda t: 0.5),
         lambda: GatedEngineAdapter(cfg, model),
         lambda: tserve.serve_classifier(tserve.parser().parse_args([])),
+        lambda: tserve.serve_classifier(tserve.parser().parse_args(
+            ["--full-width"])),
+        lambda: tserve.build_classifier(),
+        lambda: train_classifier(model, batches, steps=1),
+        lambda: resnet.init(),
+        lambda: convert.resnet_from_numpy(rtree),
+        lambda: CallableEngineAdapter(lambda x: x),
     ]
     lm_cfg = get_smoke_config("stablelm-3b")
     lm = tfm.init_lm(lm_cfg, 0, device="cpu")

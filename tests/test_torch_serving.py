@@ -307,7 +307,7 @@ def test_launcher_serves_full_width_on_cpu(path, tmp_path):
     summary finite, and no kernel launched on the CPU."""
     before = tent.launches
     args = tserve.parser().parse_args(
-        ["--device", "cpu", "--path", path, "--layers", "1",
+        ["--device", "cpu", "--path", path, "--full-width", "--layers", "1",
          "--seq-len", "16", "--requests", "24", "--max-batch", "8",
          "--runs", str(tmp_path)])
     summary, server = tserve.serve_classifier(args)
@@ -318,3 +318,36 @@ def test_launcher_serves_full_width_on_cpu(path, tmp_path):
     assert all(math.isfinite(v) for v in summary.values()
                if isinstance(v, float))
     assert tent.launches == before
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Torch's intra-op threads spin while they wait, and the test
+    workers train at once: train on one thread (as fast alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("path", ["auto", "gated"])
+def test_launcher_serves_trained_default_on_cpu(path, tmp_path, monkeypatch,
+                                                one_torch_thread):
+    """The launcher's default: the reference's 3-layer, d 64 classifier
+    trained first (here 5 steps, not 150), then served; ``--layers`` and
+    ``--seq-len`` size only the full-width model."""
+    build = tserve.build_classifier
+    monkeypatch.setattr(tserve, "build_classifier",
+                        lambda **kw: build(steps=5, **kw))
+    args = tserve.parser().parse_args(
+        ["--device", "cpu", "--path", path, "--requests", "24",
+         "--max-batch", "8", "--runs", str(tmp_path)])
+    summary, server = tserve.serve_classifier(args)
+    assert sorted(r.rid for r in server.responses) == list(range(24))
+    assert all(r.output in (0, 1) for r in server.responses)
+    assert (summary["n_layers"], summary["d_model"]) == (3, 64)
+    assert all(math.isfinite(v) for v in summary.values()
+               if isinstance(v, float))
+    with pytest.raises(ValueError, match="--full-width"):
+        tserve.serve_classifier(tserve.parser().parse_args(
+            ["--device", "cpu", "--layers", "1"]))
