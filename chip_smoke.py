@@ -248,6 +248,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -413,6 +414,23 @@ def sass_count(lib: str, opcode: str):
                if ln.strip().startswith("/*") and len(ln.split()) > 1)
 
 
+def _ptxas_report(lines) -> dict:
+    """``nvcc -Xptxas -v``'s report, one entry per kernel instantiation
+    (the mangled name from the kernel's own name on, template arguments
+    included): its registers, then its stack and spills."""
+    out, fn = {}, None
+    for ln in lines:
+        ln = ln.strip()
+        if "Function properties for" in ln:
+            fn = ln.rsplit(" ", 1)[-1]
+            m = re.search(r"\d+([A-Za-z_]*kernel\w*)", fn)
+            fn = m.group(1)[:72] if m else fn
+            out[fn] = []
+        elif fn is not None and ("spill" in ln or "registers" in ln):
+            out[fn].append(ln.replace("ptxas info    : ", ""))
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
 def phase_build():
     t0 = time.perf_counter()
     paths = build.build_all()
@@ -422,8 +440,7 @@ def phase_build():
         log = str(p) + ".log"
         if os.path.exists(log):
             with open(log) as f:
-                ptxas[name] = [ln.strip() for ln in f
-                               if "registers" in ln or "spill" in ln]
+                ptxas[name] = _ptxas_report(f)
     flash = str(paths["flash_attention"])
     hgmma = sass_count(flash, "HGMMA")
     fail_unless(hgmma == "not available" or hgmma > 0,
@@ -1044,7 +1061,34 @@ ATTN_CASES = [
     # the smoke configuration's prefill (hd 32): bf16 on the CUDA-core body
     dict(name="prefill_smoke_hd32_bf16", kind="flash", B=8, H=4, K=4, S=16,
          hd=32, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0, iters=200),
+    # recurrentgemma-2b's windowed attention: 10 query heads over 1 KV head
+    # of 256 (G = 10: head groups of 4, 4 and 2), a 3000-token prompt
+    # through the 2048 window (the CUDA-core body: no tensor-core hd 256),
+    # and a decode step over the 2048-row ring written past its extent
+    dict(name="prefill_hybrid", kind="flash", B=1, H=10, K=1, S=3000,
+         hd=256, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=2048,
+         iters=3),
+    dict(name="decode_hybrid_ring", kind="decode", B=8, H=10, K=1, S=2048,
+         hd=256, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=2048,
+         lengths=[2049 + 301 * b for b in range(8)], ring=True, iters=50),
+    # paligemma-3b: 8 query heads over 1 KV head of 256, the serving shapes
+    dict(name="prefill_paligemma", kind="flash", B=8, H=8, K=1, S=16,
+         hd=256, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         iters=100),
+    dict(name="decode_paligemma", kind="decode", B=8, H=8, K=1, S=128,
+         hd=256, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         lengths=list(range(17, 33, 2)), ring=False, iters=200),
+    dict(name="paged_paligemma", kind="paged", B=8, H=8, K=1, S=128, hd=256,
+         bs=16, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         lengths=list(range(17, 33, 2)), iters=200),
+    # whisper-medium's decoder self-attention: 16 heads of 64, MHA
+    dict(name="decode_whisper", kind="decode", B=8, H=16, K=16, S=128,
+         hd=64, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         lengths=list(range(17, 33, 2)), ring=False, iters=200),
 ]
+# the rows of this slice's shapes, listed beside each kernel's main row
+NEW_SHAPE_CASES = ("prefill_hybrid", "decode_hybrid_ring", "prefill_paligemma",
+                   "decode_paligemma", "paged_paligemma", "decode_whisper")
 
 
 def _paged_inputs(case, gen):
@@ -1220,7 +1264,14 @@ def phase_attention(peaks):
             out[name]["main"] = row
         if case["name"].endswith("_granite"):
             out[name]["granite"] = row
-    for H, K, hd in ((32, 32, 80), (24, 8, 64)):     # stablelm, granite
+        if case["name"] in NEW_SHAPE_CASES:
+            out[name].setdefault("new_shapes", {})[case["name"]] = {
+                k: row[k] for k in ("H", "K", "S", "hd", "window", "ms",
+                                    "call_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "max_abs_err",
+                                    "row_scaled_err")}
+    # stablelm, granite, recurrentgemma (G = 10, hd 256)
+    for H, K, hd in ((32, 32, 80), (24, 8, 64), (10, 1, 256)):
         phase_decode_invariance(gen, H, K, hd)
     return out
 
@@ -1337,15 +1388,21 @@ def phase_serve_generate_smoke():
          launches=launches, tokens_generated=summary["tokens_generated"])
 
 
-def _greedy_lockstep(model, prompts, n_new, dtype=torch.float32):
+def _greedy_lockstep(model, prompts, n_new, dtype=torch.float32, **inputs):
     """Lockstep greedy decode, by default over an f32 cache (no bf16
     rounding of the keys, so the card and the CPU can agree token for
-    token); -> (the prefill's logits [B, 1, V], the tokens [B, n_new],
-    the logits each token was chosen from [B, n_new, V]), on the CPU."""
+    token), after a prefill given ``inputs`` (``prefix_embeds``, which
+    shift every position by their length, or ``enc_embeds``); -> (the
+    prefill's logits [B, 1, V], the tokens [B, n_new], the logits each
+    token was chosen from [B, n_new, V]), on the CPU."""
     B, S = prompts.shape
+    pre = inputs.get("prefix_embeds")
+    S += 0 if pre is None else pre.shape[1]
     cache = tfm.init_cache(model.cfg, B, S + n_new, dtype,
                            device=model.device)
-    logits, cache = model.prefill(prompts, cache)
+    inputs = {k: torch.as_tensor(v).to(model.device)
+              for k, v in inputs.items()}
+    logits, cache = model.prefill(prompts, cache, **inputs)
     first = logits
     tok = logits[:, -1].argmax(-1)[:, None]
     out, seen = [], []
@@ -1867,8 +1924,9 @@ def phase_decode_graph(name: str, cfg, model) -> dict:
     capture) in ms per step, issue ms, and the card's busy share: one
     window's device time (its graph replayed) over the window's time."""
     out = {}
-    # SSD and MLA stacks decode with no attention kernel
-    counter = (None if cfg.block_kinds[0] in ("ssd", "mla") else
+    # SSD, MLA and RG-LRU layers decode with no attention kernel
+    attn_layers = sum(k in ("attn", "local_attn") for k in cfg.block_kinds)
+    counter = (None if attn_layers == 0 else
                "paged_launches" if cfg.paged_kv else "launches")
     for mode in ("greedy", "sampled"):
         runs = {}
@@ -1883,10 +1941,10 @@ def phase_decode_graph(name: str, cfg, model) -> dict:
             steps = sess.host_syncs * eng.sync_every
             launches = getattr(da_mod, counter) if counter else None
             if counter:
-                fail_unless(launches == cfg.n_layers * steps,
+                fail_unless(launches == attn_layers * steps,
                             f"decode_graph {name} {mode} capture={capture}: "
                             f"{launches} decode launches for "
-                            f"{cfg.n_layers} x {steps} layer-steps")
+                            f"{attn_layers} x {steps} layer-steps")
             runs[capture] = dict(toks=toks, dec=dec, issue=issue, sess=sess,
                                  eng=eng, launches=launches)
         e, g = runs[False], runs[True]
@@ -1986,24 +2044,29 @@ SPEC_DEPTH, SPEC_DRAFT_LAYERS = 3, 8
 # cache_write_chunk at start = S - 2 in half the slots: rows clamped onto
 # S - 1)
 SPEC_CHUNK_CASES = [
-    ("serving_bf16", torch.bfloat16, 8, 4, 128, list(range(17, 33, 2))),
-    ("serving_f32", torch.float32, 8, 4, 128, list(range(17, 33, 2))),
+    # name, dtype, B, n, S, lengths (None: a clamped chunk), (H, K, hd)
+    ("serving_bf16", torch.bfloat16, 8, 4, 128, list(range(17, 33, 2)),
+     (32, 32, 80)),
+    ("serving_f32", torch.float32, 8, 4, 128, list(range(17, 33, 2)),
+     (32, 32, 80)),
     ("long_4096_bf16", torch.bfloat16, 8, 4, 4096,
-     [4096 - 37 * b for b in range(8)]),
+     [4096 - 37 * b for b in range(8)], (32, 32, 80)),
     ("ragged_bf16", torch.bfloat16, 8, 4, 128, [4, 40, 77, 128, 9, 64, 100,
-                                                33]),
-    ("clamped_bf16", torch.bfloat16, 8, 4, 128, None),
+                                                33], (32, 32, 80)),
+    ("clamped_bf16", torch.bfloat16, 8, 4, 128, None, (32, 32, 80)),
+    # paligemma-3b's verify at D = 3: 8 query heads over 1 KV head of 256
+    ("paligemma_bf16", torch.bfloat16, 8, 4, 128, list(range(17, 33, 2)),
+     (8, 1, 256)),
 ]
 
 
-def _chunk_inputs(dt, B, n, S, lengths, gen):
+def _chunk_inputs(dt, B, n, S, lengths, gen, heads=(32, 32, 80)):
     """q [B,n,H,hd] and a BSHD cache [B,S,K,hd] read as [B,K,S,hd] views;
     kv_pos a valid prefix of ``lengths[b]`` rows and start = lengths - n,
     or (lengths None) a 100-row prefix and a chunk written into the cache
     by ``cache_write_chunk`` at start 120 (S - 8) and S - 2, whose last
     rows clamp onto row S - 1."""
-    H = K = 32
-    hd = 80
+    H, K, hd = heads
     q = torch.randn(B, n, H, hd, generator=gen, device="cuda").to(dt)
     kc, vc = (torch.randn(B, S, K, hd, generator=gen, device="cuda").to(dt)
               for _ in range(2))
@@ -2058,8 +2121,10 @@ def phase_spec_chunk(peaks):
     gen = torch.Generator(device="cuda").manual_seed(19)
     F = torch.nn.functional
     max_err, main = 0.0, None
-    for name, dt, B, n, S, lengths in SPEC_CHUNK_CASES:
-        q, k, v, kv_pos, start = _chunk_inputs(dt, B, n, S, lengths, gen)
+    for name, dt, B, n, S, lengths, heads in SPEC_CHUNK_CASES:
+        H, K, hd = heads
+        q, k, v, kv_pos, start = _chunk_inputs(dt, B, n, S, lengths, gen,
+                                               heads)
         kern = lambda: da_mod.decode_attention_chunk_cuda(  # noqa: E731
             q, k, v, kv_pos, start)
         plain = lambda: da_mod.decode_attention_chunk_plain(  # noqa: E731
@@ -2071,7 +2136,7 @@ def phase_spec_chunk(peaks):
         got = kern()
         fail_unless(da_mod.chunk_launches == 1,
                     f"spec_chunk {name}: one launch counted per call")
-        plan = da_mod.decode_span_plan(B * n, 32, S, 80)
+        plan = da_mod.decode_span_plan(B * n, H, S, hd)
         fail_unless(da_mod.combine_launches == plan.combine,
                     f"spec_chunk {name}: {da_mod.combine_launches} span "
                     f"merges for {plan.spans} spans")
@@ -2098,12 +2163,12 @@ def phase_spec_chunk(peaks):
         mask = ok[:, None]                                   # [B,1,n,S]
         qh = q.transpose(1, 2)                               # [B,H,n,hd]
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qh, k, v, attn_mask=mask)
+            qh, k, v, attn_mask=mask, enable_gqa=H != K)
         lib_err = (lib().transpose(1, 2).float() - want.float()).abs().max(
         ).item()
         it = 20 if S > 1024 else 200
         row = dict(phase="spec_chunk", kernel="decode_attention_chunk",
-                   case=name, B=B, n=n, H=32, K=32, S=S, hd=80,
+                   case=name, B=B, n=n, H=H, K=K, S=S, hd=hd,
                    dtype=str(dt).replace("torch.", ""),
                    valid_pairs=pairs, spans=plan.spans,
                    combine_launches=int(plan.combine),
@@ -2162,7 +2227,7 @@ def _spec_greedy(model, prompts, n_new, depth, draft_layers):
                            device=model.device)[:, None]
         dtok, dpos, drafts = tok, pos, []
         for _ in range(depth):
-            lg, _ = draft.decode_chunk(dtok, cache, dpos)
+            lg, _ = draft.decode_step(dtok, cache, dpos)
             dtok, dpos = lg[:, 0].argmax(-1)[:, None], dpos + 1
             drafts.append(dtok)
         lg, _ = model.decode_chunk(torch.cat([tok, *drafts], 1), cache, pos)
@@ -3168,6 +3233,283 @@ def phase_families(peaks) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the rest of the model families: recurrentgemma-2b (RG-LRU + windowed
+# attention), paligemma-3b (prefix-LM), whisper-medium (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH, VLM_ARCH, ENCDEC_ARCH = ("recurrentgemma-2b", "paligemma-3b",
+                                      "whisper-medium")
+RING_PROMPT, RING_NEW = 3000, 32      # past the 2048 window, then 32 more
+N_PATCHES = 256                       # paligemma's patch embeddings
+
+
+def _lockstep_gate(tag, a, b, tol=FULL_F32_LOGITS_TOL) -> dict:
+    """Two lockstep greedy runs of one model (``_greedy_lockstep``'s
+    results) held to each other: the prefill logits within ``tol`` of
+    ``b``'s largest |logit|, the first tokens equal, and each row's first
+    divergence a near-tie (``b``'s top-2 gap there at most twice the
+    step's largest logit difference), as ``_full_depth_f32_gate`` judges
+    mamba2; -> the numbers."""
+    (la, ta, sa), (lb, tb, sb) = a, b
+    scale = lb.abs().max().item()
+    err = (la - lb).abs().max().item()
+    fail_unless(bool(torch.isfinite(la).all()) and err <= tol * scale,
+                f"{tag}: prefill logits {err} > {tol} x {scale}")
+    fail_unless(torch.equal(ta[:, 0], tb[:, 0]), f"{tag}: first tokens equal")
+    divergences = []
+    for r in range(ta.shape[0]):
+        differ = (ta[r] != tb[r]).nonzero()
+        if len(differ) == 0:
+            continue
+        i = int(differ[0])
+        top2 = sb[r, i].topk(2).values
+        gap = (top2[0] - top2[1]).item()
+        step_err = (sa[r, i] - sb[r, i]).abs().max().item()
+        divergences.append(dict(row=r, step=i, top2_gap=gap,
+                                logit_err=step_err,
+                                near_tie=gap <= 2 * step_err))
+    fail_unless(all(d["near_tie"] for d in divergences),
+                f"{tag}: a divergence that is not a near-tie: {divergences}")
+    return dict(prefill_logits_max_abs_err=err, prefill_logits_scale=scale,
+                logits_tol=tol, first_tokens_equal=True,
+                token_agreement=float((ta == tb).float().mean()),
+                step_logits_max_abs_err=(sa - sb).abs().max().item(),
+                divergences=divergences)
+
+
+def _card_and_cpu(cfg):
+    """``cfg`` in f32 seeded on the card, and the same weights on the
+    CPU."""
+    m_gpu = tfm.init_lm(cfg, 0, device="cuda")
+    m_cpu = tfm.LM(cfg, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
+    return m_gpu, m_cpu.eval()
+
+
+def _rglru_blocks(model, B=8) -> dict:
+    """The decode step's RG-LRU blocks alone (each recurrent layer's
+    norm and ``rglru_block`` from its own state, one token per slot):
+    device ms by graph replay and the profiler's kernels."""
+    from repro_torch.models import rglru
+    layers = [layer for layer in model.layers if layer.kind == "rglru"]
+    cfg = model.cfg
+    x = torch.randn(B, 1, cfg.d_model, device="cuda").to(model.emb.dtype)
+    states = [rglru.init_rglru_state(B, cfg.lru_width or cfg.d_model,
+                                     cfg.conv_width, device="cuda")
+              for _ in layers]
+
+    def blocks():
+        for layer, st in zip(layers, states):
+            rglru.rglru_block(layer.mix, layer.norm1(x), st, single_step=True)
+
+    prof = _profile_step(blocks)
+    return dict(rglru_layers=len(layers),
+                rglru_blocks_ms=graph_ms(blocks, 1, replays=10),
+                rglru_kernels=(prof or {}).get("kernels"))
+
+
+def phase_ring_generate_hybrid():
+    """recurrentgemma at published width, depth 3 (one whole pattern:
+    rglru, rglru, local_attn), f32 weights and caches, TF32 off, on the
+    card: 2 prompts of 3,000 tokens prefilled through the windowed flash
+    kernel (S past the 2048 window) into the 2048-row ring, then 32
+    greedy tokens read from the wrapped ring by flash-decode, against the
+    kernels' plain versions (``attn_impl="ref"``) on the same weights:
+    ``_lockstep_gate``."""
+    cfg = get_config(HYBRID_ARCH).replace(n_layers=3, dtype="float32")
+    fail_unless(not torch.backends.cuda.matmul.allow_tf32,
+                "ring_generate_hybrid: TF32 off")
+    m = tfm.init_lm(cfg, 0, device="cuda")
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab,
+                                                (2, RING_PROMPT))
+    res, launches, secs = {}, {}, {}
+    for impl in ("auto", "ref"):
+        m.attn_impl = impl
+        _zero_counters()
+        t0 = time.perf_counter()
+        res[impl] = _greedy_lockstep(m, prompts, RING_NEW)
+        secs[impl] = time.perf_counter() - t0
+        launches[impl] = _attention_launches()
+    m.attn_impl = "auto"
+    fail_unless(launches["auto"]["flash_attention"] == 1
+                and launches["auto"]["decode_attention"] == RING_NEW
+                and not any(launches["ref"].values()),
+                f"ring_generate_hybrid: the kernels on the auto path only: "
+                f"{launches}")
+    gate = _lockstep_gate("ring_generate_hybrid", res["auto"], res["ref"])
+    emit(phase="ring_generate_hybrid", arch=HYBRID_ARCH, layers=3,
+         kinds=list(cfg.block_kinds), d_model=cfg.d_model, window=cfg.window,
+         prompt=RING_PROMPT, new_tokens=RING_NEW, ring_rows=cfg.window,
+         dtype="float32", launches=launches, seconds=secs, **gate)
+    del m
+
+
+def phase_prefix_generate_vlm():
+    """paligemma at published width, depth 2, f32 weights and caches, TF32
+    off, the card against the CPU on the same weights: 4 prompts of 16
+    tokens after 256 seeded patch embeddings (the prefix-LM mask, on the
+    einsum path on both sides: no flash launch), then 16 greedy tokens
+    (flash-decode on the card): ``_lockstep_gate``."""
+    cfg = get_config(VLM_ARCH).replace(n_layers=2, dtype="float32")
+    fail_unless(not torch.backends.cuda.matmul.allow_tf32,
+                "prefix_generate_vlm: TF32 off")
+    m_gpu, m_cpu = _card_and_cpu(cfg)
+    rng = np.random.default_rng(8)
+    prompts = rng.integers(0, cfg.vocab, (4, 16))
+    patches = (0.1 * rng.standard_normal((4, N_PATCHES, cfg.d_model))
+               ).astype(np.float32)
+    _zero_counters()
+    card = _greedy_lockstep(m_gpu, prompts, 16, prefix_embeds=patches)
+    launches = _attention_launches()
+    cpu = _greedy_lockstep(m_cpu, prompts, 16, prefix_embeds=patches)
+    fail_unless(launches["flash_attention"] == 0
+                and launches["decode_attention"] == 2 * 16,
+                f"prefix_generate_vlm: the prefix on the einsum path, every "
+                f"step through flash-decode: {launches}")
+    gate = _lockstep_gate("prefix_generate_vlm", card, cpu)
+    emit(phase="prefix_generate_vlm", arch=VLM_ARCH, layers=2,
+         d_model=cfg.d_model, patches=N_PATCHES, prompt=16, new_tokens=16,
+         dtype="float32", launches=launches, **gate)
+    del m_gpu, m_cpu
+
+
+def phase_encdec_generate(peaks) -> dict:
+    """whisper-medium at published width (24 + 24 layers, d 1024, bf16,
+    seeded) through the model API on 4 rows of 1,500 seeded frame
+    embeddings: ``encode``, ``compute_cross_kv``, a 16-token prefill
+    (flash on the decoder's self-attention, hd 64) and 16 greedy decode
+    steps (flash-decode, 16 heads of 64); ms of the encoder (graph
+    replay), per prefill (the encoder included) and per decode step (from
+    Python, and one step by graph replay, with the profiler's sums),
+    launches,
+    finite logits and ids inside the vocabulary.  Then depth 2 (2 + 2
+    layers) in f32, the card against the CPU: ``_lockstep_gate``; ->
+    the launches of the published-width run."""
+    cfg = get_config(ENCDEC_ARCH)
+    rng = np.random.default_rng(12)
+    B = 4
+    frames = (0.1 * rng.standard_normal((B, cfg.enc_seq, cfg.d_model))
+              ).astype(np.float32)
+    prompts = rng.integers(0, cfg.vocab, (B, 16))
+    m = tfm.init_lm(cfg, 0, device="cuda")
+    fail_unless(m.cfg.n_layers == 24 and m.cfg.n_enc_layers == 24
+                and m.emb.dtype == torch.bfloat16,
+                "encdec_generate: published width, 24 + 24 layers, bf16")
+    x = torch.from_numpy(frames).cuda()
+    toks = torch.from_numpy(prompts).cuda()
+    enc_ms = graph_ms(lambda: m.encode(x), 1)
+    enc_out = m.encode(x)
+    cross_ms = graph_ms(lambda: m.compute_cross_kv(enc_out), 1)
+    _zero_counters()
+    cache = tfm.init_cache(cfg, B, 64, device="cuda")
+    prefill_ms = time_ms(lambda: m.prefill(toks, cache, enc_embeds=x), 3)
+    _zero_counters()
+    logits, cache = m.prefill(toks, cache, enc_embeds=x)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(16):
+        out.append(tok[:, 0])
+        logits, cache = m.decode_step(tok, cache, 16 + i)
+        tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 16 * 1e3
+    launches = _attention_launches()
+    at = torch.full((B,), 32, dtype=torch.long, device="cuda")
+    step_device_ms = graph_ms(lambda: m.decode_step(tok, cache, at), 1)
+    try:
+        prof = _profile_step(lambda: m.decode_step(tok, cache, at))
+    except Exception as e:          # the profiler is untried on the card
+        prof = {"error": repr(e)[:200]}
+    ids = torch.stack(out, 1)
+    fail_unless(bool(torch.isfinite(logits.float()).all())
+                and bool(((ids >= 0) & (ids < cfg.vocab)).all()),
+                "encdec_generate: finite logits, ids inside the vocabulary")
+    fail_unless(launches["flash_attention"] == 24
+                and launches["decode_attention"] == 24 * 16,
+                f"encdec_generate: flash in each decoder layer's prefill, "
+                f"flash-decode in each step: {launches}")
+    wbytes = _weight_bytes(m)
+    del m, cache, enc_out
+    torch.cuda.empty_cache()
+    cfg2 = cfg.replace(n_layers=2, n_enc_layers=2, dtype="float32")
+    fail_unless(not torch.backends.cuda.matmul.allow_tf32,
+                "encdec_generate: TF32 off")
+    m_gpu, m_cpu = _card_and_cpu(cfg2)
+    card = _greedy_lockstep(m_gpu, prompts, 16, enc_embeds=frames)
+    cpu = _greedy_lockstep(m_cpu, prompts, 16, enc_embeds=frames)
+    gate = _lockstep_gate("encdec_generate depth-2 f32", card, cpu)
+    del m_gpu, m_cpu
+    emit(phase="encdec_generate", arch=ENCDEC_ARCH, rows=B,
+         frames=cfg.enc_seq, enc_layers=24, dec_layers=24,
+         d_model=cfg.d_model, encoder_ms=enc_ms, cross_kv_ms=cross_ms,
+         prefill_ms=prefill_ms, decode_ms_per_step=step_ms,
+         decode_step_device_ms=step_device_ms,
+         decode_step_profiler=prof if prof is not None
+         else "no device time recorded", launches=launches, sample=ids[0, :8].tolist(), weight_bytes=wbytes,
+         weight_bytes_bound_ms=wbytes / peaks["hbm"] * 1e3,
+         depth2_f32=gate, nvidia_smi=nvidia_smi("name,power.limit"))
+    return launches
+
+
+def phase_new_families(peaks) -> dict:
+    """This slice's paths, each model freed before the next is built:
+    recurrentgemma-2b through the launcher greedy and sampled
+    (``serve_generate_hybrid``, ``_sampled``: flash and flash-decode),
+    its decode step (``step_hybrid``, with the RG-LRU blocks alone),
+    ``decode_graph`` and ``ring_generate_hybrid``; paligemma-3b through
+    the launcher on the contiguous pool, a paged pool of 16-row blocks
+    and with ``--draft-depth 3 --draft-layers 6``
+    (``serve_generate_vlm``, ``_paged``, ``_spec``), ``step_vlm``,
+    ``decode_graph`` and ``prefix_generate_vlm``; then
+    ``encdec_generate``; -> each served path's launches."""
+    t0 = time.perf_counter()
+    launches = {}
+    sampled = ["--temperature", str(SAMPLED["temperature"]), "--top-k",
+               str(SAMPLED["top_k"]), "--top-p", str(SAMPLED["top_p"])]
+    attn2 = ("flash_attention", "decode_attention")
+    launches["serve_generate_hybrid"], model = _serve_family(
+        HYBRID_ARCH, [], "serve_generate_hybrid", attn2, peaks)
+    launches["serve_generate_hybrid_sampled"], other = _serve_family(
+        HYBRID_ARCH, sampled, "serve_generate_hybrid_sampled", attn2, peaks)
+    del other
+    torch.cuda.empty_cache()
+    emit(phase="step_hybrid", arch=HYBRID_ARCH, slots=8,
+         **_step_profile(model, peaks), **_rglru_blocks(model))
+    phase_decode_graph(HYBRID_ARCH, model.cfg, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_ring_generate_hybrid()
+    torch.cuda.empty_cache()
+    launches["serve_generate_vlm"], model = _serve_family(
+        VLM_ARCH, [], "serve_generate_vlm", attn2, peaks)
+    launches["serve_generate_vlm_paged"], other = _serve_family(
+        VLM_ARCH, ["--kv-block-size", str(PAGED_BS)],
+        "serve_generate_vlm_paged",
+        ("flash_attention", "paged_decode_attention"), peaks)
+    del other
+    launches["serve_generate_vlm_spec"], other = _serve_family(
+        VLM_ARCH, ["--draft-depth", "3", "--draft-layers", "6"],
+        "serve_generate_vlm_spec",
+        ("flash_attention", "decode_attention", "decode_attention_chunk"),
+        peaks)
+    del other
+    torch.cuda.empty_cache()
+    emit(phase="step_vlm", arch=VLM_ARCH, slots=8,
+         **_step_profile(model, peaks))
+    phase_decode_graph(VLM_ARCH, model.cfg, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_prefix_generate_vlm()
+    torch.cuda.empty_cache()
+    launches["encdec_generate"] = phase_encdec_generate(peaks)
+    torch.cuda.empty_cache()
+    emit(phase="new_families", seconds=time.perf_counter() - t0)
+    return launches
+
+
 def kernel_entry(name, src, replaces, tpu_kernel, launches, max_err, main):
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -3256,18 +3598,28 @@ def main(argv: list[str]) -> int:
     del ssm
     torch.cuda.empty_cache()
     fam = phase_families(peaks)
+    new = phase_new_families(peaks)
     moe, moe_paged = fam["serve_generate_moe"], fam["serve_generate_moe_paged"]
     by_path = {
         "flash_attention": {
             "serve_generate": gen_launches["flash_attention"],
             "serve_generate_moe": moe["flash_attention"],
-            "serve_generate_moe_paged": moe_paged["flash_attention"]},
+            "serve_generate_moe_paged": moe_paged["flash_attention"],
+            **{k: new[k]["flash_attention"] for k in new}},
         "decode_attention": {
             "serve_generate": gen_launches["decode_attention"],
-            "serve_generate_moe": moe["decode_attention"]},
+            "serve_generate_moe": moe["decode_attention"],
+            **{k: new[k]["decode_attention"] for k in new
+               if k != "serve_generate_vlm_paged"}},
         "paged_decode_attention": {
             "serve_generate_paged": paged_launches,
-            "serve_generate_moe_paged": moe_paged["paged_decode_attention"]},
+            "serve_generate_moe_paged": moe_paged["paged_decode_attention"],
+            "serve_generate_vlm_paged": new["serve_generate_vlm_paged"][
+                "paged_decode_attention"]},
+        "decode_attention_chunk": {
+            "serve_generate_spec": spec_launches["decode_attention_chunk"],
+            "serve_generate_vlm_spec": new["serve_generate_vlm_spec"][
+                "decode_attention_chunk"]},
     }
 
     def attention_entry(name, src_line, tpu, extra=None):
@@ -3283,7 +3635,8 @@ def main(argv: list[str]) -> int:
             g3={k: g3[k] for k in ("case", "H", "K", "hd", "ms", "call_ms",
                                    "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "max_abs_err",
-                                   "row_scaled_err")}, **(extra or {}))
+                                   "row_scaled_err")},
+            new_shapes=attn[name].get("new_shapes", {}), **(extra or {}))
 
     entropy = {
         "name": "entropy_stats",
@@ -3329,11 +3682,12 @@ def main(argv: list[str]) -> int:
         dict(kernel_entry(
             "decode_attention_chunk", "decode_attention.cu",
             "src/repro/models/attention.py:446",
-            None, spec_launches["decode_attention_chunk"], spec_err,
+            None, sum(by_path["decode_attention_chunk"].values()), spec_err,
             spec_main),
+            launches_by_path=by_path["decode_attention_chunk"],
             note="the port's own entry on #2's body: no TPU kernel, the "
                  "reference attends the verify chunk in einsum "
-                 "(chunk_attend); launches from serve_generate_spec",
+                 "(chunk_attend)",
             single_query_launches_ms=spec_main["single_query_launches_ms"]),
         dict(kernel_entry("ssd_scan", "ssd_scan.cu",
                           "src/repro/kernels/ssd_scan.py:31",

@@ -55,7 +55,15 @@ serves the MoE family (32 layers, 24 query heads over 8 KV heads of 64,
 reference drops them), contiguous, paged or speculative;
 ``--arch minicpm3-4b`` the MLA family (62 layers, a 256 + 32-feature
 latent per token in the pool, decoded in latent space in plain
-PyTorch), contiguous; ``--arch dbrx-132b`` (264 GB in bf16) only with
+PyTorch), contiguous; ``--arch recurrentgemma-2b`` the mixed stack (26
+layers, two RG-LRU layers to each windowed-attention layer, window 2048,
+10 query heads over 1 KV head of 256; the pool is a 2048-row ring per
+attention layer and the f32 RG-LRU state per recurrent one),
+contiguous; ``--arch paligemma-3b`` the prefix-LM's decoder (18
+layers, 8 query heads over 1 KV head of 256) on text prompts,
+contiguous, paged or speculative; ``--arch whisper-medium`` raises the
+engine's error (the engine feeds no encoder input; the model API
+serves it); ``--arch dbrx-132b`` (264 GB in bf16) only with
 ``--smoke``.  ``--temperature T`` (with
 ``--top-k`` and ``--top-p``) samples every token from the reference's
 (seed, request, position)-folded threefry keys; ``--temperature 0`` (the
@@ -81,6 +89,14 @@ session's first of its kind is the replay of one CUDA graph.
         --mode generate --arch granite-moe-3b-a800m --smoke --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --mode generate --arch minicpm3-4b --smoke --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mode generate --arch recurrentgemma-2b --smoke --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mode generate --arch paligemma-3b --smoke --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mode generate --arch paligemma-3b --smoke --kv-block-size 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --mode generate --arch paligemma-3b --smoke --draft-depth 2
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --mode generate --smoke --temperature 0.8 --top-k 50
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \

@@ -474,3 +474,32 @@ def paged_decode_attend_kernel(q, cache: KVCache, block_table, *, pos,
     o = ops.paged_decode_attention(q[:, 0], cache.k, cache.v, block_table,
                                    cache.pos, cur, window=window, impl=impl)
     return o[:, None]
+
+
+# ---------------------------------------------------------------------------
+# cross-attention over encoder rows (ref transformer.py:405-415, 551-566)
+# ---------------------------------------------------------------------------
+
+def cross_kv(p: AttnParams, enc_out: torch.Tensor, n_kv: int,
+             head_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer's cross K/V [B, Senc, K, hd] from the encoder's
+    output [B, Senc, D]: the layer's ``wk`` / ``wv`` (and biases)."""
+    B, S, _ = enc_out.shape
+    k = enc_out @ p.wk
+    v = enc_out @ p.wv
+    if p.has_bias:
+        k, v = k + p.bk, v + p.bv
+    return (k.reshape(B, S, n_kv, head_dim), v.reshape(B, S, n_kv, head_dim))
+
+
+def cross_attend(p: AttnParams, x: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, n_heads: int,
+                 head_dim: int) -> torch.Tensor:
+    """Decoder rows x [B, S, D] attend to every encoder row of k/v
+    [B, Senc, K, hd]: no mask and no rotary (the reference's ``attend``
+    with a zero bias), then the layer's out projection."""
+    B, S, _ = x.shape
+    q = x @ p.wq
+    if p.has_bias:
+        q = q + p.bq
+    return out_proj(p, attend(q.reshape(B, S, n_heads, head_dim), k, v))

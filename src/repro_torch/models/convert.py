@@ -1,5 +1,5 @@
-"""Carry reference (JAX) DistilBERT, decoder-LM and ResNet-18 weights
-into the port.
+"""Carry reference (JAX) DistilBERT, LM (every family) and ResNet-18
+weights into the port.
 
 Two sources, neither needing JAX:
   - the reference's param pytree as numpy arrays (nested dicts and
@@ -79,37 +79,47 @@ def distilbert_from_numpy(cfg: dict, tree, *, device="cuda") -> DistilBERT:
     return model.eval()
 
 
-def unstack_layers(flat: dict[str, np.ndarray],
-                   n_layers: int) -> dict[str, np.ndarray]:
+def unstack_layers(flat: dict[str, np.ndarray], n_layers: int, *,
+                   prefix: str = "layers") -> dict[str, np.ndarray]:
     """The reference stacks a homogeneous stack's layer leaves
     (``layers/mix/wq`` [L, d, H*hd], an MoE layer's experts
     ``layers/moe/w_gate`` [L, E, D, F], MLA's ``layers/mix/w_uk`` [L, r,
-    H, nope]); the port keeps one module per layer (``layers/0/mix/wq``
-    [d, H*hd]).  Split every stacked
-    ``layers/*`` leaf along its first axis; raise when that axis is
-    not ``n_layers`` long.  Already per-layer keys pass through."""
+    H, nope]), and an encoder-decoder's ``encoder/layers/*`` and
+    ``xattn/*``; the port keeps one module per layer (``layers/0/mix/wq``
+    [d, H*hd]).  Split every stacked leaf under ``prefix`` along its
+    first axis; raise when that axis is not ``n_layers`` long.  Keys
+    already per layer (a mixed stack's ``layers`` is a list in the
+    reference, ``layers/0/...``) and keys elsewhere pass through."""
     out = {}
+    head = prefix.split("/")
     for key, a in flat.items():
         parts = key.split("/")
-        if parts[0] != "layers" or len(parts) < 2 or parts[1].isdigit():
+        rest = parts[len(head):]
+        if parts[:len(head)] != head or not rest or rest[0].isdigit():
             out[key] = a
             continue
         if a.ndim == 0 or a.shape[0] != n_layers:
             raise ValueError(f"stacked leaf {key!r} has shape "
                              f"{tuple(a.shape)}, expected [{n_layers}, ...]")
-        rest = "/".join(parts[1:])
         for i in range(n_layers):
-            out[f"layers/{i}/{rest}"] = a[i]
+            out["/".join([*head, str(i), *rest])] = a[i]
     return out
 
 
 def lm_from_numpy(cfg: ModelConfig, tree, *, device="cuda") -> LM:
     """A port LM on ``device`` holding the weights of the reference's
     ``init_lm`` tree (numpy leaves, e.g. ``jax.tree.map(np.asarray,
-    params)``, or an already-flat dict).  Raises on a missing or extra
-    key or a shape mismatch, as :func:`load_state` does."""
+    params)``, or an already-flat dict), whatever the family: a
+    homogeneous stack's stacked leaves, a mixed stack's list of layers,
+    an encoder-decoder's stacked encoder and cross-attention.  Raises on
+    a missing or extra key or a shape mismatch, as :func:`load_state`
+    does."""
     model = LM(cfg, device=resolve_device(device))
-    load_state(model, unstack_layers(flatten_tree(tree), cfg.n_layers))
+    flat = unstack_layers(flatten_tree(tree), cfg.n_layers)
+    if cfg.family == "encdec":
+        flat = unstack_layers(flat, cfg.n_enc_layers, prefix="encoder/layers")
+        flat = unstack_layers(flat, cfg.n_layers, prefix="xattn")
+    load_state(model, flat)
     return model.eval()
 
 

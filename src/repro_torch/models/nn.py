@@ -197,6 +197,16 @@ def apply_rope(x: torch.Tensor, positions, theta: float = 10000.0,
     return rotate(x, cos, sin)
 
 
+def sinusoidal_positions(seq: int, d: int, *, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal position table [seq, d] in f32:
+    sines over the first half of the features, cosines over the
+    second."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / 10000.0 ** (2.0 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 

@@ -1,25 +1,38 @@
-"""Decoder LM for attention, MLA and SSD stacks, dense or MoE, ported
-from ``repro.models.transformer``.
+"""The decoder LM of every configuration, ported from
+``repro.models.transformer``: attention, MLA, SSD and RG-LRU layers,
+dense or MoE, alone or mixed in one stack, the prefix-LM and the
+encoder-decoder.
 
-One pre-norm residual stack: per layer, GQA attention (``attn``) or
-sliding-window attention (``local_attn``, a ring cache of ``window``
-rows) with partial rotary on interleaved pairs, Multi-head Latent
-Attention (``mla``, ``models.mla``) or the Mamba-2 SSD block (``ssd``,
-``models.ssd``), then the channel mix: the MoE FFN (``models.moe``)
-when ``cfg.n_experts`` > 0, else a dense one (SwiGLU with SiLU or
-tanh-GELU, or the biased GELU MLP) when ``d_ff`` > 0; a final norm and
-a tied or untied unembedding.  ``forward`` returns the MoE layers'
-summed load-balance loss beside the logits, as the reference does; the
-other modes discard it, as the reference's do.  Three modes share the layer
-code, as in the reference:
+One pre-norm residual stack: per layer, as ``cfg.block_kinds[i]`` says,
+GQA attention (``attn``) or sliding-window attention (``local_attn``, a
+ring cache of ``window`` rows) with partial rotary on interleaved
+pairs, Multi-head Latent Attention (``mla``, ``models.mla``), the
+Mamba-2 SSD block (``ssd``, ``models.ssd``) or the RG-LRU block
+(``rglru``, ``models.rglru``); in an encoder-decoder, cross-attention
+over the encoder's rows (``xattn``); then the channel mix: the MoE FFN
+(``models.moe``) when ``cfg.n_experts`` > 0, else a dense one (SwiGLU
+with SiLU or tanh-GELU, or the biased GELU MLP) when ``d_ff`` > 0; a
+final norm and a tied or untied unembedding.  ``forward`` returns the
+MoE layers' summed load-balance loss beside the logits, as the
+reference does; the other modes discard it, as the reference's do.  The
+modes share the layer code, as in the reference:
 
   - ``forward``      full sequence, no cache
   - ``prefill``      full sequence, writes the decode cache
   - ``decode_step``  one token per row against the cache, at a scalar
                      position (lockstep) or a [B] one (continuous)
   - ``decode_chunk`` n tokens per row at per-row positions, written
-                     without ring wrap (the speculative verify, and the
-                     draft's steps through ``draft_prefix``)
+                     without ring wrap (the speculative verify)
+
+A prefix-LM (paligemma) takes ``prefix_embeds`` [B, P, D] in
+``forward`` and ``prefill``: they are put before the token embeddings,
+positions < P see each other both ways (``cfg.prefix_lm``), and the
+logits of the prefix rows are cut off.  An encoder-decoder (whisper)
+takes ``enc_embeds`` [B, Senc, D] in the same two modes: ``encode`` runs
+the bidirectional encoder (sinusoidal positions, no mask, no rotary),
+``compute_cross_kv`` projects its output to every decoder layer's cross
+K/V, which ``prefill`` puts on the cache (``cross_k`` / ``cross_v``
+[L, B, Senc, K, hd]) for ``decode_step`` to read.
 
 Attention dispatch (``attn_impl``, the reference's
 ``transformer.py:294-296`` rule): on a CUDA tensor ``"auto"`` takes the
@@ -28,37 +41,44 @@ flash-decode for a decode step), which raise on a card that is not
 sm_90; on a CPU tensor ``"auto"`` takes the model's einsum path,
 bitwise equal to ``"xla"``, as the reference does off the TPU;
 ``"ref"`` takes the kernels' plain versions and ``"cuda"`` forces the
-kernels.  A verify chunk takes the flash-decode body's chunk entry on
-the card, each query row attending as a decode step at its position,
-and ``chunk_attend`` on the einsum path (the reference's, which off the
-TPU shares step decode's numerics).  A prefix-LM batch would stay on
-the einsum path.  The same
-field and rule route an SSD stack's chunked scan (prefill and forward):
-the CUDA SSD kernel on the card, the model's own chunked algorithm on
-the CPU under ``"auto"`` and ``"xla"``; a decode step's single-step
-state update is plain PyTorch everywhere.
+kernels.  A prefix batch (P > 0) stays on the einsum path whatever the
+flag, as the reference's prefix mask does; a text-only batch of the
+same model takes the kernels.  The encoder and the cross-attention are
+einsum everywhere, as the reference's.  A verify chunk takes the
+flash-decode body's chunk entry on the card, each query row attending
+as a decode step at its position, and ``chunk_attend`` on the einsum
+path.  The same field and rule route an SSD layer's chunked scan: the
+CUDA SSD kernel on the card, the model's own chunked algorithm on the
+CPU under ``"auto"`` and ``"xla"``; a decode step's single-step state
+update is plain PyTorch everywhere, and so is the RG-LRU (the reference
+runs no kernel there either).
 
 Parameters keep the reference's names and shapes, one module per layer
-(the reference stacks a homogeneous stack's leaves ``[L, ...]``;
-``convert.lm_from_numpy`` unstacks them).  Weights are ``cfg.dtype``,
-norms f32.  The cache is stacked, k/v [L, B, C, K, hd] and pos
-[L, B, C], and is written in place.  The paged layout
-(``init_cache(layout="paged")``, a homogeneous ``attn`` stack only)
-stacks one pool per layer, k/v [L, NB, bs, K, hd] and pos [L, B, C],
-with one block table [B, MB] on the cache shared by every layer; it is
-decode-only, as the reference's: a prompt is prefilled into a
-contiguous row cache and scattered into the pool
-(``serving.continuous.paged_slot_write``).  An MLA stack's cache is its
-latent, c_kv [L, B, C, r] and k_rope [L, B, C, rope] in the cache
-dtype, with pos [L, B, C]; it has no paged layout, as the reference's.
-An SSD stack's cache is its recurrent state, stacked and written in
-place: conv [L, B, W-1, ch] and h [L, B, H, hd, N], both f32;
-``forward`` starts from a zero state, as the reference's ``full``
-mode.
+(the reference stacks a homogeneous stack's leaves ``[L, ...]`` and its
+encoder's and cross-attention's; ``convert.lm_from_numpy`` unstacks
+them).  Weights are ``cfg.dtype``, norms f32.
 
-Not in this slice, and raising with the slice that brings them: RG-LRU
-layers, stacks that mix layer kinds, encoder-decoder and prefix-LM
-models (the model-families slice).
+The cache (``Cache``) is written in place and keeps ONE stacked tensor
+per kind of layer state, with a map from each layer to its kind and
+its index in that stack, so a stack that mixes kinds still has a few
+tensors, not one per layer: attention layers k/v [La, B, C, K, hd] and
+pos [La, B, C] (C = min(max_seq, window) when every attention layer is
+windowed: a ring), MLA layers their latent c_kv [Lm, B, C, r] and
+k_rope [Lm, B, C, rope] with pos, SSD layers conv [Ls, B, W-1, ch] and
+h [Ls, B, H, hd, N], RG-LRU layers lru_h [Lr, B, R] and lru_conv
+[Lr, B, W-1, R] (recurrent states f32 whatever the cache dtype).  The
+paged layout (``init_cache(layout="paged")``, a homogeneous ``attn``
+stack only, as the reference's) stacks one pool per layer, k/v
+[L, NB, bs, K, hd] with pos [L, B, C] and one block table [B, MB]
+shared by every layer; it is decode-only: a prompt is prefilled into a
+contiguous row cache and scattered into the pool
+(``serving.continuous.paged_slot_write``).  ``forward`` starts every
+recurrent layer from a zero state, as the reference's ``full`` mode.
+
+The refusals are the reference's own: the paged layout on anything but
+a homogeneous attention stack, ``decode_chunk`` on a stack that is not
+pure attention or is an encoder-decoder, and ``draft_prefix`` on a
+stack that mixes kinds.
 """
 from __future__ import annotations
 
@@ -73,32 +93,19 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mla
 from repro_torch.models import moe
 from repro_torch.models import nn as nn_
+from repro_torch.models import rglru
 from repro_torch.models import ssd
 from repro_torch.models.nn import param
 
-FAMILIES_SLICE = "the model-families slice (ROADMAP queue 1 item 12)"
+# the cache state each layer kind keeps: attention rows, an MLA latent,
+# an SSD state or an RG-LRU state
+STATE_OF = {"attn": "kv", "local_attn": "kv", "mla": "latent", "ssd": "ssd",
+            "rglru": "rglru"}
 
 
 def torch_dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
             "float16": torch.float16}[name]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not serve yet, naming the slice."""
-    kinds = sorted(set(cfg.block_kinds)
-                   - {"attn", "local_attn", "mla", "ssd"})
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: layer kinds {kinds} come with {FAMILIES_SLICE}")
-    if not cfg.homogeneous:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: a stack mixing layer kinds "
-            f"{sorted(set(cfg.block_kinds))} comes with {FAMILIES_SLICE}")
-    if cfg.family == "encdec" or cfg.prefix_lm:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: encoder-decoder and prefix-LM models come "
-            f"with {FAMILIES_SLICE}")
 
 
 def mla_config(cfg: ModelConfig) -> mla.MLAConfig:
@@ -107,6 +114,24 @@ def mla_config(cfg: ModelConfig) -> mla.MLAConfig:
         kv_lora_rank=cfg.kv_lora_rank, qk_nope_dim=cfg.qk_nope_dim,
         qk_rope_dim=cfg.qk_rope_dim, v_head_dim=cfg.v_head_dim,
         rope_theta=cfg.rope_theta)
+
+
+def layer_index(cfg: ModelConfig) -> tuple[tuple[str, int], ...]:
+    """Each layer's (state kind, index in that kind's stacked tensors)."""
+    counts: dict[str, int] = {}
+    out = []
+    for kind in cfg.block_kinds:
+        s = STATE_OF[kind]
+        out.append((s, counts.get(s, 0)))
+        counts[s] = counts.get(s, 0) + 1
+    return tuple(out)
+
+
+def kv_rows(cfg: ModelConfig, max_seq: int) -> int:
+    """Rows of the attention layers' cache: a ring of ``window`` rows
+    when every attention layer is windowed, else ``max_seq``."""
+    kinds = {k for k in cfg.block_kinds if STATE_OF[k] == "kv"}
+    return min(max_seq, cfg.window) if kinds == {"local_attn"} else max_seq
 
 
 def paged_geometry(cfg: ModelConfig, batch: int,
@@ -137,15 +162,16 @@ def _check_paged_supported(cfg: ModelConfig) -> None:
 
 
 class Layer(nn.Module):
-    """One residual block: ``norm1``, ``mix`` (attention, MLA, or the
-    SSD block), and the channel mix ``norm2`` + ``moe`` for an MoE
-    config, else ``norm2`` + ``mlp`` when ``cfg.d_ff`` > 0 (the
-    reference's ``init_layer`` keys)."""
+    """One residual block of kind ``kind``: ``norm1``, ``mix``
+    (attention, MLA, the SSD block or the RG-LRU block), and the channel
+    mix ``norm2`` + ``moe`` for an MoE config, else ``norm2`` + ``mlp``
+    when ``cfg.d_ff`` > 0 (the reference's ``init_layer`` keys)."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, kind: str, *, device=None):
         super().__init__()
         d, dt = cfg.d_model, torch_dtype(cfg.dtype)
-        kind = cfg.block_kinds[0]
+        self.kind = kind
+        self.window = cfg.window if kind == "local_attn" else 0
         self.norm1 = nn_.norm(cfg.norm, d, device=device)
         if kind == "ssd":
             self.mix = ssd.SSDParams(d, expand=cfg.ssm_expand,
@@ -153,13 +179,19 @@ class Layer(nn.Module):
                                      d_state=cfg.ssm_state,
                                      conv_width=cfg.ssm_conv, device=device,
                                      dtype=dt)
+        elif kind == "rglru":
+            self.mix = rglru.RGLRUParams(d, cfg.lru_width or d,
+                                         cfg.conv_width, device=device,
+                                         dtype=dt)
         elif kind == "mla":
             self.mix = mla.MLAParams(d, mla_config(cfg), device=device,
                                      dtype=dt)
-        else:
+        elif kind in ("attn", "local_attn"):
             self.mix = attn.AttnParams(d, cfg.n_heads, cfg.n_kv_heads,
                                        cfg.head_dim, bias=cfg.qkv_bias,
                                        device=device, dtype=dt)
+        else:
+            raise ValueError(f"unknown layer kind {kind!r}")
         self.mlp = self.moe = None
         if cfg.is_moe:
             self.norm2 = nn_.norm(cfg.norm, d, device=device)
@@ -183,46 +215,132 @@ class Layer(nn.Module):
                 m.reset_parameters(gen)
 
 
+class EncoderLayer(nn.Module):
+    """A whisper-style encoder block (ref ``_init_encoder``): ``norm1``,
+    bidirectional attention ``mix``, ``norm2`` and the biased GELU
+    ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, d: int, *, device=None):
+        super().__init__()
+        dt = torch_dtype(cfg.dtype)
+        self.norm1 = nn_.norm(cfg.norm, d, device=device)
+        self.mix = attn.AttnParams(d, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.head_dim, bias=cfg.qkv_bias,
+                                   device=device, dtype=dt)
+        self.norm2 = nn_.norm(cfg.norm, d, device=device)
+        self.mlp = nn_.MLP(d, cfg.d_ff, device=device, dtype=dt)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.norm1.reset_parameters()
+        self.mix.reset_parameters(gen)
+        self.norm2.reset_parameters()
+        self.mlp.reset_parameters(gen)
+
+
+class Encoder(nn.Module):
+    """The encoder over (stubbed) frame embeddings: ``layers`` and
+    ``final_norm`` (ref ``params["encoder"]``)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        d = cfg.enc_d_model or cfg.d_model
+        self.layers = nn.ModuleList(EncoderLayer(cfg, d, device=device)
+                                    for _ in range(cfg.n_enc_layers))
+        self.final_norm = nn_.norm(cfg.norm, d, device=device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for layer in self.layers:
+            layer.reset_parameters(gen)
+        self.final_norm.reset_parameters()
+
+
+class CrossAttn(nn.Module):
+    """One decoder layer's cross-attention: ``norm`` and ``mix`` (ref
+    ``_init_xattn``)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        self.norm = nn_.norm(cfg.norm, cfg.d_model, device=device)
+        self.mix = attn.AttnParams(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.head_dim, bias=cfg.qkv_bias,
+                                   device=device,
+                                   dtype=torch_dtype(cfg.dtype))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.norm.reset_parameters()
+        self.mix.reset_parameters(gen)
+
+
 class Cache:
-    """The decode cache of a homogeneous stack, written in place.  An
-    attention stack holds k/v [L, B, C, K, hd] and pos [L, B, C] int32
+    """The decode cache, written in place: one stacked tensor per kind of
+    layer state and ``index``, each layer's (kind, index in its stack).
+    Attention layers hold k/v [La, B, C, K, hd] and pos [La, B, C] int32
     (-1 = empty); a paged pool holds k/v [L, NB, bs, K, hd] and
-    ``block_table`` [B, MB] int32 (None on the contiguous layout).  An
-    MLA stack holds its latent, c_kv [L, B, C, r] and k_rope [L, B, C,
-    rope], with pos, and no k/v.  An SSD stack holds its recurrent state
-    instead, conv [L, B, W-1, ch] and h [L, B, H, hd, N] f32, and no
-    k/v/pos.  ``length`` is the number of tokens consumed (a device
-    scalar after a continuous step, so reading it costs no host sync)."""
+    ``block_table`` [B, MB] int32 (None on the contiguous layout).  MLA
+    layers hold their latent, c_kv [Lm, B, C, r] and k_rope [Lm, B, C,
+    rope], with pos.  SSD layers hold conv [Ls, B, W-1, ch] and h [Ls, B,
+    H, hd, N]; RG-LRU layers lru_h [Lr, B, R] and lru_conv [Lr, B, W-1,
+    R]; both f32.  An encoder-decoder's cross K/V are cross_k / cross_v
+    [L, B, Senc, K, hd].  ``length`` is the number of tokens consumed (a
+    device scalar after a continuous step, so reading it costs no host
+    sync).  Without ``index`` the cache is one homogeneous stack of
+    whichever state is given."""
+
+    # leaves [L, B, C, ...] whose rows a prompt fills from row 0
+    ROWS = ("k", "v", "c_kv", "k_rope")
+    # leaves [L, B, ...] a slot holds whole
+    STATES = ("conv", "h", "lru_h", "lru_conv", "cross_k", "cross_v")
 
     def __init__(self, k=None, v=None, pos=None, length=0,
                  block_table: torch.Tensor | None = None, *, conv=None,
-                 h=None, c_kv=None, k_rope=None):
+                 h=None, c_kv=None, k_rope=None, lru_h=None, lru_conv=None,
+                 cross_k=None, cross_v=None, index=None):
         self.k, self.v, self.pos, self.length = k, v, pos, length
         self.block_table = block_table
         self.conv, self.h = conv, h
         self.c_kv, self.k_rope = c_kv, k_rope
-
-    @property
-    def recurrent(self) -> bool:
-        return self.h is not None
+        self.lru_h, self.lru_conv = lru_h, lru_conv
+        self.cross_k, self.cross_v = cross_k, cross_v
+        if index is None:
+            kind, lead = next((s, t) for s, t in (
+                ("ssd", h), ("latent", c_kv), ("rglru", lru_h), ("kv", k))
+                if t is not None)
+            index = tuple((kind, i) for i in range(lead.shape[0]))
+        self.index = tuple(index)
 
     @property
     def latent(self) -> bool:
         return self.c_kv is not None
 
+    @property
+    def cross(self):
+        """The encoder-decoder's (cross_k, cross_v), or None."""
+        return None if self.cross_k is None else (self.cross_k, self.cross_v)
+
+    def leaves(self) -> dict[str, torch.Tensor]:
+        """Every per-slot tensor by name (pos included, the block table
+        not)."""
+        return {n: t for n in (*self.ROWS, "pos", *self.STATES)
+                if (t := getattr(self, n)) is not None}
+
     def layer(self, i: int):
-        """Layer i's views: an ``attn.KVCache``, an ``mla.MLACache`` or an
-        ``ssd.SSDState``."""
-        if self.recurrent:
-            return ssd.SSDState(conv=self.conv[i], h=self.h[i])
-        if self.latent:
-            return mla.MLACache(c_kv=self.c_kv[i], k_rope=self.k_rope[i],
-                                pos=self.pos[i])
-        return attn.KVCache(k=self.k[i], v=self.v[i], pos=self.pos[i])
+        """Layer i's views: an ``attn.KVCache``, an ``mla.MLACache``, an
+        ``ssd.SSDState`` or an ``rglru.RGLRUState``."""
+        kind, j = self.index[i]
+        if kind == "ssd":
+            return ssd.SSDState(conv=self.conv[j], h=self.h[j])
+        if kind == "rglru":
+            return rglru.RGLRUState(h=self.lru_h[j], conv=self.lru_conv[j])
+        if kind == "latent":
+            return mla.MLACache(c_kv=self.c_kv[j], k_rope=self.k_rope[j],
+                                pos=self.pos[j])
+        return attn.KVCache(k=self.k[j], v=self.v[j], pos=self.pos[j])
 
     @property
     def n_slots(self) -> int:
-        return (self.h if self.recurrent else self.pos).shape[1]
+        t = self.pos if self.pos is not None else next(
+            iter(self.leaves().values()))
+        return t.shape[1]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -233,17 +351,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     ``layout="auto"`` follows ``cfg.kv_block_size`` (paged when > 0);
     ``"contiguous"`` / ``"paged"`` force it (the continuous engine
     prefills contiguous ROW caches even when its pool is paged).  A
-    windowed stack keeps a ring of ``window`` rows.  An SSD stack's
-    state is f32 whatever ``dtype``, and its size does not depend on
-    ``max_seq``; an MLA stack's latent is ``dtype``, as the reference's
-    (``transformer.py:159``)."""
+    windowed stack keeps a ring of ``window`` rows.  SSD and RG-LRU
+    states are f32 whatever ``dtype``, and their size does not depend on
+    ``max_seq``; an MLA latent and an encoder-decoder's cross K/V are
+    ``dtype``, as the reference's (``transformer.py:159, 246``)."""
     if layout not in ("auto", "contiguous", "paged"):
         raise ValueError(f"unknown cache layout {layout!r}")
-    check_supported(cfg)
     dev = resolve_device(device)
-    L, K, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    K, hd = cfg.n_kv_heads, cfg.head_dim
     if cfg.paged_kv if layout == "auto" else layout == "paged":
         _check_paged_supported(cfg)
+        L = cfg.n_layers
         mb, logical, nb = paged_geometry(cfg, batch, max_seq)
         bs = cfg.kv_block_size
         return Cache(
@@ -253,35 +371,52 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                            device=dev),
             block_table=torch.zeros(batch, mb, dtype=torch.int32,
                                     device=dev))
-    if cfg.block_kinds[0] == "ssd":
-        st = ssd.init_ssd_state(L * batch, cfg.d_model,
+    index = layer_index(cfg)
+    n = {s: sum(1 for k, _ in index if k == s)
+         for s in ("kv", "latent", "ssd", "rglru")}
+    out = {}
+    if n["kv"]:
+        C = kv_rows(cfg, max_seq)
+        out.update(
+            k=torch.zeros(n["kv"], batch, C, K, hd, dtype=dtype, device=dev),
+            v=torch.zeros(n["kv"], batch, C, K, hd, dtype=dtype, device=dev),
+            pos=torch.full((n["kv"], batch, C), -1, dtype=torch.int32,
+                           device=dev))
+    if n["latent"]:
+        lat = mla.init_mla_cache(n["latent"] * batch, max_seq,
+                                 mla_config(cfg), dtype, device=dev)
+        out.update(c_kv=lat.c_kv.reshape(n["latent"], batch, max_seq, -1),
+                   k_rope=lat.k_rope.reshape(n["latent"], batch, max_seq,
+                                             -1),
+                   pos=lat.pos.reshape(n["latent"], batch, max_seq))
+    if n["ssd"]:
+        st = ssd.init_ssd_state(n["ssd"] * batch, cfg.d_model,
                                 expand=cfg.ssm_expand,
                                 headdim=cfg.ssm_headdim,
                                 d_state=cfg.ssm_state,
                                 conv_width=cfg.ssm_conv, device=dev)
-        return Cache(conv=st.conv.reshape(L, batch, *st.conv.shape[1:]),
-                     h=st.h.reshape(L, batch, *st.h.shape[1:]))
-    if cfg.block_kinds[0] == "mla":
-        lat = mla.init_mla_cache(L * batch, max_seq, mla_config(cfg), dtype,
-                                 device=dev)
-        return Cache(c_kv=lat.c_kv.reshape(L, batch, max_seq, -1),
-                     k_rope=lat.k_rope.reshape(L, batch, max_seq, -1),
-                     pos=lat.pos.reshape(L, batch, max_seq))
-    window = cfg.window if cfg.block_kinds[0] == "local_attn" else 0
-    C = min(max_seq, window) if window else max_seq
-    return Cache(
-        k=torch.zeros(L, batch, C, K, hd, dtype=dtype, device=dev),
-        v=torch.zeros(L, batch, C, K, hd, dtype=dtype, device=dev),
-        pos=torch.full((L, batch, C), -1, dtype=torch.int32, device=dev))
+        out.update(conv=st.conv.reshape(n["ssd"], batch, *st.conv.shape[1:]),
+                   h=st.h.reshape(n["ssd"], batch, *st.h.shape[1:]))
+    if n["rglru"]:
+        st = rglru.init_rglru_state(n["rglru"] * batch,
+                                    cfg.lru_width or cfg.d_model,
+                                    cfg.conv_width, device=dev)
+        out.update(lru_h=st.h.reshape(n["rglru"], batch, -1),
+                   lru_conv=st.conv.reshape(n["rglru"], batch,
+                                            *st.conv.shape[1:]))
+    if cfg.family == "encdec":
+        shape = (cfg.n_layers, batch, cfg.enc_seq, K, hd)
+        out.update(cross_k=torch.zeros(shape, dtype=dtype, device=dev),
+                   cross_v=torch.zeros(shape, dtype=dtype, device=dev))
+    return Cache(index=index, **out)
 
 
 class LM(nn.Module):
-    """The decoder LM; ``attn_impl`` starts as ``cfg.attn_impl`` and may
-    be switched on a built model (the parity checks do)."""
+    """The LM; ``attn_impl`` starts as ``cfg.attn_impl`` and may be
+    switched on a built model (the parity checks do)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.attn_impl = cfg.attn_impl
         d, V, dt = cfg.d_model, cfg.vocab, torch_dtype(cfg.dtype)
@@ -289,14 +424,17 @@ class LM(nn.Module):
         self.final_norm = nn_.norm(cfg.norm, d, device=device)
         if not cfg.tie_embeddings:
             self.unemb = param(d, V, device=device, dtype=dt)
-        self.layers = nn.ModuleList(Layer(cfg, device=device)
-                                    for _ in range(cfg.n_layers))
-        kind = cfg.block_kinds[0]
-        self.recurrent = kind == "ssd"
-        self.latent = kind == "mla"
-        self.window = cfg.window if kind == "local_attn" else 0
-        # MLA rotates only the rope part of q and k, over all of it
-        self.rotary_dim = (cfg.qk_rope_dim if self.latent
+        self.layers = nn.ModuleList(Layer(cfg, kind, device=device)
+                                    for kind in cfg.block_kinds)
+        if cfg.family == "encdec":
+            self.encoder = Encoder(cfg, device=device)
+            self.xattn = nn.ModuleList(CrossAttn(cfg, device=device)
+                                       for _ in range(cfg.n_layers))
+        kinds = set(cfg.block_kinds)
+        # rotary tables only where a layer attends; MLA rotates only the
+        # rope part of q and k, over all of it
+        self.has_rope = bool(kinds & {"attn", "local_attn", "mla"})
+        self.rotary_dim = (cfg.qk_rope_dim if "mla" in kinds
                            else int(cfg.head_dim * cfg.rope_pct))
 
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -306,6 +444,10 @@ class LM(nn.Module):
             nn_.dense_init_(self.unemb, gen)
         for layer in self.layers:
             layer.reset_parameters(gen)
+        if self.cfg.family == "encdec":
+            self.encoder.reset_parameters(gen)
+            for xa in self.xattn:
+                xa.reset_parameters(gen)
 
     @property
     def device(self) -> torch.device:
@@ -329,64 +471,61 @@ class LM(nn.Module):
         return h @ self.unemb
 
     def _rope(self, positions: torch.Tensor):
-        if self.recurrent:        # no attention, so no rotary tables
+        if not self.has_rope:        # no attention, so no rotary tables
             return None
         return nn_.rope_angles(positions, self.rotary_dim,
                                self.cfg.rope_theta)
 
     def _attn(self, layer: Layer, x, *, mode, kv, rope, pos=None, cur=None,
-              table=None, rows=None):
+              table=None, rows=None, prefix_len: int = 0):
         """Temporal mixing: projections, rotary, attention through the
         kernels or the einsum path, and the cache write (into the paged
         pool through ``table`` at the step's ``rows`` when they are
         given; the step has written ``pos`` already).  ``chunk`` mode
-        writes S rows per slot from ``cur`` without ring wrap; one row
-        attends as a decode step, more through the chunk entry."""
-        cfg, p = self.cfg, layer.mix
+        writes S rows per slot from ``cur`` without ring wrap and attends
+        through the chunk entry.  A
+        prefix batch (``prefix_len`` > 0) attends on the einsum path
+        with the prefix-LM mask."""
+        cfg, p, window = self.cfg, layer.mix, layer.window
         q, k, v = attn.project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads,
                                    cfg.head_dim)
         q = nn_.rotate(q, *rope)
         k = nn_.rotate(k, *rope)
-        kernel = self._use_kernel(x)
+        kernel = self._use_kernel(x) and prefix_len == 0
         if mode in ("full", "prefill"):
             if kernel:
-                o = attn.causal_attention_kernel(q, k, v, window=self.window,
+                o = attn.causal_attention_kernel(q, k, v, window=window,
                                                  impl=self.attn_impl)
-            elif self.window and x.shape[1] > self.window:
-                o = attn.local_attention(q, k, v, window=self.window)
+            elif window and x.shape[1] > window:
+                o = attn.local_attention(q, k, v, window=window)
             else:
-                o = attn.causal_attention(q, k, v, window=self.window)
+                o = attn.causal_attention(q, k, v, window=window,
+                                          prefix_len=prefix_len)
             if mode == "prefill":
                 attn.cache_write(kv, k, v, 0)
         elif mode == "chunk":
             attn.cache_write_chunk(kv, k, v, cur)
-            if kernel and x.shape[1] == 1:
-                o = attn.decode_attend_kernel(q, kv, pos=cur,
-                                              window=self.window,
-                                              impl=self.attn_impl)
-            elif kernel:
-                o = attn.chunk_attend_kernel(q, kv, start=cur,
-                                             window=self.window,
+            if kernel:
+                o = attn.chunk_attend_kernel(q, kv, start=cur, window=window,
                                              impl=self.attn_impl)
             else:
-                o = attn.chunk_attend(q, kv, qpos=pos, window=self.window)
+                o = attn.chunk_attend(q, kv, qpos=pos, window=window)
         elif table is not None:
             attn.paged_write_rows(kv.k, kv.v, k, v, rows)
             if kernel:
                 o = attn.paged_decode_attend_kernel(q, kv, table, pos=cur,
-                                                    window=self.window,
+                                                    window=window,
                                                     impl=self.attn_impl)
             else:
                 o = attn.paged_decode_attend(q, kv, table, pos=pos,
-                                             window=self.window)
+                                             window=window)
         else:
             attn.cache_write(kv, k, v, pos)
             if kernel:
-                o = attn.decode_attend_kernel(q, kv, pos=cur,
-                                              window=self.window,
+                o = attn.decode_attend_kernel(q, kv, pos=cur, window=window,
                                               impl=self.attn_impl)
             else:
-                o = attn.decode_attend(q, kv, pos=pos, window=self.window)
+                o = attn.decode_attend(q, kv, pos=pos, window=window)
         return attn.out_proj(p, o)
 
     def _mla(self, layer: Layer, x, *, mode, lc, rope, pos):
@@ -427,7 +566,7 @@ class LM(nn.Module):
                              single_step=mode == "decode", impl=impl)
 
     def _stack(self, h, *, mode, cache=None, rope, pos=None, cur=None,
-               aux: list | None = None):
+               aux: list | None = None, prefix_len: int = 0, cross=None):
         table = cache.block_table if cache is not None else None
         rows = None
         if table is not None and mode == "decode":
@@ -437,51 +576,125 @@ class LM(nn.Module):
             rows = attn.paged_locate(table, pos, cache.k.shape[2],
                                      cache.pos.shape[2])
             attn.paged_write_pos(cache.pos, rows)
+        cfg = self.cfg
         for i, layer in enumerate(self.layers):
             lc = cache.layer(i) if cache is not None else None
-            if self.recurrent:
-                h = h + self._ssd(layer, layer.norm1(h), mode=mode, state=lc)
-            elif self.latent:
-                h = h + self._mla(layer, layer.norm1(h), mode=mode, lc=lc,
-                                  rope=rope, pos=pos)
+            x = layer.norm1(h)
+            if layer.kind == "ssd":
+                h = h + self._ssd(layer, x, mode=mode, state=lc)
+            elif layer.kind == "rglru":
+                h = h + rglru.rglru_block(layer.mix, x, lc,
+                                          single_step=mode == "decode")
+            elif layer.kind == "mla":
+                h = h + self._mla(layer, x, mode=mode, lc=lc, rope=rope,
+                                  pos=pos)
             else:
-                h = h + self._attn(layer, layer.norm1(h), mode=mode, kv=lc,
-                                   rope=rope, pos=pos, cur=cur, table=table,
-                                   rows=rows)
+                h = h + self._attn(layer, x, mode=mode, kv=lc, rope=rope,
+                                   pos=pos, cur=cur, table=table, rows=rows,
+                                   prefix_len=prefix_len)
+            if cross is not None:
+                xa = self.xattn[i]
+                h = h + attn.cross_attend(xa.mix, xa.norm(h), cross[0][i],
+                                          cross[1][i], cfg.n_heads,
+                                          cfg.head_dim)
             h = self._channel(layer, h, aux)
         return h
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
-    # -- modes ----------------------------------------------------------------
+    def _inputs(self, tokens, prefix_embeds):
+        """Token embeddings after the prefix embeddings (cast to the
+        embeddings' dtype, as the reference); -> (h, P, the mask's
+        prefix length: P on a prefix-LM, else 0)."""
+        h = self.embed(self._tokens(tokens))
+        if prefix_embeds is None:
+            return h, 0, 0
+        pre = torch.as_tensor(prefix_embeds, device=self.device)
+        h = torch.cat([pre.to(h.dtype), h], dim=1)
+        P = pre.shape[1]
+        return h, P, P if self.cfg.prefix_lm else 0
+
+    def _encoded_cross(self, enc_embeds):
+        """An encoder-decoder's cross K/V from ``enc_embeds``; None for
+        any other stack."""
+        if self.cfg.family != "encdec":
+            return None
+        if enc_embeds is None:
+            raise ValueError(
+                f"{self.cfg.arch_id} is an encoder-decoder: forward and "
+                f"prefill need enc_embeds [B, {self.cfg.enc_seq}, "
+                f"{self.cfg.enc_d_model or self.cfg.d_model}]")
+        return self.compute_cross_kv(self.encode(enc_embeds))
+
+    # -- the encoder ----------------------------------------------------------
     @torch.no_grad()
-    def forward(self, tokens):
-        """Full-sequence logits [B, S, V]; returns (logits, aux_loss): the
-        MoE layers' load-balance losses summed, f32 (0 without MoE)."""
-        tokens = self._tokens(tokens)
-        h = self.embed(tokens)
-        rope = self._rope(torch.arange(tokens.shape[1], device=self.device))
-        aux = []
-        h = self._stack(h, mode="full", rope=rope, aux=aux)
-        return self.unembed(h), (torch.stack(aux).sum() if aux else
-                                 torch.zeros((), device=self.device))
+    def encode(self, enc_embeds) -> torch.Tensor:
+        """The bidirectional encoder over frame embeddings [B, Senc, D]
+        (ref ``encode``, ``transformer.py:528-548``): sinusoidal
+        positions, then per layer all-visible attention (no rotary) and
+        the GELU MLP, then the final norm.  The embeddings are taken in
+        the weights' dtype (a torch product needs one type; the reference
+        promotes bf16 weights against f32 embeddings instead)."""
+        cfg = self.cfg
+        x = torch.as_tensor(enc_embeds, device=self.device).to(self.emb.dtype)
+        h = x + nn_.sinusoidal_positions(x.shape[1], x.shape[2],
+                                         device=x.device).to(x.dtype)
+        for lp in self.encoder.layers:
+            q, k, v = attn.project_qkv(lp.mix, lp.norm1(h), cfg.n_heads,
+                                       cfg.n_kv_heads, cfg.head_dim)
+            h = h + attn.out_proj(lp.mix, attn.attend(q, k, v))
+            h = h + lp.mlp(lp.norm2(h))
+        return self.encoder.final_norm(h)
 
     @torch.no_grad()
-    def prefill(self, tokens, cache: Cache):
-        """Consume the prompt, fill the cache from position 0, and return
-        (last-position logits [B, 1, V], cache).  A paged pool is
-        refused: prefill a contiguous row cache and scatter it."""
+    def compute_cross_kv(self, enc_out: torch.Tensor):
+        """Every decoder layer's cross K/V from the encoder's output
+        (ref ``compute_cross_kv``): (k, v), each [L, B, Senc, K, hd]."""
+        cfg = self.cfg
+        kv = [attn.cross_kv(xa.mix, enc_out, cfg.n_kv_heads, cfg.head_dim)
+              for xa in self.xattn]
+        return (torch.stack([k for k, _ in kv]),
+                torch.stack([v for _, v in kv]))
+
+    # -- modes ----------------------------------------------------------------
+    @torch.no_grad()
+    def forward(self, tokens, *, prefix_embeds=None, enc_embeds=None):
+        """Full-sequence logits [B, S, V] of the tokens (the prefix rows
+        cut off); returns (logits, aux_loss): the MoE layers'
+        load-balance losses summed, f32 (0 without MoE)."""
+        h, P, mask_prefix = self._inputs(tokens, prefix_embeds)
+        cross = self._encoded_cross(enc_embeds)
+        rope = self._rope(torch.arange(h.shape[1], device=self.device))
+        aux = []
+        h = self._stack(h, mode="full", rope=rope, aux=aux,
+                        prefix_len=mask_prefix, cross=cross)
+        logits = self.unembed(h)
+        return logits[:, P:], (torch.stack(aux).sum() if aux else
+                               torch.zeros((), device=self.device))
+
+    @torch.no_grad()
+    def prefill(self, tokens, cache: Cache, *, prefix_embeds=None,
+                enc_embeds=None):
+        """Consume the prompt (after ``prefix_embeds``, when given), fill
+        the cache from position 0, and return (last-position logits
+        [B, 1, V], cache).  An encoder-decoder encodes ``enc_embeds`` and
+        puts the cross K/V on the cache (the computed tensors, as the
+        reference's prefill returns them).  A paged pool is refused:
+        prefill a contiguous row cache and scatter it."""
         if cache.block_table is not None:
             raise ValueError(
                 "prefill into a paged pool is not supported — prefill a "
                 "contiguous row cache and scatter it into the pool blocks "
                 "(see repro_torch.serving.continuous.paged_slot_write)")
-        tokens = self._tokens(tokens)
-        h = self.embed(tokens)
-        S = tokens.shape[1]
+        h, _, mask_prefix = self._inputs(tokens, prefix_embeds)
+        cross = self._encoded_cross(enc_embeds)
+        if cross is not None:
+            cache.cross_k, cache.cross_v = cross
+        S = h.shape[1]
         rope = self._rope(torch.arange(S, device=self.device))
-        h = self._stack(h, mode="prefill", cache=cache, rope=rope)
+        h = self._stack(h, mode="prefill", cache=cache, rope=rope,
+                        prefix_len=mask_prefix, cross=cross)
         cache.length = S
         return self.unembed(h[:, -1:]), cache
 
@@ -504,7 +717,8 @@ class LM(nn.Module):
                              device=self.device)
             cache.length = pos + 1
         h = self._stack(h, mode="decode", cache=cache,
-                        rope=self._rope(positions), pos=pos, cur=cur)
+                        rope=self._rope(positions), pos=pos, cur=cur,
+                        cross=cache.cross)
         return self.unembed(h), cache
 
     @torch.no_grad()
@@ -516,10 +730,8 @@ class LM(nn.Module):
         ``cache_write_chunk`` (clamped at the cache's last row, never
         wrapped); returns (logits [B, n, V], cache).  Row j's logits
         condition on what a decode step at ``pos + j`` would see.
-        Contiguous homogeneous attention stacks only (an MoE channel mix
-        routes the chunk's B*n tokens as one group).  At n = 1 it is a
-        decode step whose write does not wrap: the speculative window's
-        draft steps."""
+        Contiguous attention stacks only, not encoder-decoders (an MoE
+        channel mix routes the chunk's B*n tokens as one group)."""
         cfg = self.cfg
         kinds = set(cfg.block_kinds)
         if not kinds <= {"attn", "local_attn"} or cfg.family == "encdec":

@@ -1,7 +1,9 @@
 """Continuous batching for LM decode, ported from
 ``repro.serving.continuous`` (the contiguous KV layout, the paged
-block pool and the recurrent state of an SSD stack; sampling;
-self-speculative windows; the legacy per-step loop).
+block pool, the recurrent state of an SSD stack and a mixed stack's
+ring rows and RG-LRU state; sampling; self-speculative windows; the
+legacy per-step loop).  An encoder-decoder is refused when the engine
+is built: it feeds no encoder input.
 
 A fixed pool of B slots over one shared KV cache; every decode step
 advances ALL slots (each at its own absolute position, the decoder's
@@ -90,14 +92,13 @@ Invariants, as the reference's:
   before each window, so moving it never recaptures the graph; the
   window always drafts D steps, as the reference's.  The reference
   drafts on a sliced scratch copy of the first layers' cache and
-  discards it; the port drafts IN PLACE with ``decode_chunk``'s
-  clamped, non-wrapping write: every row a draft writes (``pos ..
-  pos+D-1``, clamped at C-1) is rewritten by the verify (``pos ..
-  pos+D``, clamped), and a draft row whose position is >= C-1 feeds
-  only drafts that are never emitted or compared, so tokens and stats
-  equal the reference's on the contiguous full-attention stack.  (On a
-  windowed ring cache the reference's scratch draft wraps where the
-  port's clamps: its drafts, and so its acceptance, may differ there.)
+  discards it; the port drafts on the pool's own rows with the decode
+  step's ring write (``_draft``), saving the rows the draft writes
+  before and putting them back after, so every draft reads what the
+  reference's reads, past the cache's last row too (there the ring
+  wraps onto the first rows), and the verify finds the pool the
+  reference's finds.  Tokens and stats equal the reference's, an MoE
+  stack's too, whose router groups every slot's draft token at once.
   Paged and SSD engines refuse D > 0 with the reference's errors.
 
 Not in this slice: ``insert_prefilled`` (the disaggregated hand-off).
@@ -172,59 +173,56 @@ class SlotClock:
 def slot_write(pool: tfm.Cache, rows: tfm.Cache,
                slot_idx: np.ndarray) -> None:
     """Write row i of a batched row cache into pool slot ``slot_idx[i]``,
-    in place.  Rows whose index is out of range (>= n_slots) are
-    dropped, as the reference's ``.at[slot_idx].set(mode="drop")``
-    drops its bucket-padding rows: the valid rows are selected
-    explicitly on the host, since ``index_copy_`` raises on such an
-    index and a scatter with repeated indices has no defined order on
-    the card.  A repeated valid index raises.  The slot's position row
-    is rewritten whole (the prompt's rows, -1 beyond), which retires
-    any validity left by its previous occupant; so are an MLA slot's
-    latent rows (c_kv, k_rope) beside it.  On an SSD stack the slot's
-    conv tail and SSD state are written whole, which retires the state
-    left by its previous occupant."""
+    in place, every kind of state the stack holds.  Rows whose index is
+    out of range (>= n_slots) are dropped, as the reference's
+    ``.at[slot_idx].set(mode="drop")`` drops its bucket-padding rows: the
+    valid rows are selected explicitly on the host, since
+    ``index_copy_`` raises on such an index and a scatter with repeated
+    indices has no defined order on the card.  A repeated valid index
+    raises.  A slot's attention (or MLA latent) rows are its prompt's;
+    its position row is rewritten whole (the prompt's rows, -1 beyond),
+    which retires any validity left by its previous occupant.  Its
+    recurrent states (SSD, RG-LRU) are written whole, which retires the
+    state left by its previous occupant.  A mixed stack's slot is all of
+    these at once, one indexed write per stacked tensor."""
     slot_idx = np.asarray(slot_idx)
     if len(slot_idx) != rows.n_slots:
         raise ValueError(f"{len(slot_idx)} slot indices for a row cache "
                          f"of {rows.n_slots} rows")
-    if pool.recurrent != rows.recurrent or pool.latent != rows.latent:
-        raise ValueError("a recurrent-state, latent (MLA) and KV cache do "
-                         "not mix")
-    if pool.recurrent:
-        leaves = ((pool.conv, rows.conv), (pool.h, rows.h))
-        if not all(p.shape[0] == r.shape[0] and p.shape[2:] == r.shape[2:]
-                   for p, r in leaves):
-            raise ValueError(f"row state {tuple(rows.h.shape)} does not "
-                             f"fit pool {tuple(pool.h.shape)}")
-    else:
-        leaves = (((pool.c_kv, rows.c_kv), (pool.k_rope, rows.k_rope))
-                  if pool.latent else ((pool.k, rows.k), (pool.v, rows.v)))
-        if not all(p.shape[0] == r.shape[0] and p.shape[3:] == r.shape[3:]
-                   and r.shape[2] <= p.shape[2] for p, r in leaves):
-            raise ValueError(f"row cache {tuple(leaves[0][1].shape)} does "
-                             f"not fit pool {tuple(leaves[0][0].shape)} — "
-                             f"refusing to drop the prefilled rows")
+    pl, rl = pool.leaves(), rows.leaves()
+    if pl.keys() != rl.keys() or pool.index != rows.index:
+        raise ValueError(f"a recurrent-state, latent (MLA) and KV cache do "
+                         f"not mix: pool {sorted(pl)}, rows {sorted(rl)}")
+    for name, p in pl.items():
+        r = rl[name]
+        if name in tfm.Cache.STATES:
+            ok = p.shape[0] == r.shape[0] and p.shape[2:] == r.shape[2:]
+        else:
+            ok = (p.shape[0] == r.shape[0] and p.shape[3:] == r.shape[3:]
+                  and r.shape[2] <= p.shape[2])
+        if not ok:
+            raise ValueError(f"row cache {name} {tuple(r.shape)} does not "
+                             f"fit pool {tuple(p.shape)} — refusing to drop "
+                             f"the prefilled rows")
     keep = np.nonzero((slot_idx >= 0) & (slot_idx < pool.n_slots))[0]
     dst = slot_idx[keep]
     if len(set(dst.tolist())) != len(dst):
         raise ValueError(f"repeated slot index in {slot_idx.tolist()}")
     if len(keep) == 0:
         return
-    dev = leaves[0][0].device
+    dev = next(iter(pl.values())).device
     src = torch.as_tensor(keep, device=dev)
     dst = torch.as_tensor(dst, device=dev)
-    if pool.recurrent:
-        for p, r in leaves:
-            p[:, dst] = r[:, src]
-        return
-    Cr, C = rows.pos.shape[2], pool.pos.shape[2]
-    for p, r in leaves:
-        p[:, dst, :Cr] = r[:, src]
-    pos = rows.pos[:, src]
-    if Cr < C:
-        pos = torch.cat([pos, pos.new_full((*pos.shape[:2], C - Cr), -1)],
-                        dim=2)
-    pool.pos[:, dst] = pos
+    for name, p in pl.items():
+        r = rl[name][:, src]
+        if name == "pos" and r.shape[2] < p.shape[2]:
+            r = torch.cat([r, r.new_full((*r.shape[:2],
+                                          p.shape[2] - r.shape[2]), -1)],
+                          dim=2)
+        if name in tfm.Cache.ROWS:
+            p[:, dst, :r.shape[2]] = r
+        else:
+            p[:, dst] = r
 
 
 def paged_slot_write(pool: tfm.Cache, rows: tfm.Cache, slot_idx,
@@ -309,42 +307,43 @@ def blocks_for_request(plen: int, max_new: int, max_seq: int,
 def pool_hbm_bytes(cfg: ModelConfig, n_slots: int, max_seq: int,
                    dtype=torch.bfloat16) -> dict:
     """Device bytes of the decode cache the engine would hold, from the
-    geometry alone (nothing is allocated): ``kv_bytes`` (the K/V rows,
-    the part paging shrinks), ``meta_bytes`` (positions, the block
-    table and the reference's per-layer and cache-wide length scalars,
-    counted as it counts them) and their sum, for the layout that
-    ``cfg.kv_block_size`` selects.  An SSD stack's pool is its f32
-    recurrent state, and an MLA stack's its latent rows, positions and
-    length scalars: the reference finds no ``kv.k`` leaf in either and
-    counts every byte as ``kv_bytes``, with no ``meta_bytes``
-    (``continuous.py:298-301``)."""
-    tfm.check_supported(cfg)
+    geometry alone (nothing is allocated), counted as the reference
+    counts the leaves of its cache (``continuous.py:280-303``):
+    ``kv_bytes`` (the K/V rows, the part paging shrinks), ``meta_bytes``
+    (positions, the block table, the per-layer and cache-wide length
+    scalars and an encoder-decoder's cross K/V) and their sum, for the
+    layout that ``cfg.kv_block_size`` selects.  Where the reference
+    finds no stacked ``kv.k`` leaf (an SSD, MLA or mixed stack) it counts
+    every byte as ``kv_bytes``, with no ``meta_bytes``."""
     if cfg.paged_kv:
         tfm._check_paged_supported(cfg)
-    L = cfg.n_layers
-    item = torch.empty((), dtype=dtype).element_size()
-    if cfg.block_kinds[0] == "mla":
-        lat = cfg.kv_lora_rank + cfg.qk_rope_dim
-        total = (L * n_slots * max_seq * (lat * item + 4)   # rows, pos
-                 + 4 * L + 4)                   # per-layer and cache length
-        return {"kv_bytes": total, "meta_bytes": 0, "total_bytes": total}
-    if cfg.block_kinds[0] == "ssd":
-        d_inner = cfg.ssm_expand * cfg.d_model
-        conv = (cfg.ssm_conv - 1) * (d_inner + 2 * cfg.ssm_state)
-        state = (d_inner // cfg.ssm_headdim) * cfg.ssm_headdim * cfg.ssm_state
-        total = 4 * cfg.n_layers * n_slots * (conv + state) + 4
-        return {"kv_bytes": total, "meta_bytes": 0, "total_bytes": total}
+    L, B = cfg.n_layers, n_slots
     K, hd = cfg.n_kv_heads, cfg.head_dim
+    item = torch.empty((), dtype=dtype).element_size()
     if cfg.paged_kv:
-        mb, C, nb = tfm.paged_geometry(cfg, n_slots, max_seq)
-        rows, table = nb * cfg.kv_block_size, n_slots * mb
-    else:
-        window = cfg.window if cfg.block_kinds[0] == "local_attn" else 0
-        C = min(max_seq, window) if window else max_seq
-        rows, table = n_slots * C, 0
-    kv = 2 * L * rows * K * hd * item
-    meta = 4 * (L * n_slots * C + L + 1 + table)
-    return {"kv_bytes": kv, "meta_bytes": meta, "total_bytes": kv + meta}
+        mb, C, nb = tfm.paged_geometry(cfg, B, max_seq)
+        kv = 2 * L * nb * cfg.kv_block_size * K * hd * item
+        meta = 4 * (L * B * C + L + 1 + B * mb)
+        return {"kv_bytes": kv, "meta_bytes": meta, "total_bytes": kv + meta}
+    C = tfm.kv_rows(cfg, max_seq)
+    R = cfg.lru_width or cfg.d_model
+    d_inner = cfg.ssm_expand * cfg.d_model
+    per_layer = {    # the layer's leaves, its length scalar included
+        "kv": 2 * B * C * K * hd * item + 4 * B * C + 4,
+        "latent": (B * max_seq * ((cfg.kv_lora_rank + cfg.qk_rope_dim)
+                                  * item + 4) + 4),
+        "ssd": 4 * B * ((cfg.ssm_conv - 1) * (d_inner + 2 * cfg.ssm_state)
+                        + (d_inner // cfg.ssm_headdim) * cfg.ssm_headdim
+                        * cfg.ssm_state),
+        "rglru": 4 * B * cfg.conv_width * R,      # h and W-1 rows of tail
+    }
+    total = sum(per_layer[tfm.STATE_OF[k]] for k in cfg.block_kinds) + 4
+    if cfg.family == "encdec":
+        total += 2 * L * B * cfg.enc_seq * K * hd * item
+    kinds = cfg.block_kinds
+    kv = (2 * L * B * C * K * hd * item
+          if cfg.homogeneous and tfm.STATE_OF[kinds[0]] == "kv" else total)
+    return {"kv_bytes": kv, "meta_bytes": total - kv, "total_bytes": total}
 
 
 def _bucket(n: int) -> int:
@@ -422,7 +421,14 @@ class ContinuousBatchingEngine:
                 self.spec_controller = DraftDepthController(
                     max_depth=self.draft_depth,
                     draft_cost=cfg.draft_layers / cfg.n_layers)
-        tfm.check_supported(self.cfg)
+        if cfg.family == "encdec":
+            # the reference's engine prefills no encoder input and fails
+            # inside its first prefill; the port says so when it is built
+            raise ValueError(
+                f"{cfg.arch_id} is an encoder-decoder: the continuous "
+                f"engine feeds prompts only, no encoder input (enc_embeds), "
+                f"so it cannot serve it — drive it through the model API "
+                f"(LM.prefill(..., enc_embeds=...), then decode_step)")
         if self.capture == "auto":
             self.graphed = self.device.type == "cuda"
         elif self.capture is True or self.capture is False:
@@ -541,7 +547,7 @@ class ContinuousBatchingEngine:
         the chain as the per-step window does.  Returns the new
         (cur_tok, pos, active, remaining) and the tokens and emission
         masks, both [k * (D+1), B] in emission order; no host sync."""
-        model, draft = self.params, self.draft
+        model = self.params
         D, last = self.draft_depth, self.max_seq - 1
         n = D + 1
         B = cur_tok.shape[0]
@@ -561,12 +567,7 @@ class ContinuousBatchingEngine:
 
         toks, emitted = [], []
         for _ in range(self.sync_every):
-            dtok, dpos, drafts = cur_tok, pos, []
-            for _ in range(D):
-                lg, _ = draft.decode_chunk(dtok, pool, dpos)
-                t = pick(lg[:, 0], dpos + 1)
-                drafts.append(t)
-                dtok, dpos = t[:, None], dpos + 1
+            drafts = self._draft(pool, cur_tok, pos, pick)
             chunk = torch.cat([cur_tok, torch.stack(drafts, 1)], 1)
             logits, _ = model.decode_chunk(chunk, pool, pos)     # [B, n, V]
             posm = pos[:, None] + 1 + ar
@@ -592,6 +593,34 @@ class ContinuousBatchingEngine:
             cur_tok, pos, remaining, active = tokc[:, None], posc, remc, actc
         return (cur_tok, pos, active, remaining, torch.stack(toks),
                 torch.stack(emitted))
+
+    def _draft(self, pool, cur_tok, pos, pick) -> list[torch.Tensor]:
+        """The macro-step's D draft tokens, [B] each: D decode steps of
+        the draft prefix from ``pos``, on the pool's own rows as if on
+        the reference's scratch copy of them (``continuous.py:451-470``).
+        The steps write with the decode step's ring wrap, so a draft past
+        the cache's last row reads what the reference's reads; the rows
+        they write (``(pos + j) % C``, j < D, in the draft's layers) are
+        saved before and put back after, so the verify finds the pool as
+        the reference's does.  No host sync: it runs inside the captured
+        window."""
+        dl = self.cfg.draft_layers
+        C = pool.k.shape[2]
+        B = cur_tok.shape[0]
+        b = torch.arange(B, device=pos.device)[:, None]
+        rows = (pos[:, None] + torch.arange(self.draft_depth,
+                                            device=pos.device)) % C
+        leaves = (pool.k, pool.v, pool.pos)
+        saved = [t[:dl, b, rows] for t in leaves]
+        dtok, dpos, drafts = cur_tok, pos, []
+        for _ in range(self.draft_depth):
+            lg, _ = self.draft.decode_step(dtok, pool, dpos)
+            t = pick(lg[:, 0], dpos + 1)
+            drafts.append(t)
+            dtok, dpos = t[:, None], dpos + 1
+        for t, old in zip(leaves, saved):
+            t[:dl, b, rows] = old
+        return drafts
 
     # -- admission ----------------------------------------------------------
     def _admit(self, requests: list[GenRequest]) -> list[GenRequest]:

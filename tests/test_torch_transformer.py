@@ -207,8 +207,13 @@ def test_bf16_weights_carry_across_exactly():
     ("recurrentgemma-2b", "rglru"), ("whisper-medium", "encoder-decoder"),
 ])
 def test_other_families_raise_with_their_slice(arch, what):
-    with pytest.raises(NotImplementedError, match="model-families slice"):
-        ttfm.LM(tget(arch), device="cpu")
+    # the family builds; what it refuses is the reference's own: the
+    # verify chunk on a stack that is not pure attention or is an
+    # encoder-decoder
+    other = ttfm.init_lm(tget(arch), 0, device="cpu")
+    with pytest.raises(ValueError, match="decode_chunk needs a pure"):
+        other.decode_chunk(np.zeros((1, 2), np.int32),
+                           ttfm.init_cache(other.cfg, 1, 8, device="cpu"), 0)
     # the paged pool serves homogeneous full attention only
     paged_local = tget(ARCH).replace(kv_block_size=16, window=16)
     with pytest.raises(ValueError, match="paged KV pool"):
