@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --decode-graph   # sampling_keys, decode_graph only
+    python3 chip_smoke.py --fleet          # train_classifier, fleet only
 
 Drives ``src/repro_torch`` only (no JAX, nothing of ``repro``) and prints
 one JSON object per line; any failed check raises, so the exit code is
@@ -54,6 +55,24 @@ not 0.  Phases:
                (target 0.58) against open over 2,000 requests, latency
                models calibrated on the card (time and energy saving %,
                admission rate, accuracy drop);
+     fleet   — the launcher's ``serve_fleet``: three live replicas
+               (direct, dynamic-batch, gated-in-graph; energy-aware router,
+               autoscaler, each replica's own bio controller; max batch 8)
+               on the ``flash-crowd`` scenario, 600 requests, through the
+               card-trained classifier and through the full-width
+               DistilBERT (6 layers, d 768, seq 128, seeded); the
+               ``crash-storm`` story (faults, bounded retry, brownout) on
+               the trained classifier; the sim fleet's ``flash-crowd`` as a
+               host-only baseline.  Each run writes its trace and metrics
+               (validated), reads the card's energy counter through NVML
+               around the run (``--energy-source nvml``: modelled joules,
+               NVML joules, the window's seconds, the drift ratio, beside
+               the card's draw at rest), and prints its routed counts,
+               admission rate, p50/p95, busy and wall seconds,
+               ``compile_seconds``, each replica's largest and median batch
+               walltime, and the entropy kernel's launches (zeroed just
+               before, read just after; > 0 in each live run); every
+               request answered once, or rejected with a reason;
      resnet  — ResNet-18 (100 classes, 64 x 64, seed 1) through
                ``CallableEngineAdapter`` and ``Server`` on the direct path,
                100 requests; logits card vs CPU from the same weights in
@@ -234,7 +253,8 @@ not 0.  Phases:
  18. kernels — one line with every kernel's numbers (the chunk entry
                too; each kernel's launches summed over its main paths,
                with ``launches_by_path``: entropy's the four classify
-               runs, each attention kernel's stablelm's and granite's;
+               runs and the fleet's live runs (``fleet``), each attention
+               kernel's stablelm's and granite's;
                granite's G = 3 case as ``g3``);
  19. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -285,6 +305,7 @@ from repro_torch.serving import (PATH_DIRECT,  # noqa: E402
                                  closed_loop_arrivals)
 from repro_torch.serving.engine import GenerationEngine  # noqa: E402
 from repro_torch.serving.gated import make_gated_classify_step  # noqa: E402
+from repro_torch.telemetry.validate import main as validate_main  # noqa: E402
 from repro_torch.training import (ClassificationData,  # noqa: E402
                                   train_classifier)
 
@@ -384,7 +405,7 @@ def phase_device():
          count=torch.cuda.device_count(), nvidia_smi=smi,
          idle_power_draw=idle, assumed_idle_w=em.p_idle,
          torch=torch.__version__, cuda=torch.version.cuda)
-    return name, smi
+    return name, smi, idle
 
 
 def _cuobjdump():
@@ -839,6 +860,128 @@ def phase_system(cfg, model, data):
              admission_rate=s["admission_rate"],
              accuracy_drop_pp=100 * (std["accuracy"] - s["accuracy"]),
              calibrated_ms={b: t * 1e3 for b, t in times.items()})
+
+
+FLEET_REQUESTS = 600
+FLEET_OUTLIER = 10.0   # a replica's largest batch walltime over its median
+
+
+def _fleet_run(tag: str, flags: list[str], idle_w: float,
+               classifier=None) -> dict:
+    """One ``serve_fleet`` run through the launcher's own flags, its
+    trace and metrics written and validated, the card's energy counter
+    read around it (``--energy-source nvml``), the entropy kernel's
+    launches counted from just before to just after."""
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_fleet")
+    os.makedirs(out_dir, exist_ok=True)
+    trace = os.path.join(out_dir, f"{tag}.trace.json")
+    metrics = os.path.join(out_dir, f"{tag}.metrics.json")
+    args = serve.parser().parse_args(
+        ["--device", "cuda", "--requests", str(FLEET_REQUESTS),
+         "--max-batch", "8", "--runs", os.path.join(ROOT, "build",
+                                                    "chip_smoke_runs"),
+         "--trace-out", trace, "--metrics-out", metrics,
+         "--energy-source", "nvml", *flags])
+    ent_mod.launches = 0
+    t0 = time.perf_counter()
+    out, report, pool = serve.serve_fleet(args, classifier=classifier)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = ent_mod.launches
+    n = args.requests
+    resp = report.responses
+    rids = [r.rid for r in resp]
+    fail_unless(sorted(rids) == list(range(n)),
+                f"fleet {tag}: every request answered exactly once")
+    rejected = [r for r in resp if r.path == "reject"]
+    fail_unless(all(r.telemetry.get("reason") for r in rejected),
+                f"fleet {tag}: every rejection carries its reason")
+    fail_unless(args.chaos is not None or not rejected,
+                f"fleet {tag}: no rejection without faults")
+    fail_unless(out["n_served"] + out["n_rejected"] == n,
+                f"fleet {tag}: served + rejected = requests")
+    fail_unless(validate_main([trace, metrics, "--require-gauge",
+                               "compile_seconds", "energy_drift_ratio",
+                               "fleet_pressure"]) == 0,
+                f"fleet {tag}: trace and metrics validate")
+    drift = out["energy_drift"]
+    # the counter steps every few tens of ms: a live run's window of
+    # seconds must see it move; the sim run's may be shorter than a step
+    fail_unless(drift["source"] == "nvml" and drift["measured_j"] >= 0
+                and (drift["measured_j"] > 0 or not args.fleet_live),
+                f"fleet {tag}: the card's energy counter read {drift}")
+    if args.fleet_live:
+        fail_unless(launches > 0,
+                    f"fleet {tag}: entropy kernel launched on the path")
+    lat = np.array([r.t_finish - r.arrival_s for r in resp])
+    walltimes = {}
+    for rep in pool:
+        bt = np.asarray(getattr(rep.server.engine, "batch_times", []))
+        if len(bt):
+            walltimes[rep.name] = {
+                "calls": int(len(bt)), "median_ms": float(np.median(bt)) * 1e3,
+                "max_ms": float(bt.max()) * 1e3,
+                "max_over_median": float(bt.max() / np.median(bt))}
+    line = dict(
+        phase="fleet", run=tag, live=bool(args.fleet_live),
+        chaos=args.chaos, scenario=out["scenario"], requests=n,
+        n_layers=out.get("n_layers"), d_model=out.get("d_model"),
+        routed=out["routed"], admission_rate=out["admission_rate"],
+        # the router's marginal-energy signal: each replica's prior (from
+        # the calibrated buckets) and its EnergyMeter EWMA at the end
+        prior_j={rep.name: rep.energy_prior_j for rep in pool},
+        ewma_j={r["name"]: r["ewma_j_per_req"] for r in out["per_replica"]},
+        n_served=out["n_served"], n_rejected=out["n_rejected"],
+        n_retries=out["n_retries"], n_failures=out["n_failures"],
+        p50_latency_ms=float(np.percentile(lat, 50)) * 1e3,
+        p95_latency_ms=float(np.percentile(lat, 95)) * 1e3,
+        span_s=out["span_s"], modelled_j=out["energy_j"],
+        busy_s=float(sum(rep.busy_s for rep in pool)), wall_s=wall_s,
+        nvml_window_s=drift["window_s"], nvml_j=drift["measured_j"],
+        idle_power_w=idle_w, idle_j_in_window=idle_w * drift["window_s"],
+        drift_ratio=drift["drift_ratio"],
+        compile_seconds=drift["compile"]["compile_seconds"],
+        entropy_launches=launches, batch_walltimes=walltimes,
+        outliers=sorted(k for k, v in walltimes.items()
+                        if v["max_over_median"] > FLEET_OUTLIER),
+        autoscaler_actions=out["autoscaler_actions"],
+        fault_plan=out.get("fault_plan"))
+    emit(**line)
+    return line
+
+
+def phase_fleet(trained, smi: str, device_idle: str) -> dict:
+    """The fleet layer on the card through the launcher's ``serve_fleet``:
+    three live replicas (direct, dynamic-batch, gated-in-graph; the
+    energy-aware router, the autoscaler) on ``flash-crowd`` through the
+    trained default and through the full-width DistilBERT, the
+    ``crash-storm`` story on the trained default (faults, retry,
+    brownout), and the sim fleet's ``flash-crowd`` as a host-only
+    baseline; each run's drift audit reads the card's energy counter,
+    printed beside the card's draw at rest before the runs (and at the
+    start of the smoke, ``device_idle``).
+    -> the entropy kernel's launches in each live run."""
+    idle = nvidia_smi("power.draw")
+    idle_w = float(idle.split()[0])
+    runs = {
+        "live": _fleet_run("live", ["--fleet-live"], idle_w,
+                           classifier=trained),
+        "live_full_width": _fleet_run(
+            "live_full_width", ["--fleet-live", "--full-width",
+                                "--seq-len", "128"], idle_w),
+        "chaos": _fleet_run("chaos", ["--fleet-live", "--chaos",
+                                      "crash-storm"], idle_w,
+                            classifier=trained),
+        "sim": _fleet_run("sim", ["--fleet"], idle_w),
+    }
+    emit(phase="fleet_summary", nvidia_smi=smi, idle_power_draw=idle,
+         device_phase_idle_power_draw=device_idle,
+         **{k: {f: v[f] for f in ("wall_s", "modelled_j", "nvml_j",
+                                  "drift_ratio", "entropy_launches")}
+            for k, v in runs.items()})
+    torch.cuda.empty_cache()
+    return {k: v["entropy_launches"] for k, v in runs.items()
+            if v["live"]}
 
 
 RESNET_TOL = 1e-4     # of the largest |logit|, card vs CPU, f32, TF32 off
@@ -3546,9 +3689,19 @@ def decode_graph_only() -> None:
     emit(phase="decode_graph_only", seconds=time.perf_counter() - t0)
 
 
+def fleet_only() -> None:
+    """``--fleet``: the device, build, train_classifier and fleet phases
+    alone: the quickest check of the fleet layer on the card."""
+    t0 = time.perf_counter()
+    _, smi, idle = phase_device()
+    phase_build()
+    phase_fleet(phase_train_classifier(), smi, idle)
+    emit(phase="fleet_only", seconds=time.perf_counter() - t0)
+
+
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--decode-graph"]):
-        print(f"usage: chip_smoke.py [--decode-graph], got {argv}",
+    if argv not in ([], ["--decode-graph"], ["--fleet"]):
+        print(f"usage: chip_smoke.py [--decode-graph | --fleet], got {argv}",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3556,15 +3709,17 @@ def main(argv: list[str]) -> int:
               "test needs an NVIDIA GPU", file=sys.stderr)
         return 1
     if argv:
-        decode_graph_only()
+        (fleet_only if argv == ["--fleet"] else decode_graph_only)()
         return 0
-    name, smi = phase_device()
+    name, smi, idle = phase_device()
     peaks = PEAKS["pcie" if "pcie" in name.lower() else "sxm"]
     phase_build()
     max_err, main_row, ent_schedules, floor_ms = phase_kernel(peaks)
     trained = phase_train_classifier()
     launches = phase_serve()
     phase_system(*trained)
+    fleet = phase_fleet(trained, smi, idle)
+    launches["fleet"] = sum(fleet.values())
     del trained
     phase_resnet(smi)
     cfg, model, x = _gated_batch()

@@ -12,8 +12,10 @@ PyTorch's headers: ``nvcc`` then takes seconds per file, where a
 
 :func:`build_all` starts one ``nvcc`` per source, all at once, and
 waits for them together, keeping each one's seconds in
-``build_seconds``; :func:`load` builds (if needed) and opens one
-library.  Nothing here runs when the module is imported.
+``build_seconds`` and ``build_log``; :func:`load` builds (if needed) and
+opens one library, noting in ``hit_log`` a library it found already
+built.  ``telemetry.compile_watch`` reads the two logs.  Nothing here
+runs when the module is imported.
 """
 from __future__ import annotations
 
@@ -38,6 +40,10 @@ _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+\.cuh)"', re.M)
 _libs: dict[str, ctypes.CDLL] = {}
 # seconds each library's nvcc took in this process (absent: loaded as built)
 build_seconds: dict[str, float] = {}
+# (wall time it started, seconds, library) of each nvcc this process ran
+build_log: list[tuple[float, float, str]] = []
+# (wall time, library) of each library opened as built, without nvcc
+hit_log: list[tuple[float, str]] = []
 
 
 def find_nvcc() -> str:
@@ -72,10 +78,11 @@ def local_headers(name: str, csrc: Path = CSRC) -> list[Path]:
     return seen
 
 
-def library_path(name: str, build_dir: Path = BUILD_DIR,
+def library_path(name: str, build_dir: Path | None = None,
                  csrc: Path = CSRC) -> Path:
     """Where ``name``'s library lives for the current source, its local
-    headers and the flags."""
+    headers and the flags (in ``build_dir``, default ``BUILD_DIR``)."""
+    build_dir = BUILD_DIR if build_dir is None else build_dir
     h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
     for header in local_headers(name, csrc):
         h.update(header.name.encode())
@@ -95,12 +102,15 @@ def _run(cmd: list[str]) -> tuple[int, str, float]:
     return proc.returncode, proc.stdout, time.perf_counter() - t0
 
 
-def build_all(names=KERNELS, build_dir: Path = BUILD_DIR) -> dict[str, Path]:
+def build_all(names=KERNELS, build_dir: Path | None = None
+              ) -> dict[str, Path]:
     """Compile every kernel whose library is missing, all ``nvcc``s in
     parallel; raises with the compiler's output if one fails.  The
     compiler's report (``-Xptxas -v``: registers, shared memory,
     spills) is kept beside each library as ``<library>.log``, and each
-    ``nvcc``'s seconds in ``build_seconds``."""
+    ``nvcc``'s seconds in ``build_seconds``.  ``build_dir`` defaults to
+    ``BUILD_DIR`` (``launch.compile_cache`` may move it)."""
+    build_dir = BUILD_DIR if build_dir is None else build_dir
     build_dir.mkdir(parents=True, exist_ok=True)
     paths = {n: library_path(n, build_dir) for n in names}
     todo = {n: p for n, p in paths.items() if not p.exists()}
@@ -108,6 +118,7 @@ def build_all(names=KERNELS, build_dir: Path = BUILD_DIR) -> dict[str, Path]:
         return paths
     nvcc = find_nvcc()
     tmps = {n: p.with_suffix(f".{os.getpid()}.tmp") for n, p in todo.items()}
+    started = time.time()
     with ThreadPoolExecutor(max_workers=len(todo)) as pool:
         runs = {n: pool.submit(_run, nvcc_command(nvcc, n, tmps[n]))
                 for n in todo}
@@ -115,6 +126,7 @@ def build_all(names=KERNELS, build_dir: Path = BUILD_DIR) -> dict[str, Path]:
     for n, run in runs.items():
         rc, out, secs = run.result()
         build_seconds[n] = secs
+        build_log.append((started, secs, n))
         Path(str(todo[n]) + ".log").write_text(out)
         if rc != 0:
             failed.append(f"{n}: nvcc exited {rc}\n{out}")
@@ -131,6 +143,8 @@ def load(name: str) -> ctypes.CDLL:
     needed), opened once per process."""
     lib = _libs.get(name)
     if lib is None:
+        if name not in build_seconds and library_path(name).exists():
+            hit_log.append((time.time(), name))
         lib = ctypes.CDLL(str(build_all((name,))[name]))
         _libs[name] = lib
     return lib

@@ -7,17 +7,21 @@ would count the capture and no replay.  ``CountedGraph.capture`` takes
 back what the capture added and keeps it as the graph's launches;
 ``replay`` adds them once per replay.  ``chip_smoke.py`` reads the
 counters around a served run, so its launches stay true when the decode
-window is a graph.
+window is a graph.  Every capture is noted in ``capture_log`` (wall time
+it started, seconds), which ``telemetry.compile_watch`` reads.
 """
 from __future__ import annotations
 
 import importlib
+import time
 
 import torch
 
 # the kernel modules whose wrappers count launches
 KERNEL_MODULES = ("decode_attention", "entropy", "flash_attention",
                   "ssd_scan")
+# (wall time it started, seconds) of each capture in this process
+capture_log: list[tuple[float, float]] = []
 
 
 def _modules():
@@ -57,12 +61,14 @@ class CountedGraph:
         before = launch_counts()
         ctx = (torch.cuda.graph(self.graph, pool=pool) if context is None
                else context)
+        started, t0 = time.time(), time.perf_counter()
         try:
             with ctx:
                 fn()
         finally:
             after = launch_counts()
             add_launch_counts({k: before[k] - after[k] for k in after})
+        capture_log.append((started, time.perf_counter() - t0))
         self.launches = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}
 

@@ -101,11 +101,37 @@ session's first of its kind is the replay of one CUDA graph.
         --mode generate --smoke --temperature 0.8 --top-k 50
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --mode generate --smoke --draft-depth 2
+
+``--fleet`` serves through the multi-replica layer (``repro_torch.fleet``):
+a heterogeneous replica pool (``--fleet-kinds``), a routing policy
+(``--policy``), an optional autoscaler and a traffic scenario
+(``--scenario``) — the ORT-vs-Triton boundary as a runtime decision.
+The default replicas are the reference's oracle-backed virtual-time
+nodes (host code only).  ``--fleet-live`` swaps them for LIVE replicas
+over the classifier on the card (the trained default, or
+``--full-width``): measured walltimes advance the virtual clock, and
+every batch's proxy entropy runs the CUDA entropy kernel.  ``--chaos
+NAME`` runs a named failure story (a scenario, a fault plan and a
+deadline) with bounded retry and brownout.  ``--trace-out`` and
+``--metrics-out`` write a Chrome trace and a metrics snapshot, and turn
+on the energy-drift audit: modelled joules against ``--energy-source``
+(``process``: process time; ``nvml``: the card's own energy counter).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --fleet
+    PYTHONPATH=src python -m repro_torch.launch.serve --fleet-live \
+        --requests 200 --max-batch 8 --trace-out /tmp/t.json \
+        --metrics-out /tmp/m.json --energy-source nvml
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --fleet --chaos crash-storm --requests 200
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --fleet-live --requests 64 --runs /tmp/runs
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import sys
 
 import numpy as np
 import torch
@@ -115,6 +141,7 @@ from repro_torch.core import (AdaptiveThreshold, AdmissionController,
                               CostWeights, DecayingThreshold, EnergyMeter,
                               EnergyModel, LatencyModel, energy_model_for)
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.launch.compile_cache import enable_compilation_cache
 from repro_torch.models import distilbert
 from repro_torch.models import transformer as tfm
 from repro_torch.models.convert import distilbert_from_numpy, load_flat_npz
@@ -130,8 +157,11 @@ from repro_torch.serving.continuous import (ContinuousBatchingEngine,
 from repro_torch.serving.engine import ClassifierEngine
 from repro_torch.serving.simulator import Oracle
 from repro_torch.serving.workload import bursty_arrivals, poisson_arrivals
-from repro_torch.telemetry.carbon import CarbonTracker
-from repro_torch.telemetry.tracker import Tracker
+from repro_torch.telemetry import (NULL_METRICS, NULL_TRACER,
+                                   CarbonTracker, CompileWatcher,
+                                   EnergyDriftAudit, MetricsRegistry,
+                                   Tracer, Tracker, export_observability,
+                                   make_measured_source, validate_trace)
 from repro_torch.training.data import ClassificationData
 from repro_torch.training.train_loop import train_classifier
 
@@ -141,6 +171,57 @@ def device_energy_model(device: torch.device) -> EnergyModel:
     if device.type == "cuda":
         return energy_model_for(torch.cuda.get_device_name(device))
     return EnergyModel()
+
+
+def make_observability(args):
+    """Tracer / metrics / drift-audit kit for one serving run.
+
+    Real recorders only when ``--trace-out``/``--metrics-out`` asked
+    for exports — the default stays the no-op fast path so untraced
+    runs pay nothing.  The drift audit starts its measured-energy
+    window immediately (``--energy-source``; ``nvml`` raises where the
+    NVML library cannot be opened)."""
+    if not (getattr(args, "trace_out", None)
+            or getattr(args, "metrics_out", None)):
+        return NULL_TRACER, NULL_METRICS, None
+    audit = EnergyDriftAudit(
+        source=make_measured_source(args.energy_source)).start()
+    # build-time visibility: cuda.build / cuda.capture spans and the
+    # compile_seconds gauge (0.0 when every library was opened as built)
+    args._compile_watch = CompileWatcher().install()
+    return Tracer(), MetricsRegistry(), audit
+
+
+def finish_observability(args, run, tracer, metrics, audit, *,
+                         modelled_j: float = 0.0,
+                         n_requests: int = 0) -> dict:
+    """Close the drift window, land artifacts beside the run's CSVs,
+    and write the ``--trace-out``/``--metrics-out`` files.  Returns the
+    drift report with the watcher's under ``compile`` (empty when
+    observability is off)."""
+    if audit is None:
+        return {}
+    audit.record(modelled_j, n_requests)
+    report = audit.stop()
+    if metrics.enabled:
+        audit.export(metrics)
+    watcher = getattr(args, "_compile_watch", None)
+    if watcher is not None:
+        report["compile"] = watcher.export(tracer, metrics)
+    if run is not None:
+        export_observability(run, tracer=tracer, metrics=metrics,
+                             audit=audit)
+    if getattr(args, "trace_out", None) and tracer.enabled:
+        problems = validate_trace(tracer.spans)
+        if problems:       # keep the artifact; the validator decides
+            print("trace audit: " + "; ".join(problems[:5]),
+                  file=sys.stderr)
+        tracer.write_chrome(args.trace_out)
+    if getattr(args, "metrics_out", None) and metrics.enabled:
+        metrics.write_json(args.metrics_out)
+        metrics.write_prometheus(
+            os.path.splitext(args.metrics_out)[0] + ".prom")
+    return report
 
 
 # the reference's classify model (repro/launch/serve.py:125-132)
@@ -210,12 +291,22 @@ def make_controller(kind: str, *, weights: str, target_rate: float,
     return ctrl
 
 
+def arrival_rate(args) -> float:
+    """``--qps``, else the reference's defaults: 40 for a fleet (small
+    sim fleets saturate at the single-server rate), 150 otherwise."""
+    if args.qps is not None:
+        return args.qps
+    fleet = args.fleet or args.fleet_live or args.chaos
+    return 40.0 if fleet else 150.0
+
+
 def _arrivals(args, labels, payloads=None):
+    qps = arrival_rate(args)
     if args.traffic == "bursty":
-        return bursty_arrivals(args.requests, args.qps, args.qps * 8,
+        return bursty_arrivals(args.requests, qps, qps * 8,
                                seed=args.seed, payloads=payloads,
                                labels=labels)
-    return poisson_arrivals(args.requests, args.qps, seed=args.seed,
+    return poisson_arrivals(args.requests, qps, seed=args.seed,
                             payloads=payloads, labels=labels)
 
 
@@ -278,9 +369,11 @@ def serve_classifier(args):
                            queue_window_s=args.window))
         reqs = _arrivals(args, labels)
 
+    tracer, metrics, audit = make_observability(args)
     telem = TelemetryMiddleware(run=run)
     server = Server(port, ServerConfig(path=path, energy_model=em),
-                    middleware=[AdmissionMiddleware(ctrl), telem])
+                    middleware=[AdmissionMiddleware(ctrl), telem],
+                    tracer=tracer, metrics=metrics)
     if path == PATH_GATED:
         carbon.start()
         server.serve(reqs)
@@ -297,6 +390,11 @@ def serve_classifier(args):
                 if device.type == "cuda" else "cpu"),
         n_layers=cfg["n_layers"], d_model=cfg["d_model"],
         p50_latency_ms=float(np.percentile(lat, 50)) * 1e3, **extra)
+    drift = finish_observability(args, run, tracer, metrics, audit,
+                                 modelled_j=server.energy_j,
+                                 n_requests=args.requests)
+    if drift:
+        summary["energy_drift_ratio"] = drift["drift_ratio"]
 
     run.log_params(**vars(args))
     run.log_metrics(0, **{k: v for k, v in summary.items()
@@ -305,6 +403,131 @@ def serve_classifier(args):
     run.log_artifact("carbon.json", carbon.report())
     run.finish()
     return summary, server
+
+
+def serve_fleet(args, classifier=None):
+    """Run a traffic scenario (or a ``--chaos`` failure story) over a
+    heterogeneous replica fleet — the reference's oracle-backed
+    virtual-time replicas by default, the LIVE classifier on the device
+    with ``--fleet-live``: the reference's trained classifier from
+    ``--seed`` (``--full-width``: the seeded full-width DistilBERT), or
+    ``classifier``, a ready ``(cfg, model, data)``, served as it is.
+    -> (the printed summary, the ``FleetReport``, the ``ReplicaPool``)."""
+    from repro_torch.faults import (BrownoutController, FaultInjector,
+                                    RetryPolicy, make_chaos)
+    from repro_torch.fleet import (LIVE_REPLICA_KINDS, REPLICA_KINDS,
+                                   Autoscaler, FleetSimulator,
+                                   build_live_fleet, build_sim_fleet,
+                                   make_router, make_scenario,
+                                   with_deadline, with_payloads)
+
+    device = resolve_device(args.device)
+    em = device_energy_model(device)
+    kinds = tuple(k.strip() for k in args.fleet_kinds.split(","))
+    valid = LIVE_REPLICA_KINDS if args.fleet_live else REPLICA_KINDS
+    for k in kinds:
+        if k not in valid:
+            raise SystemExit(f"unknown replica kind {k!r}; choose from "
+                             f"{valid}")
+    qps = arrival_rate(args)
+
+    chaos = None
+    deadline = args.deadline
+    if args.chaos:
+        # a named failure story: its traffic trace + fault plan +
+        # default deadline, reproducible per --chaos-seed
+        chaos = make_chaos(args.chaos, args.requests, qps=qps,
+                           seed=(args.seed if args.chaos_seed is None
+                                 else args.chaos_seed))
+        scenario = chaos.scenario
+        if deadline is None:
+            deadline = chaos.deadline_s
+    else:
+        scenario = make_scenario(args.scenario, args.requests, qps=qps,
+                                 seed=args.seed)
+    if deadline is not None:
+        scenario = with_deadline(scenario, deadline)
+
+    def controllers(kind, i):
+        # each replica gets its OWN closed-loop controller
+        return make_controller(args.controller, weights=args.weights,
+                               target_rate=args.target_rate,
+                               energy_model=em)
+
+    extra = {}
+    if args.fleet_live:
+        if classifier is not None:
+            cfg, model, data = classifier
+        elif args.full_width or args.params:
+            cfg, model, data = classify_model(args, device)
+        else:
+            cfg, model, data = build_classifier(seed=args.seed,
+                                                device=device)[:3]
+        toks, labels, _ = data.sample(args.requests)
+        scenario = with_payloads(scenario, toks, labels=labels)
+        pool = build_live_fleet(cfg, model, kinds=kinds,
+                                controller_factory=controllers,
+                                max_batch=args.max_batch,
+                                queue_window_s=args.window,
+                                exit_layer=args.exit_layer,
+                                seq_len=toks.shape[1], energy_model=em,
+                                device=device)
+        extra = {"n_layers": cfg["n_layers"], "d_model": cfg["d_model"]}
+    else:
+        pool = build_sim_fleet(scenario.oracle, kinds=kinds,
+                               controller_factory=controllers,
+                               max_batch=args.max_batch,
+                               queue_window_s=args.window,
+                               n_slots=args.slots, energy_model=em)
+    carbon = CarbonTracker(region=args.region,
+                           meter=EnergyMeter(model=em))
+    tracer, metrics, audit = make_observability(args)
+    sim = FleetSimulator(
+        pool, make_router(args.policy),
+        autoscaler=Autoscaler() if args.autoscale else None,
+        carbon=carbon, tracer=tracer, metrics=metrics,
+        injector=(FaultInjector(chaos.plan) if chaos else None),
+        retry_policy=(RetryPolicy() if chaos else None),
+        brownout=(BrownoutController() if chaos else None))
+    report = sim.run(scenario.requests)
+
+    tracker = Tracker(root=args.runs)
+    mode = "fleet-live" if args.fleet_live else "fleet"
+    tag = f"chaos-{chaos.name}" if chaos else scenario.name
+    run = tracker.start_run(f"torch-{mode}-{tag}-{args.policy}")
+    drift = finish_observability(
+        args, run, tracer, metrics, audit,
+        modelled_j=float(report.summary.get("energy_j", 0.0)),
+        n_requests=int(report.summary.get("n", args.requests)))
+    if drift:
+        report.summary["energy_drift_ratio"] = drift["drift_ratio"]
+    run.log_params(**{k: str(v) for k, v in vars(args).items()})
+    run.log_metrics(0, **{k: v for k, v in report.summary.items()
+                          if isinstance(v, (int, float))})
+    run.log_artifact("fleet_summary.json", report.summary)
+    run.log_artifact("fleet_replicas.json", report.per_replica)
+    run.log_artifact("carbon.json", report.carbon)
+    if report.autoscaler_log:
+        run.log_artifact("autoscaler.json", report.autoscaler_log)
+    run.finish()
+
+    out = {"scenario": scenario.name,
+           "description": scenario.description,
+           "policy": args.policy,
+           "live": bool(args.fleet_live),
+           "autoscale": bool(args.autoscale),
+           **({"chaos": chaos.name,
+               "fault_plan": chaos.plan.signature(),
+               "deadline_s": deadline} if chaos else {}),
+           **report.summary,
+           "per_replica": report.per_replica,
+           "autoscaler_actions": len(report.autoscaler_log),
+           "carbon": report.carbon,
+           "device": (torch.cuda.get_device_name(device)
+                      if device.type == "cuda" else "cpu"),
+           **extra,
+           **({"energy_drift": drift} if drift else {})}
+    return out, report, pool
 
 
 GEN_MAX_SEQ = 128      # the reference launcher's decode pool extent
@@ -364,16 +587,23 @@ def serve_generate(args):
                  prompt_len=GEN_PROMPT_LEN)
     ctrl = make_controller(args.controller, weights=args.weights,
                            target_rate=args.target_rate, energy_model=em)
+    tracer, metrics, audit = make_observability(args)
     server = Server(ContinuousEngineAdapter(engine,
                                             prompt_len=GEN_PROMPT_LEN),
                     ServerConfig(path=PATH_CONTINUOUS, energy_model=em),
-                    middleware=[AdmissionMiddleware(ctrl)])
+                    middleware=[AdmissionMiddleware(ctrl)],
+                    tracer=tracer, metrics=metrics)
     reqs = [InferRequest(rid=i, arrival_s=0.001 * i, payload=prompts[i],
                          kind="generate", max_new=args.new_tokens,
                          entropy_hint=float(rng.uniform(0, 1)))
             for i in range(args.requests)]
     responses = server.serve(reqs)
     summary = server.summary()
+    drift = finish_observability(args, None, tracer, metrics, audit,
+                                 modelled_j=server.energy_j,
+                                 n_requests=args.requests)
+    if drift:
+        summary["energy_drift_ratio"] = drift["drift_ratio"]
     summary.pop("accuracy", None)     # no labels in generation mode
     decode_stats = {}
     for r in reversed(responses):
@@ -472,22 +702,104 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq-len", type=int, default=None,
                     help="--full-width: request length (default 128)")
     ap.add_argument("--requests", type=int, default=2000)
-    ap.add_argument("--qps", type=float, default=150.0)
+    ap.add_argument("--qps", type=float, default=None,
+                    help="arrival rate (default: 150 single-server, "
+                         "40 fleet — small sim fleets saturate at the "
+                         "single-server default)")
     ap.add_argument("--traffic", choices=["poisson", "bursty"],
                     default="poisson")
     ap.add_argument("--max-batch", type=int, default=32)
     ap.add_argument("--window", type=float, default=0.01)
     ap.add_argument("--region", default="world_avg")
+    # observability (telemetry.trace / .metrics / .drift / .compile_watch)
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome trace-event JSON (load it at "
+                         "https://ui.perfetto.dev) covering every "
+                         "request's triage/queue/execute spans; "
+                         "enables tracing for the run")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the metrics-registry snapshot (JSON) "
+                         "plus a Prometheus text sibling (.prom); "
+                         "enables metrics for the run")
+    ap.add_argument("--energy-source", default="process",
+                    choices=["process", "nvml", "tpu"],
+                    help="measured-energy reader for the drift audit "
+                         "(modelled vs measured joules): 'process' is "
+                         "process time x 200 W, 'nvml' the card's own "
+                         "energy counter (raises without NVIDIA's "
+                         "NVML library), 'tpu' raises as the "
+                         "reference's does")
+    ap.add_argument("--compile-cache", default=None, metavar="DIR",
+                    help="directory the CUDA kernel libraries are built "
+                         "into and found in (default "
+                         "build/torch_kernels at the checkout's root)")
     ap.add_argument("--runs", default="runs")
     ap.add_argument("--seed", type=int, default=0)
+    # fleet mode
+    ap.add_argument("--fleet", action="store_true",
+                    help="serve through the multi-replica fleet layer "
+                         "(oracle-backed virtual-time replicas)")
+    ap.add_argument("--fleet-live", action="store_true",
+                    help="fleet over LIVE replicas (the classifier on "
+                         "--device, measured walltimes); implies --fleet "
+                         "(kinds limited to the classifier paths)")
+    ap.add_argument("--scenario", default="flash-crowd",
+                    choices=["steady", "flash-crowd", "diurnal",
+                             "multi-tenant", "low-confidence-flood"])
+    ap.add_argument("--policy", default="energy-aware",
+                    choices=["energy-aware", "round-robin",
+                             "least-loaded", "static"])
+    ap.add_argument("--fleet-kinds",
+                    default="direct,dynamic-batch,gated-in-graph",
+                    help="comma-separated replica kinds (>=1)")
+    ap.add_argument("--no-autoscale", dest="autoscale",
+                    action="store_false", default=True)
+    # failure model (faults)
+    ap.add_argument("--chaos", default=None,
+                    help="named fault-injection story over the fleet "
+                         "(crash-storm, slow-node, kv-pressure, "
+                         "link-flap, crash-and-flap, seeded-storm): "
+                         "scripted/seeded crashes, degradations and "
+                         "link outages with bounded retry + brownout; "
+                         "implies --fleet")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="seed for the chaos traffic trace and any "
+                         "seeded fault schedule (default: --seed)")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="per-request completion deadline in seconds; "
+                         "queued work past it is shed as a rejection-"
+                         "with-reason (default: the chaos scenario's "
+                         "deadline, or none)")
     return ap
 
 
 def main(argv=None):
-    args = parser().parse_args(argv)
-    serve = serve_generate if args.mode == "generate" else serve_classifier
-    summary, _ = serve(args)
-    print(json.dumps(summary, indent=2))
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.compile_cache is not None:
+        print(f"kernel library cache: "
+              f"{enable_compilation_cache(args.compile_cache)}",
+              file=sys.stderr)
+    if args.chaos or args.fleet_live:
+        args.fleet = True
+    if args.fleet:
+        # refuse single-server flags that fleet mode would silently
+        # ignore (misleading experiment configs otherwise)
+        ignored = [f"--{k} {getattr(args, k)}"
+                   for k in ("mode", "path", "traffic")
+                   if getattr(args, k) != ap.get_default(k)]
+        if ignored:
+            raise SystemExit(
+                f"--fleet does not use {', '.join(ignored)}; fleet "
+                f"traffic comes from --scenario and replicas from "
+                f"--fleet-kinds")
+        serve = serve_fleet
+    elif args.mode == "generate":
+        serve = serve_generate
+    else:
+        serve = serve_classifier
+    summary = serve(args)[0]
+    print(json.dumps(summary, indent=2, default=str))
 
 
 if __name__ == "__main__":

@@ -126,6 +126,9 @@ class ClassifierEngineAdapter:
     _window: BatchQueue = field(init=False, repr=False)
     _line: ServiceLine = field(init=False, repr=False)
     _warm: set = field(default_factory=set, init=False)
+    # measured walltime of each full-model call (a direct request or a
+    # batch), over every session of this adapter
+    batch_times: list = field(default_factory=list, init=False)
 
     def __post_init__(self):
         self._window = BatchQueue(max_batch_size=self.max_batch,
@@ -177,6 +180,7 @@ class ClassifierEngineAdapter:
             toks = np.asarray(req.payload)[None]
             self._prime("full", toks)
             preds, dt = self.engine.classify(toks)
+            self.batch_times.append(dt)
             start, finish = self._line.reserve(now, dt)
             return [Completion([req], [int(preds[0])], PATH_DIRECT,
                                start, finish)]
@@ -192,6 +196,7 @@ class ClassifierEngineAdapter:
         toks = np.stack([np.asarray(r.payload) for r in b.requests])
         self._prime("full", toks)
         preds, dt = self.engine.classify(toks)
+        self.batch_times.append(dt)
         start, finish = self._line.reserve(b.t_formed, dt)
         return Completion(b.requests, [int(p) for p in preds],
                           PATH_DYNAMIC_BATCH, start, finish,
