@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --decode-graph   # sampling_keys, decode_graph only
     python3 chip_smoke.py --fleet          # train_classifier, fleet only
+    python3 chip_smoke.py --disagg         # the disagg phases only
 
 Drives ``src/repro_torch`` only (no JAX, nothing of ``repro``) and prints
 one JSON object per line; any failed check raises, so the exit code is
@@ -87,8 +88,11 @@ not 0.  Phases:
                output) at the generate path's shapes, long shapes (one
                user's 8192-row context among them), ragged and GQA +
                window cases, granite-moe-3b-a800m's G = 3 shapes (24
-               query heads over 8 KV heads of 64: ``*_granite``) and the
-               smoke configuration's hd 32, timed
+               query heads over 8 KV heads of 64: ``*_granite``), the
+               smoke configuration's hd 32 and the disaggregated path's
+               (``*_disagg*``: batch-1 prefills of 8 and 32 tokens, a
+               decode worker's 8 slots over 64 rows, contiguous and
+               paged), timed
                beside their bounds and ``scaled_dot_product_attention``
                with the same mask (a yardstick only: the port never calls
                it; for the paged kernel on the pre-gathered view, the
@@ -182,6 +186,39 @@ not 0.  Phases:
                card's busy share, acceptance, the modelled energy per
                token, and the non-speculative captured step on the same
                weights;
+     disagg  — the split-phase path (``repro_torch.disagg``):
+               ``disagg_parity``: the served model through
+               ``DisaggEngine`` (each prompt prefilled at batch 1 through
+               the flash kernel, inserted, decoded in the captured
+               window), 12 requests over 8 slots, contiguous and paged
+               (bs 16): tokens byte-equal to a pooled session fed one
+               request per wave (the same product shapes), the pooled
+               session fed the whole queue printed beside it (agreement,
+               first divergence), and insert-after-capture (8 requests
+               inserted into a session whose windows are captured, their
+               replayed tokens equal to an uncaptured engine's; every
+               ``start_session`` captures both window kinds up front);
+               ``disagg_parity_f32``: the reference test's trace (6
+               requests over 3 slots) at depth 2 in f32, split on the
+               card == pooled on the card == split on the CPU;
+               ``disagg_chaos``: a decode crash plus a link flap over 2 +
+               2 workers, every rid resolved once, the crashed worker's
+               old session freed; ``disagg_live``: a live fleet of two
+               ``generate`` replicas (``build_live_fleet``, each a
+               ``DisaggEngineAdapter`` behind a ``Server``), 32 requests:
+               each rid answered once, tokens equal to ``DisaggEngine``'s,
+               flash and decode launched (``fleet_generate``); then the
+               launcher's ``--fleet-disagg``
+               at published width (48 requests, 2 prefill and 2 decode
+               workers) on ``prompt-burst`` and ``long-decode`` and, on a
+               paged pool, ``prompt-burst``: served and rejected, p50 and
+               p95, each worker's busy seconds, transfers and bytes,
+               prefill ms by prompt length and decode ms per window (from
+               the trace), captures and their seconds, modelled beside
+               NVML joules, the kernels' launches counted from after the
+               fleet's build and warm-up (``serve.build_disagg``; the
+               warm-up's printed apart), every decode session's captures
+               made before its run (``--disagg`` runs this phase alone);
      serve_generate_spec — the launcher with ``--draft-depth 3
                --draft-layers 8`` on stablelm-3b: every request answered,
                the flash, decode and chunk kernels launched (this slice's
@@ -254,7 +291,10 @@ not 0.  Phases:
                too; each kernel's launches summed over its main paths,
                with ``launches_by_path``: entropy's the four classify
                runs and the fleet's live runs (``fleet``), each attention
-               kernel's stablelm's and granite's;
+               kernel's stablelm's and granite's, the split-phase runs'
+               as ``serve_disagg`` and ``serve_disagg_paged``, the live
+               generate replicas' as ``fleet_generate``; the disagg
+               shapes' rows under ``new_shapes``;
                granite's G = 3 case as ``g3``);
  19. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -264,6 +304,7 @@ from __future__ import annotations
 
 import copy
 import functools
+import gc
 import itertools
 import json
 import math
@@ -272,6 +313,7 @@ import re
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -284,6 +326,9 @@ from repro_torch.core import (AdaptiveThreshold,  # noqa: E402
                               AdmissionController, DecayingThreshold,
                               EnergyMeter, LatencyModel)
 from repro_torch.core.energy import energy_model_for  # noqa: E402
+from repro_torch.disagg import (DisaggEngine,  # noqa: E402
+                                DisaggSimulator, PhaseAwareRouter,
+                                build_disagg_fleet)
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
 from repro_torch.kernels import entropy as ent_mod  # noqa: E402
@@ -1228,10 +1273,27 @@ ATTN_CASES = [
     dict(name="decode_whisper", kind="decode", B=8, H=16, K=16, S=128,
          hd=64, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
          lengths=list(range(17, 33, 2)), ring=False, iters=200),
+    # disaggregated serving (stablelm-3b): one prompt per prefill call,
+    # padded to 8 or 32 tokens, on the tensor-core body; a decode worker's
+    # window at 8 slots over its 64-row pool, contiguous and paged (bs 16)
+    dict(name="prefill_disagg_8", kind="flash", B=1, H=32, K=32, S=8,
+         hd=80, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         iters=200),
+    dict(name="prefill_disagg_32", kind="flash", B=1, H=32, K=32, S=32,
+         hd=80, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         iters=200),
+    dict(name="decode_disagg", kind="decode", B=8, H=32, K=32, S=64,
+         hd=80, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         lengths=[9 + 7 * b for b in range(8)], ring=False, iters=200),
+    dict(name="paged_disagg", kind="paged", B=8, H=32, K=32, S=64, hd=80,
+         bs=16, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         lengths=[9 + 7 * b for b in range(8)], iters=200),
 ]
-# the rows of this slice's shapes, listed beside each kernel's main row
+# the rows of later slices' shapes, listed beside each kernel's main row
 NEW_SHAPE_CASES = ("prefill_hybrid", "decode_hybrid_ring", "prefill_paligemma",
-                   "decode_paligemma", "paged_paligemma", "decode_whisper")
+                   "decode_paligemma", "paged_paligemma", "decode_whisper",
+                   "prefill_disagg_8", "prefill_disagg_32", "decode_disagg",
+                   "paged_disagg")
 
 
 def _paged_inputs(case, gen):
@@ -1926,6 +1988,471 @@ def phase_parity_paged(model):
          contiguous_whole_queue_requests_equal=sum(
              a.generated == b.generated for a, b in zip(free_run, rp)),
          **st)
+
+
+# ---------------------------------------------------------------------------
+# disaggregated serving: prefill -> transfer -> insert -> generate
+# ---------------------------------------------------------------------------
+
+DISAGG_REQUESTS = 48
+DISAGG_PROMPT_LEN = 16
+
+
+def _disagg_trace(vocab: int, n: int = 12, seed: int = 6):
+    """-> a maker of ``n`` requests: prompts of 4-16 tokens (padded to
+    ``DISAGG_PROMPT_LEN``), budgets of 2-30 tokens, EOS ids by rid."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, vocab, int(k)).astype(np.int32)
+               for k in rng.integers(4, 17, size=n)]
+    budgets = [int(m) for m in rng.integers(2, 31, size=n)]
+    return lambda eos=None: [
+        cont.GenRequest(rid=i, prompt=p, max_new=m,
+                        eos_id=(eos or {}).get(i))
+        for i, (p, m) in enumerate(zip(prompts, budgets))]
+
+
+def _split(eng, reqs, prompt_len, session=None):
+    """``reqs`` through the split-phase API: each prefilled at batch 1
+    and inserted, then the decode session advanced dry."""
+    sess = session or eng.start_session()
+    for r in reqs:
+        eng.insert(eng.prefill(r, prompt_len=prompt_len), sess)
+    while not sess.idle:
+        eng.generate(sess)
+    return sess
+
+
+def _one_per_wave(engine, reqs, prompt_len):
+    """``reqs`` through a pooled session, each pushed only once the
+    queue is empty, so every refill wave prefills ONE prompt: its
+    products run at M = plen rows, as a disaggregated prefill's do
+    (cuBLAS may pick another algorithm for another M, and bf16 then
+    rounds differently)."""
+    sess = engine.start_session(prompt_len)
+    pending = list(reqs)
+    while pending or not sess.idle:
+        if pending and not sess.queue:
+            sess.push(pending.pop(0))
+        sess.advance()
+    return sess
+
+
+def _first_divergence(a, b):
+    for r, (x, y) in enumerate(zip(a, b)):
+        for j, (u, v) in enumerate(zip(x, y)):
+            if u != v:
+                return {"rid": r, "token": j}
+        if len(x) != len(y):
+            return {"rid": r, "token": min(len(x), len(y))}
+    return None
+
+
+def phase_disagg_parity(model):
+    """The served model (stablelm-3b, full width, bf16) through the
+    split-phase engine, 12 requests over 8 slots (an EOS for request 5,
+    taken from a first run), contiguous and paged (bs 16): the tokens
+    byte-equal to a pooled session fed one request per wave, each
+    layout's decode kernel launched; beside it, printed only, the
+    agreement with the pooled session fed the whole queue at once
+    (waves of up to 8).  Then insert-after-capture: 4 requests run dry
+    in a session (its window captured), 8 more inserted into it and
+    replayed, their tokens equal to an uncaptured engine's."""
+    cfg = model.cfg
+    mk = _disagg_trace(cfg.vocab)
+    lines = {}
+    for layout, kw in (("contiguous", {}),
+                       ("paged", {"kv_block_size": PAGED_BS})):
+        c = cfg.replace(**kw)
+        dis = DisaggEngine.build(c, model, n_slots=8,
+                                 max_seq=serve.DISAGG_MAX_SEQ,
+                                 device="cuda")
+        pooled = cont.ContinuousBatchingEngine(
+            c, model, n_slots=8, max_seq=serve.DISAGG_MAX_SEQ,
+            device="cuda")
+        probe = mk()
+        _split(dis, probe, DISAGG_PROMPT_LEN)
+        g5 = probe[5].generated
+        eos = {5: next((t for j, t in enumerate(g5) if j and t not in g5[:j]),
+                       g5[0])}
+        t0 = time.perf_counter()
+        _zero_counters()
+        rs = mk(eos)
+        ss = _split(dis, rs, DISAGG_PROMPT_LEN)
+        launches = _attention_launches()
+        rp = mk(eos)
+        sp = _one_per_wave(pooled, rp, DISAGG_PROMPT_LEN)
+        secs = time.perf_counter() - t0
+        same = [a.generated == b.generated for a, b in zip(rs, rp)]
+        fail_unless(all(r.done for r in rs + rp) and all(same),
+                    f"disagg {layout}: tokens byte-equal to the pooled "
+                    f"one-per-wave run: {same}")
+        fail_unless(sp.prefill_calls == len(rp),
+                    f"disagg {layout}: one prompt per pooled wave")
+        fail_unless(ss.insert_calls == len(rs)
+                    and rs[5].generated[-1] == eos[5],
+                    f"disagg {layout}: every request inserted "
+                    f"({ss.insert_calls}), request 5 stopped on its EOS")
+        own = "paged_decode_attention" if kw else "decode_attention"
+        other = "decode_attention" if kw else "paged_decode_attention"
+        fail_unless(launches["flash_attention"] == len(rs)
+                    * cfg.n_layers and launches[own] > 0
+                    and launches[other] == 0,
+                    f"disagg {layout}: batch-1 flash prefills and the "
+                    f"layout's decode kernel: {launches}")
+        st = ss.stats()
+        kinds = len(dis.decode.decode_captures)
+        fail_unless(st["window"] == "graph" and st["captures"] == kinds,
+                    f"disagg {layout}: every window kind captured when "
+                    f"the session was made, none after: {st}")
+        if kw:
+            fail_unless(st["blocks_allocated"] == st["blocks_freed"]
+                        and st["free_blocks"] == dis.decode.pool_blocks - 1,
+                        f"disagg paged: every block given back: {st}")
+        rw = mk(eos)
+        _drive(pooled, rw, DISAGG_PROMPT_LEN)
+        waves_same = sum(a.generated == b.generated for a, b in zip(rw, rs))
+        # insert after capture
+        ra, rb = mk()[:4], mk()[4:]
+        cs = _split(dis, ra, DISAGG_PROMPT_LEN)
+        fail_unless(cs.captures == kinds, "disagg: the windows captured")
+        syncs = cs.host_syncs
+        _split(dis, rb, DISAGG_PROMPT_LEN, session=cs)
+        eager = DisaggEngine.build(c, model, n_slots=8,
+                                   max_seq=serve.DISAGG_MAX_SEQ,
+                                   device="cuda", capture=False)
+        ua, ub = mk()[:4], mk()[4:]
+        es = _split(eager, ua, DISAGG_PROMPT_LEN)
+        _split(eager, ub, DISAGG_PROMPT_LEN, session=es)
+        after = [a.generated == b.generated for a, b in zip(rb, ub)]
+        fail_unless(all(after) and cs.captures == kinds
+                    and es.captures == 0 and cs.host_syncs > syncs,
+                    f"disagg {layout}: inserted after the capture, the "
+                    f"replayed window's tokens equal the uncaptured "
+                    f"engine's: {after}")
+        lines[layout] = dict(
+            seconds=secs, requests=len(rs),
+            tokens=sum(len(r.generated) for r in rs),
+            tokens_equal_one_per_wave=True, launches=launches,
+            insert_calls=st["insert_calls"], captures=st["captures"],
+            pooled_waves_requests_equal=waves_same,
+            pooled_waves_first_divergence=_first_divergence(
+                [r.generated for r in rw], [r.generated for r in rs]),
+            insert_after_capture_requests_equal=len(after),
+            insert_after_capture_windows=cs.host_syncs - syncs,
+            **({k: st[k] for k in ("blocks_allocated", "blocks_freed",
+                                   "peak_blocks_in_use")} if kw else {}))
+        del dis, pooled, eager, cs, es, ss, sp
+    emit(phase="disagg_parity", n_layers=cfg.n_layers, d_model=cfg.d_model,
+         dtype=str(model.emb.dtype), **lines)
+    torch.cuda.empty_cache()
+
+
+def phase_disagg_parity_f32():
+    """The reference's own trace (``tests/test_disagg.py``: 6 requests of
+    8 tokens, budgets 3-5, over 3 slots, sync every 4, max_seq 64) at
+    published width, depth 2, f32 weights, contiguous and paged (bs 8):
+    split-phase tokens on the card equal the pooled engine's (waves of 3)
+    on the card and the split-phase tokens on the CPU."""
+    cfg2 = get_config(ARCH).replace(n_layers=2, dtype="float32")
+    m_gpu, m_cpu = _card_and_cpu(cfg2)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg2.vocab, 8) for _ in range(6)]
+
+    def mk():
+        return [cont.GenRequest(rid=i, prompt=prompts[i],
+                                max_new=3 + (i % 3)) for i in range(6)]
+
+    out = {}
+    for layout, kw in (("contiguous", {}), ("paged", {"kv_block_size": 8})):
+        c = cfg2.replace(**kw)
+        toks = {}
+        for where, m in (("card", m_gpu), ("cpu", m_cpu)):
+            eng = DisaggEngine.build(c, m, n_slots=3, max_seq=64,
+                                     sync_every=4, device=m.device)
+            rs = mk()
+            _split(eng, rs, 8)
+            toks[where] = [r.generated for r in rs]
+        rp = mk()
+        cont.ContinuousBatchingEngine(c, m_gpu, n_slots=3, max_seq=64,
+                                      sync_every=4, device="cuda").serve(
+            rp, prompt_len=8)
+        toks["pooled"] = [r.generated for r in rp]
+        fail_unless(toks["card"] == toks["pooled"] == toks["cpu"],
+                    f"disagg depth-2 f32 {layout}: split on the card == "
+                    f"pooled (waves of 3) == split on the CPU: {toks}")
+        out[layout] = {"tokens_equal": True,
+                       "tokens": sum(len(t) for t in toks["card"])}
+    emit(phase="disagg_parity_f32", n_layers=2, dtype="float32", **out)
+    del m_gpu, m_cpu
+    torch.cuda.empty_cache()
+
+
+def _spans(trace_path: str, name: str) -> list:
+    with open(trace_path) as f:
+        d = json.load(f)
+    ev = d["traceEvents"] if isinstance(d, dict) else d
+    return [e for e in ev if e.get("name") == name and e.get("ph") == "X"]
+
+
+def _disagg_run(tag: str, flags: list[str], idle_w: float) -> dict:
+    """One ``--fleet-disagg`` run through the launcher's own flags at
+    published width (48 requests, 2 prefill and 2 decode workers, 8
+    slots a decode worker), its trace and metrics written and
+    validated, the card's energy counter read around it, the attention
+    kernels' launches counted from just after the fleet is built and
+    warmed (``serve.build_disagg``) to just after the run; the warm-up's
+    own launches printed apart."""
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_disagg")
+    os.makedirs(out_dir, exist_ok=True)
+    trace = os.path.join(out_dir, f"{tag}.trace.json")
+    metrics = os.path.join(out_dir, f"{tag}.metrics.json")
+    args = serve.parser().parse_args(
+        ["--device", "cuda", "--fleet-disagg", "--arch", ARCH,
+         "--requests", str(DISAGG_REQUESTS), "--prefill-workers", "2",
+         "--decode-workers", "2", "--runs",
+         os.path.join(ROOT, "build", "chip_smoke_runs"),
+         "--trace-out", trace, "--metrics-out", metrics,
+         "--energy-source", "nvml", *flags])
+    _zero_counters()
+    t0 = time.perf_counter()
+    built = serve.build_disagg(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    warm_launches = _attention_launches()
+    _zero_counters()
+    t0 = time.perf_counter()
+    out, report, pool = serve.serve_disagg(args, built)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _attention_launches()
+    paged = args.kv_block_size > 0
+    n = args.requests
+    rids = [r["rid"] for r in report.responses]
+    fail_unless(sorted(rids) == list(range(n)),
+                f"disagg {tag}: every request answered exactly once")
+    fail_unless(out["n_served"] == n and out["n_rejected"] == 0,
+                f"disagg {tag}: every request served, none rejected")
+    vocab = pool.prefill_workers[0].engine.cfg.vocab
+    fail_unless(all(1 <= len(r["tokens"]) and all(0 <= t < vocab
+                                                  for t in r["tokens"])
+                    for r in report.responses),
+                f"disagg {tag}: token ids inside the vocabulary")
+    fail_unless(out["n_layers"] == 32 and out["d_model"] == 2560,
+                f"disagg {tag}: published width")
+    kinds = len(pool.decode_workers[0].engine.decode_captures)
+    fail_unless(all(c["captures"] == kinds
+                    for c in out["captures"].values()),
+                f"disagg {tag}: each decode session captured every window "
+                f"kind when it was built and none in the run: "
+                f"{out['captures']}")
+    fail_unless(validate_main([trace, metrics, "--require-gauge",
+                               "compile_seconds", "energy_drift_ratio",
+                               "fleet_pressure"]) == 0,
+                f"disagg {tag}: trace and metrics validate")
+    own = "paged_decode_attention" if paged else "decode_attention"
+    other = "decode_attention" if paged else "paged_decode_attention"
+    fail_unless(launches["flash_attention"] > 0 and launches[own] > 0
+                and launches[other] == 0,
+                f"disagg {tag}: flash and the layout's decode kernel "
+                f"launched: {launches}")
+    drift = out["energy_drift"]
+    fail_unless(drift["source"] == "nvml" and drift["measured_j"] > 0,
+                f"disagg {tag}: the card's energy counter read {drift}")
+    pre = _spans(trace, "prefill")
+    by_plen = {}
+    for e in pre:
+        by_plen.setdefault(e["args"]["plen"], []).append(e["dur"] / 1e3)
+    win = [e["dur"] / 1e3 for e in _spans(trace, "decode.window")]
+    lat = np.array([r["latency_s"] for r in report.responses])
+    line = dict(
+        phase="disagg", run=tag, scenario=out["scenario"], requests=n,
+        kv_block_size=args.kv_block_size, n_layers=out["n_layers"],
+        n_served=out["n_served"], n_rejected=out["n_rejected"],
+        p50_latency_ms=float(np.percentile(lat, 50)) * 1e3,
+        p95_latency_ms=float(np.percentile(lat, 95)) * 1e3,
+        span_s=out["span_s"], wall_s=wall_s, build_and_warm_s=build_s,
+        busy_s={k: v["busy_s"] for k, v in out["per_worker"].items()},
+        served_by={k: v["n_served"] for k, v in out["per_worker"].items()},
+        transfers=out["transfer"]["n_transfers"],
+        transfer_bytes=out["transfer"]["total_bytes"],
+        prefill_ms_by_plen={p: {"calls": len(v),
+                                "mean_ms": float(np.mean(v)),
+                                "median_ms": float(np.median(v))}
+                            for p, v in sorted(by_plen.items())},
+        decode_windows=len(win),
+        decode_ms_per_window={"mean": float(np.mean(win)),
+                              "median": float(np.median(win)),
+                              "max": float(np.max(win))},
+        captures=out["captures"],
+        compile_capture_count=drift["compile"]["capture_count"],
+        compile_capture_s=drift["compile"]["capture_seconds"],
+        modelled_j=out["energy_j"], nvml_j=drift["measured_j"],
+        nvml_window_s=drift["window_s"], drift_ratio=drift["drift_ratio"],
+        idle_power_w=idle_w, idle_j_in_window=idle_w * drift["window_s"],
+        launches=launches, warm_launches=warm_launches)
+    emit(**line)
+    del pool, report
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_disagg_chaos(model):
+    """The decode-crash plus link-flap story at published width: 24
+    ``prompt-burst`` requests over 2 prefill and 2 decode workers, the
+    reference's fault plan (``decode-0`` crashes and the link flaps
+    mid-run): every rid resolved exactly once, the crashed worker's new
+    session capturing again, and the old pool freed (device memory back
+    where it was once the run is over)."""
+    from repro_torch.faults import (FaultEvent, FaultInjector, FaultPlan,
+                                    RetryPolicy)
+    from repro_torch.fleet import make_generate_scenario
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    pool = build_disagg_fleet(model.cfg, model, n_prefill=2, n_decode=2,
+                              n_slots=8, max_seq=serve.DISAGG_MAX_SEQ,
+                              energy_model=serve.device_energy_model(
+                                  model.device), device="cuda")
+    sc = make_generate_scenario("prompt-burst", 24, qps=40.0, seed=0,
+                                vocab=model.cfg.vocab)
+    mid = sc.requests[len(sc.requests) // 2].arrival_s
+    plan = FaultPlan.scripted([
+        FaultEvent(t=mid, kind="crash", target="decode-0", duration_s=0.2),
+        FaultEvent(t=mid, kind="link-flap", duration_s=0.05)])
+    first = weakref.ref(pool.decode_workers[0].session)
+    t0 = time.perf_counter()
+    rep = DisaggSimulator(pool, router=PhaseAwareRouter(),
+                          injector=FaultInjector(plan),
+                          retry_policy=RetryPolicy()).run(sc.requests)
+    secs = time.perf_counter() - t0
+    rids = [r["rid"] for r in rep.responses]
+    fail_unless(sorted(rids) == list(range(24)) and len(set(rids)) == 24,
+                "disagg chaos: every rid resolved exactly once")
+    s = rep.summary
+    fail_unless(s["n_served"] + s["n_rejected"] == 24
+                and s["n_failures"] == 2
+                and s["n_retries"] + s["n_retransmits"] > 0,
+                f"disagg chaos: crash and flap injected, retried: {s}")
+    fail_unless(all("rejected" in r or len(r["tokens"]) >= 1
+                    for r in rep.responses),
+                "disagg chaos: every served request has tokens")
+    # the crashed worker's old session (its pool, its graphs) is gone
+    # as soon as the new one replaced it
+    fail_unless(first() is None, "disagg chaos: decode-0's old session, "
+                                 "pool and graphs freed")
+    torch.cuda.synchronize()
+    mem_run = torch.cuda.memory_allocated()
+    captures = {w.name: (w.captures, w.capture_s)
+                for w in pool.decode_workers}
+    pool_bytes = cont.pool_hbm_bytes(model.cfg, 8, serve.DISAGG_MAX_SEQ)[
+        "total_bytes"]
+    del pool, rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_after = torch.cuda.memory_allocated()
+    fail_unless(mem_after - mem0 < pool_bytes,
+                f"disagg chaos: every pool freed once the fleet is gone "
+                f"({mem0} -> {mem_after} B, a pool {pool_bytes} B)")
+    emit(phase="disagg_chaos", requests=24, seconds=secs,
+         n_served=s["n_served"], n_rejected=s["n_rejected"],
+         n_retries=s["n_retries"], n_retransmits=s["n_retransmits"],
+         n_failures=s["n_failures"], p95_latency_ms=s["p95_latency_ms"],
+         captures=captures, pool_bytes=pool_bytes,
+         memory_allocated_before=mem0,
+         memory_allocated_end_of_run=mem_run,
+         memory_allocated_after=mem_after)
+
+
+DISAGG_LIVE_REQUESTS = 32
+
+
+def phase_disagg_live(model) -> dict:
+    """The fleet's live ``generate`` replica on the card: a live fleet of
+    two generate replicas (``build_live_fleet``: each a
+    ``DisaggEngineAdapter`` behind a ``Server`` over its own
+    ``DisaggEngine`` at published width, 4 slots over 64 rows) under the
+    fleet's energy-aware router, 32 ``prompt-burst`` requests of 16 new
+    tokens: every rid answered once on the generate path, each request's
+    tokens equal to a ``DisaggEngine``'s three-step API on the same
+    inputs, one batch-1 flash prefill per request and layer and the
+    decode kernel launched (the counters zeroed once the fleet is
+    built, read after the run).  -> the attention kernels' launches."""
+    from repro_torch.fleet import (FleetSimulator, build_live_fleet,
+                                   make_generate_scenario)
+    cfg, n = model.cfg, DISAGG_LIVE_REQUESTS
+    pool = build_live_fleet(cfg, model, kinds=("generate", "generate"),
+                            energy_model=serve.device_energy_model(
+                                model.device), device="cuda")
+    sc = make_generate_scenario("prompt-burst", n, qps=40.0, seed=1,
+                                vocab=cfg.vocab, max_new=16)
+    _zero_counters()
+    t0 = time.perf_counter()
+    rep = FleetSimulator(pool).run(sc.requests)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _attention_launches()
+    rids = sorted(r.rid for r in rep.responses)
+    fail_unless(rids == list(range(n)),
+                "disagg live: every rid answered exactly once")
+    fail_unless(all(r.path == "generate" for r in rep.responses),
+                "disagg live: every request on the generate path")
+    ref = DisaggEngine.build(cfg, model, n_slots=4,
+                             max_seq=serve.DISAGG_MAX_SEQ, device="cuda")
+    reqs = [cont.GenRequest(rid=r.rid, prompt=np.asarray(r.payload,
+                                                         np.int32),
+                            max_new=r.max_new) for r in sc.requests]
+    _split(ref, reqs, None)
+    got = {r.rid: list(r.output) for r in rep.responses}
+    same = sum(got[r.rid] == r.generated for r in reqs)
+    fail_unless(same == n, f"disagg live: {same} of {n} requests' tokens "
+                           f"equal to the DisaggEngine's")
+    fail_unless(launches["flash_attention"] == n * cfg.n_layers
+                and launches["decode_attention"] > 0
+                and launches["paged_decode_attention"] == 0,
+                f"disagg live: one flash prefill per request and layer, "
+                f"the decode kernel launched: {launches}")
+    lat = np.array([r.t_finish - r.arrival_s for r in rep.responses])
+    emit(phase="disagg_live", replicas=[r.name for r in pool.replicas],
+         requests=n, seconds=secs, routed=rep.summary["routed"],
+         tokens=sum(len(v) for v in got.values()),
+         tokens_equal_disagg_engine=same,
+         p50_latency_ms=float(np.percentile(lat, 50)) * 1e3,
+         p95_latency_ms=float(np.percentile(lat, 95)) * 1e3,
+         launches=launches)
+    del pool, ref, rep
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_disagg(model, smi: str) -> dict:
+    """The split-phase path on the card: parity (full width bf16, depth
+    2 f32), insert-after-capture, the launcher's ``--fleet-disagg`` at
+    published width on ``prompt-burst`` and ``long-decode`` (contiguous)
+    and ``prompt-burst`` on a paged pool (bs 16), and the crash plus
+    flap story.  -> the attention kernels' launches on the two paths."""
+    t0 = time.perf_counter()
+    phase_disagg_parity(model)
+    phase_disagg_parity_f32()
+    phase_disagg_chaos(model)
+    live = phase_disagg_live(model)
+    idle = nvidia_smi("power.draw")
+    idle_w = float(idle.split()[0])
+    runs = {
+        "prompt_burst": _disagg_run("prompt_burst",
+                                    ["--scenario", "prompt-burst"], idle_w),
+        "long_decode": _disagg_run("long_decode",
+                                   ["--scenario", "long-decode"], idle_w),
+        "prompt_burst_paged": _disagg_run(
+            "prompt_burst_paged", ["--scenario", "prompt-burst",
+                                   "--kv-block-size", str(PAGED_BS)],
+            idle_w),
+    }
+    emit(phase="disagg_summary", nvidia_smi=smi, idle_power_draw=idle,
+         seconds=time.perf_counter() - t0)
+    contiguous = {k: runs["prompt_burst"][k] + runs["long_decode"][k]
+                  for k in runs["prompt_burst"]}
+    return {"serve_disagg": contiguous,
+            "serve_disagg_paged": runs["prompt_burst_paged"],
+            "fleet_generate": live}
 
 
 # ---------------------------------------------------------------------------
@@ -3699,17 +4226,34 @@ def fleet_only() -> None:
     emit(phase="fleet_only", seconds=time.perf_counter() - t0)
 
 
+def disagg_only() -> None:
+    """``--disagg``: the device, build and disagg phases alone, on the
+    served model (stablelm-3b, full width, bf16, seed 0): the quickest
+    check of the split-phase path on the card."""
+    t0 = time.perf_counter()
+    _, smi, _ = phase_device()
+    phase_build()
+    lm = tfm.init_lm(get_config(ARCH), 0, device="cuda")
+    launches = phase_disagg(lm, smi)
+    emit(phase="disagg_only", launches_by_path=launches,
+         seconds=time.perf_counter() - t0)
+
+
+ONLY = {"--decode-graph": decode_graph_only, "--fleet": fleet_only,
+        "--disagg": disagg_only}
+
+
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--decode-graph"], ["--fleet"]):
-        print(f"usage: chip_smoke.py [--decode-graph | --fleet], got {argv}",
-              file=sys.stderr)
+    if argv and (len(argv) > 1 or argv[0] not in ONLY):
+        print(f"usage: chip_smoke.py [--decode-graph | --fleet | --disagg], "
+              f"got {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
         return 1
     if argv:
-        (fleet_only if argv == ["--fleet"] else decode_graph_only)()
+        ONLY[argv[0]]()
         return 0
     name, smi, idle = phase_device()
     peaks = PEAKS["pcie" if "pcie" in name.lower() else "sxm"]
@@ -3741,6 +4285,7 @@ def main(argv: list[str]) -> int:
                        lm)
     phase_parity_spec(lm)
     phase_decode_graph_spec(lm)
+    disagg = phase_disagg(lm, smi)
     del lm
     torch.cuda.empty_cache()
     spec_launches = phase_serve_generate_spec()
@@ -3758,16 +4303,21 @@ def main(argv: list[str]) -> int:
     by_path = {
         "flash_attention": {
             "serve_generate": gen_launches["flash_attention"],
+            **{k: v["flash_attention"] for k, v in disagg.items()},
             "serve_generate_moe": moe["flash_attention"],
             "serve_generate_moe_paged": moe_paged["flash_attention"],
             **{k: new[k]["flash_attention"] for k in new}},
         "decode_attention": {
             "serve_generate": gen_launches["decode_attention"],
+            "serve_disagg": disagg["serve_disagg"]["decode_attention"],
+            "fleet_generate": disagg["fleet_generate"]["decode_attention"],
             "serve_generate_moe": moe["decode_attention"],
             **{k: new[k]["decode_attention"] for k in new
                if k != "serve_generate_vlm_paged"}},
         "paged_decode_attention": {
             "serve_generate_paged": paged_launches,
+            "serve_disagg_paged": disagg["serve_disagg_paged"][
+                "paged_decode_attention"],
             "serve_generate_moe_paged": moe_paged["paged_decode_attention"],
             "serve_generate_vlm_paged": new["serve_generate_vlm_paged"][
                 "paged_decode_attention"]},

@@ -172,10 +172,15 @@ def make_live_replica(name: str, kind: str, cfg: dict, params, *,
     Every classify kind computes the proxy entropy L(x) through
     ``kernels.ops.entropy_stats``: the CUDA entropy kernel on the card.
 
+    The ``generate`` kind wraps the split-phase disaggregated engine
+    (``cfg``/``params`` are then an LM config and an ``LM``;
+    ``n_slots``/``max_seq``/``prompt_len`` shape its decode pool) — or
+    pass ``engine`` as a ready ``DisaggEngine`` to share one.  On the
+    card its prefills run the flash-attention kernel and its windows
+    the flash-decode kernel.
+
     ``energy_model`` defaults to ``EnergyModel()``; the launcher passes
-    the card's constant set.  The ``generate`` kind (the split-phase
-    disaggregated engine) is listed, as in the reference, but raises
-    ``NotImplementedError`` until disaggregation is ported.
+    the card's constant set.
     """
     from repro_torch.core.controller import AdmissionController
     from repro_torch.core.energy import EnergyModel
@@ -185,17 +190,18 @@ def make_live_replica(name: str, kind: str, cfg: dict, params, *,
 
     if kind not in LIVE_REPLICA_KINDS:
         raise ValueError(_unknown_kind_msg(kind, LIVE_REPLICA_KINDS))
-    if kind == PATH_GENERATE:
-        raise NotImplementedError(
-            "the live generate replica wraps the disaggregated "
-            "prefill/decode engine, which is not ported yet (ROADMAP "
-            "item 10)")
     em = energy_model or EnergyModel()
     if controller is None:
         controller = AdmissionController(enabled=False,
                                          log_history=False)
 
-    if kind == PATH_GATED:
+    if kind == PATH_GENERATE:
+        from repro_torch.disagg import DisaggEngine, DisaggEngineAdapter
+        if engine is None:
+            engine = DisaggEngine.build(cfg, params, n_slots=n_slots,
+                                        max_seq=max_seq, device=device)
+        port = DisaggEngineAdapter(engine, prompt_len=prompt_len)
+    elif kind == PATH_GATED:
         port = GatedEngineAdapter(cfg, params, batch=max_batch,
                                   exit_layer=exit_layer,
                                   queue_window_s=queue_window_s,

@@ -125,6 +125,25 @@ on the energy-drift audit: modelled joules against ``--energy-source``
         --fleet --chaos crash-storm --requests 200
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --fleet-live --requests 64 --runs /tmp/runs
+
+``--fleet-disagg`` serves a generate scenario (``--scenario
+prompt-burst``, the default, or ``long-decode``; 48 requests at 40 qps
+by default) over the disaggregated fleet (``repro_torch.disagg``):
+``--prefill-workers`` workers prefill each prompt at batch 1 through the
+flash-attention kernel, the rows cross the modelled link, and
+``--decode-workers`` workers insert them into their own sessions of
+``--slots`` slots over 64 rows and decode them in the captured window,
+all over one copy of ``generate_config(args)``'s weights (published
+width, or ``--smoke``; ``--kv-block-size`` for paged pools).  It is
+refused with ``--fleet`` and with a classify scenario, as the
+reference's.  The summary adds each worker's busy seconds, the link's
+transfers and bytes and each decode worker's window captures, which
+stay off the virtual clock.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --fleet-disagg \
+        --energy-source nvml --trace-out /tmp/t.json --metrics-out /tmp/m.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --fleet-disagg --smoke --kv-block-size 8 --runs /tmp/runs
 """
 from __future__ import annotations
 
@@ -296,7 +315,8 @@ def arrival_rate(args) -> float:
     sim fleets saturate at the single-server rate), 150 otherwise."""
     if args.qps is not None:
         return args.qps
-    fleet = args.fleet or args.fleet_live or args.chaos
+    fleet = (args.fleet or args.fleet_live or args.chaos
+             or args.fleet_disagg)
     return 40.0 if fleet else 150.0
 
 
@@ -630,6 +650,89 @@ def serve_generate(args):
     return summary, server
 
 
+DISAGG_MAX_SEQ = 64    # the reference launcher's disaggregated pool extent
+
+
+def build_disagg(args):
+    """The ``--fleet-disagg`` fleet, built and warmed (its prefill
+    engine and every decode worker's session set up, untimed) but not
+    yet run.  The model is ``generate_config(args)``: ``--arch`` at
+    published width, or ``--smoke``.  -> (the scenario, the
+    ``DisaggPool``)."""
+    from repro_torch.disagg import build_disagg_fleet
+    from repro_torch.fleet import make_generate_scenario
+
+    device = resolve_device(args.device)
+    cfg = generate_config(args)
+    params = tfm.init_lm(cfg, args.seed, device=device)
+    scenario = make_generate_scenario(args.scenario, args.requests,
+                                      qps=arrival_rate(args),
+                                      seed=args.seed, vocab=cfg.vocab)
+    pool = build_disagg_fleet(cfg, params,
+                              n_prefill=args.prefill_workers,
+                              n_decode=args.decode_workers,
+                              n_slots=args.slots, max_seq=DISAGG_MAX_SEQ,
+                              draft_depth=args.draft_depth,
+                              energy_model=device_energy_model(device),
+                              device=device)
+    return scenario, pool
+
+
+def serve_disagg(args, built=None):
+    """``--fleet-disagg``: a generate scenario over the disaggregated
+    prefill/decode fleet — separate phase pools over one copy of the
+    LM's weights on the device, phase-aware routing, an autoscaler per
+    phase.  ``built`` is ``build_disagg(args)``'s result, made here when
+    not given.  -> (the printed summary, the ``DisaggReport``, the
+    ``DisaggPool``)."""
+    from repro_torch.disagg import DisaggSimulator, PhaseAwareRouter
+    from repro_torch.fleet import Autoscaler
+
+    scenario, pool = built or build_disagg(args)
+    cfg = pool.prefill_workers[0].engine.cfg
+    device = pool.prefill_workers[0].engine.device
+    tracer, metrics, audit = make_observability(args)
+    sim = DisaggSimulator(
+        pool, router=PhaseAwareRouter(),
+        prefill_scaler=Autoscaler() if args.autoscale else None,
+        decode_scaler=Autoscaler() if args.autoscale else None,
+        tracer=tracer, metrics=metrics)
+    report = sim.run(scenario.requests)
+
+    tracker = Tracker(root=args.runs)
+    run = tracker.start_run(f"torch-fleet-disagg-{scenario.name}")
+    drift = finish_observability(
+        args, run, tracer, metrics, audit,
+        modelled_j=float(report.summary.get("energy_j", 0.0)),
+        n_requests=int(report.summary.get("n", args.requests)))
+    if drift:
+        report.summary["energy_drift_ratio"] = drift["drift_ratio"]
+    run.log_params(**{k: str(v) for k, v in vars(args).items()})
+    run.log_metrics(0, **{k: v for k, v in report.summary.items()
+                          if isinstance(v, (int, float))})
+    run.log_artifact("disagg_summary.json", report.summary)
+    run.log_artifact("disagg_workers.json", report.per_worker)
+    run.finish()
+
+    out = {"scenario": scenario.name,
+           "description": scenario.description,
+           **report.summary,
+           "per_worker": report.per_worker,
+           "transfer": report.transfer,
+           "autoscaler_actions": {
+               k: len(v) for k, v in report.autoscaler_log.items()},
+           # each decode session's window captures, off the clock
+           "captures": {w.name: {"captures": w.captures,
+                                 "capture_s": w.capture_s}
+                        for w in pool.decode_workers},
+           "arch": cfg.arch_id, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "kv_block_size": cfg.kv_block_size,
+           "device": (torch.cuda.get_device_name(device)
+                      if device.type == "cuda" else "cpu"),
+           **({"energy_drift": drift} if drift else {})}
+    return out, report, pool
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
@@ -743,9 +846,18 @@ def parser() -> argparse.ArgumentParser:
                     help="fleet over LIVE replicas (the classifier on "
                          "--device, measured walltimes); implies --fleet "
                          "(kinds limited to the classifier paths)")
+    ap.add_argument("--fleet-disagg", action="store_true",
+                    help="generate scenario over the disaggregated "
+                         "prefill/decode fleet (separate phase pools, "
+                         "phase-aware routing, an autoscaler per "
+                         "phase); scenarios limited to the generate "
+                         "pair (prompt-burst, long-decode)")
+    ap.add_argument("--prefill-workers", type=int, default=2)
+    ap.add_argument("--decode-workers", type=int, default=2)
     ap.add_argument("--scenario", default="flash-crowd",
                     choices=["steady", "flash-crowd", "diurnal",
-                             "multi-tenant", "low-confidence-flood"])
+                             "multi-tenant", "low-confidence-flood",
+                             "prompt-burst", "long-decode"])
     ap.add_argument("--policy", default="energy-aware",
                     choices=["energy-aware", "round-robin",
                              "least-loaded", "static"])
@@ -782,7 +894,23 @@ def main(argv=None):
               file=sys.stderr)
     if args.chaos or args.fleet_live:
         args.fleet = True
-    if args.fleet:
+    if args.fleet_disagg:
+        # the reference's checks (repro/launch/serve.py:614-630)
+        if args.fleet:
+            raise SystemExit("--fleet-disagg and --fleet are separate "
+                             "layers; pick one")
+        if args.scenario not in ("prompt-burst", "long-decode"):
+            if args.scenario == ap.get_default("scenario"):
+                args.scenario = "prompt-burst"
+            else:
+                raise SystemExit(
+                    f"--fleet-disagg serves generate traffic; "
+                    f"--scenario must be prompt-burst or long-decode, "
+                    f"not {args.scenario!r}")
+        if args.requests == ap.get_default("requests"):
+            args.requests = 48        # generate requests are heavy
+        serve = serve_disagg
+    elif args.fleet:
         # refuse single-server flags that fleet mode would silently
         # ignore (misleading experiment configs otherwise)
         ignored = [f"--{k} {getattr(args, k)}"

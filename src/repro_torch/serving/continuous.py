@@ -101,7 +101,18 @@ Invariants, as the reference's:
   stack's too, whose router groups every slot's draft token at once.
   Paged and SSD engines refuse D > 0 with the reference's errors.
 
-Not in this slice: ``insert_prefilled`` (the disaggregated hand-off).
+- **Insert (the disaggregated hand-off).**  ``insert_prefilled`` takes
+  a request prefilled elsewhere (``repro_torch.disagg``): a batch-1
+  contiguous row cache, its first token and its padded prompt length.
+  It waits in a FIFO insert queue and is seated at the start of the
+  next ``advance``, before any refill, into the first free slot
+  (``slot_write``) or, on a paged pool, into blocks of its whole budget
+  taken from the session's own allocator (``paged_slot_write``) — the
+  head waits while no slot, or not enough blocks, are free; a request
+  whose first token is its EOS completes on the host and never takes a
+  slot (ref ``continuous.py:1001-1092``).  Like a refill it writes the
+  pool and the slot state in place, so a window captured before the
+  insert reads the inserted rows when it is replayed.
 """
 from __future__ import annotations
 
@@ -351,6 +362,22 @@ def _bucket(n: int) -> int:
     return max(bucket_size(n), n)
 
 
+def first_tokens(last: torch.Tensor, plen: int, rows,
+                 sampled: bool) -> torch.Tensor:
+    """The prefill's first token of each row from its last-position
+    logits [n, V] and its sampling rows (skey, temp, topk, topp) on the
+    device: sampled with ``step_keys(skey, plen)``, the request's key
+    folded with the position the token lands at (ref
+    ``continuous.py:579, 622``), or, when no row samples (``sampled``,
+    decided on the host), the argmax (``sample_token``'s T = 0 rows are
+    that same argmax)."""
+    if sampled:
+        at = torch.full((len(last),), plen, dtype=torch.long,
+                        device=last.device)
+        return smp.sample_token(smp.step_keys(rows[0], at), last, *rows[1:])
+    return last.argmax(-1)
+
+
 def _wave_arrays(reqs: list[GenRequest], plen: int, rows: int):
     """A refill wave's prompts padded (or cut) to ``plen`` in ``rows``
     rows (zero-token rows past the wave), its decode budgets after the
@@ -443,6 +470,7 @@ class ContinuousBatchingEngine:
                              f"{self.capture!r}")
         # windows captured, by kind, over every session of this engine
         self.decode_captures = {"greedy": 0, "sampled": 0}
+        self._side = None
         self.params = self.params.to(self.device).eval()
         # the draft: a view over the first draft_layers layers, no copy
         self.draft = (self.params.draft_prefix(cfg.draft_layers)
@@ -453,6 +481,18 @@ class ContinuousBatchingEngine:
             (self.blocks_per_slot, self.logical_len,
              self.pool_blocks) = tfm.paged_geometry(self.cfg, self.n_slots,
                                                     self.max_seq)
+
+    def side_stream(self) -> torch.cuda.Stream:
+        """The stream each session's first window of a kind runs on
+        before it is captured: one for the engine's life.  cuBLAS keeps
+        a workspace for every stream it has run on (32 MiB each on an
+        NVIDIA H100 80GB HBM3, 700.00 W: ``chip_smoke.py``'s
+        ``disagg_chaos``), so a new stream per session would leave one
+        more behind at every session a fleet builds, a crashed worker's
+        included."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        return self._side
 
     @property
     def decode_capture_count(self) -> int:
@@ -830,6 +870,9 @@ class DecodeSession:
         self._graphs: dict[str, CountedGraph] = {}
         self._active_host = np.zeros(B, bool)
         self._prefill_done: list[GenRequest] = []
+        # the disaggregated hand-off: externally prefilled requests
+        # waiting for a slot, each (request, rows, first token, plen)
+        self._insert_q: list[tuple] = []
         # paged pool: the host-side block allocator; the device sees only
         # the table it is handed.  Block 0 is the trash block.
         if engine.paged:
@@ -844,6 +887,7 @@ class DecodeSession:
         self.occupied_slot_steps = 0
         self.host_syncs = 0
         self.prefill_calls = 0
+        self.insert_calls = 0
         self.device_s = 0.0             # prefills + windows, host clock
         self.prefill_s = 0.0            # of which prefills
         self.issue_s = 0.0              # of the windows': issuing them
@@ -858,7 +902,8 @@ class DecodeSession:
     # -- state --------------------------------------------------------------
     @property
     def idle(self) -> bool:
-        return not self.queue and not self._active_host.any()
+        return (not self.queue and not self._insert_q
+                and not self._active_host.any())
 
     @property
     def n_active(self) -> int:
@@ -870,6 +915,103 @@ class DecodeSession:
 
     def push(self, r: GenRequest) -> None:
         self.queue.append(r)
+
+    @torch.no_grad()
+    def warm(self) -> "DecodeSession":
+        """Capture the window of every kind now, while the session is
+        idle, so that no later ``advance`` pays for a first window or a
+        capture: a session made for a timed line (a disaggregated decode
+        worker's, a crashed worker's new one, an adapter's) is set up
+        before its clock starts.  Each warm window runs over slots none
+        of which is active, as every window runs its free slots, and
+        seating overwrites what it leaves.  An engine that does not
+        capture (the CPU) has nothing to set up.  -> the session."""
+        eng = self.engine
+        if eng.graphed:
+            self._depth_cap.fill_(eng.draft_depth)
+            for kind in eng.decode_captures:
+                if kind not in self._graphs:
+                    self._run_window(kind)
+        return self
+
+    # -- disaggregated insert -----------------------------------------------
+    def insert_prefilled(self, r: GenRequest, rows: tfm.Cache, first: int,
+                         plen: int) -> None:
+        """Accept an EXTERNALLY prefilled request: ``rows`` a batch-1
+        contiguous row cache holding the prompt's KV (at least ``plen``
+        rows; on a paged pool, the prompt's block multiple), ``first``
+        the token the prefill emitted, ``plen`` the padded prompt length
+        the rows were built at.  The request is seated on the next
+        ``advance``, or waits in FIFO order while no slot is free."""
+        self._insert_q.append((r, rows, first, plen))
+
+    @torch.no_grad()
+    def _drain_inserts(self) -> None:
+        """Seat queued inserts into free slots (ref
+        ``continuous.py:1012-1092``).  FIFO: the head waits while no slot
+        (paged: not enough blocks for its whole budget) is free; EOS
+        straight out of prefill completes on the host."""
+        eng = self.engine
+        B, dev = eng.n_slots, eng.device
+        bs = eng.cfg.kv_block_size if eng.paged else 0
+        while self._insert_q:
+            r, rows, first, plen = self._insert_q[0]
+            if r.eos_id is not None and first == r.eos_id:
+                # EOS straight out of prefill: the pool is never touched
+                self._insert_q.pop(0)
+                r.generated.append(int(first))
+                r.done = True
+                self._prefill_done.append(r)
+                continue
+            free = [s for s in range(B) if not self._active_host[s]]
+            if not free:
+                return                       # every slot busy: wait
+            s = free[0]
+            if eng.paged:
+                allocatable = eng.pool_blocks - 1
+                need = blocks_for_request(plen, r.max_new, eng.max_seq, bs)
+                if need > allocatable:
+                    raise ValueError(
+                        f"request rid={r.rid} needs {need} KV blocks "
+                        f"(prompt {plen} + max_new {r.max_new} rows at "
+                        f"block_size {bs}) but the pool has only "
+                        f"{allocatable} allocatable blocks — it can "
+                        f"never be inserted; raise kv_pool_blocks or "
+                        f"shrink the request budget")
+                if need > len(self._free_blocks):
+                    return                   # pool exhausted: wait
+                assigned = [self._free_blocks.pop() for _ in range(need)]
+                table_row = np.zeros(eng.blocks_per_slot, np.int32)
+                table_row[:need] = assigned
+                self.blocks_allocated += need
+                self.peak_blocks_in_use = max(
+                    self.peak_blocks_in_use,
+                    allocatable - len(self._free_blocks))
+            self._insert_q.pop(0)
+            t0 = time.perf_counter()
+            if eng.paged:
+                paged_slot_write(self._pool, rows, np.array([s]),
+                                 table_row[None], block_size=bs,
+                                 n_pref_blocks=-(-plen // bs))
+                self._table_h[s] = table_row
+                self._slot_blocks[s] = assigned
+                self._table_dirty = True
+            else:
+                slot_write(self._pool, rows, np.array([s]))
+            sampling = self._sampling_rows([r])
+            self._set_slots(
+                [s], torch.tensor([first], device=dev), plen,
+                [max(r.max_new - 1, 1)],
+                [-1 if r.eos_id is None else int(r.eos_id)],
+                [torch.as_tensor(x, device=dev) for x in sampling],
+                sampling[1])
+            synchronize(dev)
+            self.device_s += time.perf_counter() - t0
+            self.insert_calls += 1
+            r.generated.append(int(first))
+            r.slot = s
+            self.slots[s] = r
+            self._active_host[s] = True
 
     # -- refill -------------------------------------------------------------
     @torch.no_grad()
@@ -923,18 +1065,23 @@ class DecodeSession:
         622``), and the seated slots' decode and sampling state, written
         in place on the device; -> the first tokens on the host."""
         dev = self.engine.device
-        skey, temp, topk, topp = self._sampling_rows(reqs)
+        rows = self._sampling_rows(reqs)
+        rows_d = [torch.as_tensor(x, device=dev) for x in rows]
+        first = first_tokens(logits[:, -1], plen, rows_d,
+                             bool((rows[1] > 0).any()))
+        self._set_slots(slot_idx, first, plen, rem_new, eos_new, rows_d,
+                        rows[1])
+        return first.cpu().numpy()
+
+    def _set_slots(self, slot_idx, first, plen, rem_new, eos_new, rows_d,
+                   temp_h) -> None:
+        """Slots ``slot_idx``' decode state from their first tokens
+        ``first`` (on the device) and their sampling rows ``rows_d``,
+        each an indexed write into the session's own tensors (what a
+        captured window reads), never a rebinding."""
+        dev = self.engine.device
         idx = torch.as_tensor(slot_idx, device=dev)
         eos_t = torch.as_tensor(eos_new, device=dev)
-        rows = [torch.as_tensor(x, device=dev)
-                for x in (skey, temp, topk, topp)]
-        last = logits[:, -1]
-        if (temp > 0).any():
-            at = torch.full((len(reqs),), plen, dtype=torch.long, device=dev)
-            first = smp.sample_token(smp.step_keys(rows[0], at), last,
-                                     *rows[1:])
-        else:
-            first = last.argmax(-1)
         self._cur_tok[idx, 0] = first
         self._pos[idx] = plen
         # a slot whose PREFILL token already hits EOS never decodes
@@ -942,10 +1089,9 @@ class DecodeSession:
         self._remaining[idx] = torch.as_tensor(rem_new, device=dev)
         self._eos[idx] = eos_t
         for buf, x in zip((self._skey, self._temp, self._topk, self._topp),
-                          rows):
+                          rows_d):
             buf[idx] = x
-        self._temp_h[slot_idx] = temp
-        return first.cpu().numpy()
+        self._temp_h[slot_idx] = temp_h
 
     def _seat_prefilled(self, reqs, slots_for, first_h, *,
                         on_prefill_eos=None) -> None:
@@ -1060,6 +1206,7 @@ class DecodeSession:
         """Refill free slots, run one ``sync_every``-step window,
         harvest.  Returns the requests COMPLETED by this window."""
         eng = self.engine
+        self._drain_inserts()
         self._refill()
         done_at_prefill, self._prefill_done = self._prefill_done, []
         if not self._active_host.any():
@@ -1146,9 +1293,10 @@ class DecodeSession:
     def _run_window(self, kind: str) -> None:
         """Run one window: uncaptured unless the engine is graphed, else
         by replaying this kind's graph.  The first window of a kind runs
-        outside capture on a side stream (every kernel built and warmed,
-        cuBLAS's handles and workspaces made), and is then captured for
-        the windows after it.  A failed capture or replay raises."""
+        outside capture on the engine's side stream (every kernel built
+        and warmed, cuBLAS's handles and workspaces made), and is then
+        captured for the windows after it.  A failed capture or replay
+        raises."""
         eng = self.engine
         if not eng.graphed:
             self._window(kind)
@@ -1158,7 +1306,7 @@ class DecodeSession:
             graph.replay()
             return
         main = torch.cuda.current_stream(eng.device)
-        side = torch.cuda.Stream(eng.device)
+        side = eng.side_stream()
         side.wait_stream(main)
         with torch.cuda.stream(side):
             self._window(kind)
@@ -1185,7 +1333,7 @@ class DecodeSession:
                           if self.decode_steps else 0.0),
             "host_syncs": self.host_syncs,
             "prefill_calls": self.prefill_calls,
-            "insert_calls": 0,
+            "insert_calls": self.insert_calls,
             "device_s": self.device_s,
             "prefill_s": self.prefill_s,
             "window": "graph" if eng.graphed else "eager",

@@ -6,8 +6,9 @@ The chaos stories run over the sim fleet of both packages with one
 rejections and reports, byte for byte (``json.dumps(...,
 sort_keys=True)``; host arithmetic on the same numpy draws, so no
 tolerance).  Then the reference's own claims (``tests/test_faults.py``)
-on the port, less the disaggregated-serving ones, which wait for the
-port of ``repro.disagg``.
+on the port; its disaggregated-serving ones (link flaps, decode
+crashes, retransmission) are held against the reference in
+``tests/test_torch_disagg.py``.
 """
 import pytest
 

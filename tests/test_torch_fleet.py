@@ -423,12 +423,23 @@ def test_live_kind_refusals():
     with pytest.raises(ValueError, match="expected one of") as ei:
         tfleet.make_live_replica("r0", "zzzz", {}, None)
     assert "did you mean" not in str(ei.value)
-    # the generate kind stays listed, as in the reference, and waits
-    # for disaggregation; nothing serves it in its place
+    # the generate kind, as in the reference, is the disaggregated
+    # engine behind its adapter: built on the CPU here, it serves
     assert "generate" in tfleet.LIVE_REPLICA_KINDS
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tfleet.make_live_replica("g-0", "generate", {}, None,
-                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tfleet.build_live_fleet({}, None, kinds=("generate",),
-                                device="cpu")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.disagg import DisaggEngineAdapter
+    from repro_torch.models import transformer as ttfm
+    from repro_torch.serving.api import InferRequest
+    lm_cfg = get_smoke_config("stablelm-3b")
+    lm = ttfm.init_lm(lm_cfg, 0, device="cpu")
+    pool = tfleet.build_live_fleet(lm_cfg, lm, kinds=("generate",),
+                                   device="cpu")
+    rep = pool.replicas[0]
+    assert rep.kind == "generate"
+    assert isinstance(rep.server.engine, DisaggEngineAdapter)
+    req = InferRequest(rid=0, arrival_s=0.0, kind="generate", max_new=3,
+                       payload=np.arange(8, dtype=np.int32))
+    out = tfleet.FleetSimulator(pool, tfleet.RoundRobinRouter()).run([req])
+    assert [(r.rid, r.path, len(r.output)) for r in out.responses] == [
+        (0, "generate", 3)]
+    assert all(0 <= t < lm_cfg.vocab for t in out.responses[0].output)
