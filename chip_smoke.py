@@ -4,6 +4,7 @@
     python3 chip_smoke.py --decode-graph   # sampling_keys, decode_graph only
     python3 chip_smoke.py --fleet          # train_classifier, fleet only
     python3 chip_smoke.py --disagg         # the disagg phases only
+    python3 chip_smoke.py --train          # the training phases only
 
 Drives ``src/repro_torch`` only (no JAX, nothing of ``repro``) and prints
 one JSON object per line; any failed check raises, so the exit code is
@@ -287,7 +288,39 @@ not 0.  Phases:
                in f32, the card against the CPU, equal tokens for 16
                requests and prefill logits within 1e-3; ``decode_graph``
                for minicpm3;
- 18. kernels — one line with every kernel's numbers (the chunk entry
+ 18. training (``--train`` runs these alone; no kernel is on this
+               path: a train step differentiates the einsum and chunked
+               paths, and each phase gates every kernel counter at 0):
+               ``train_parity`` — stablelm-3b at published width, depth 2,
+               f32: one ``make_train_step`` step on the card and on the CPU
+               from the same weights and batch (2 x 64 tokens), loss and
+               grad norm within 1e-5 / 1e-4 relative, the first moments
+               within 1e-4 of each leaf's largest, the parameters within
+               1e-6 where the gradient is at least 100 x Adam's eps (within
+               a step's length elsewhere); ``train_lm`` — the launcher,
+               ``--arch stablelm-3b --full-config --steps 20 --batch 8
+               --seq 512`` (remat ``full``, bf16): every loss finite, the
+               last below the first, the peak memory under the card's;
+               step ms, tokens/s, MFU, peak GB beside the weights',
+               gradients' and moments' 12 bytes a parameter;
+               ``train_breakdown`` — the same step cut into forward,
+               backward (with the recompute) and the in-place AdamW, and
+               the profiler's products; ``train_families`` — mamba2
+               (chunk 256), granite, minicpm3, recurrentgemma (depth 3),
+               paligemma and whisper at published width, depth 2, bf16, 3
+               steps on one batch of 2 x 256: the loss falls, every
+               gradient and parameter finite, granite's aux positive,
+               whisper's encoder and paligemma's prefix embeddings given
+               nonzero gradients; ``checkpoint`` — the parity model (f32)
+               and whisper's (bf16) with their AdamW states saved in the
+               reference's layout and loaded into fresh models on the
+               card, byte for byte; ``quant`` — stablelm-3b at published
+               width through ``quantize_tree`` on the stacked layout,
+               dequantised to bf16: one decode step at 8 rows against the
+               bf16 model's, the largest logit error under 0.15 of the
+               largest and top-1 agreement of 0.5 or more, the int8
+               tree's bytes against bf16's;
+ 19. kernels — one line with every kernel's numbers (the chunk entry
                too; each kernel's launches summed over its main paths,
                with ``launches_by_path``: entropy's the four classify
                runs and the fleet's live runs (``fleet``), each attention
@@ -296,7 +329,7 @@ not 0.  Phases:
                generate replicas' as ``fleet_generate``; the disagg
                shapes' rows under ``new_shapes``;
                granite's G = 3 case as ``g3``);
- 19. the last line: ``{"ok": true, "device": {...}}``.
+ 20. the last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero without CUDA or without the repo.
 """
@@ -312,6 +345,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import weakref
 
@@ -337,8 +371,10 @@ from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.runtime import (ATTN_BF16_ROW_TOL,  # noqa: E402
                                          row_scaled_error)
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
-from repro_torch.models import distilbert, resnet  # noqa: E402
+from repro_torch.models import convert, distilbert, quant  # noqa: E402
+from repro_torch.models import resnet  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving import continuous as cont  # noqa: E402
 from repro_torch.serving import sampling as smp  # noqa: E402
@@ -351,8 +387,9 @@ from repro_torch.serving import (PATH_DIRECT,  # noqa: E402
 from repro_torch.serving.engine import GenerationEngine  # noqa: E402
 from repro_torch.serving.gated import make_gated_classify_step  # noqa: E402
 from repro_torch.telemetry.validate import main as validate_main  # noqa: E402
-from repro_torch.training import (ClassificationData,  # noqa: E402
-                                  train_classifier)
+from repro_torch.training import (AdamW, ClassificationData,  # noqa: E402
+                                  checkpoint, lm_batches, lm_loss,
+                                  make_train_step, train_classifier)
 
 F32_TOL = 1e-4          # tests/test_kernels.py:30
 BF16_TOL = 3e-2
@@ -4180,6 +4217,363 @@ def phase_new_families(peaks) -> dict:
     return launches
 
 
+# -- training: the LM train step, checkpoints, int8 ---------------------------
+
+TRAIN_ARCHS = (SSM_ARCH, MOE_ARCH, MLA_ARCH, HYBRID_ARCH, VLM_ARCH,
+               ENCDEC_ARCH)
+PARITY_LR = 1e-3
+# one train step in f32, card against CPU from the same weights and
+# batch: other sum orders (GEMM tiles, the embedding gradient's
+# scatter-add) move the loss and norm by about 1e-7 relative and each
+# gradient element by a few 1e-6 of its leaf's largest; the gates leave
+# a margin of 10-100.  A parameter moves by the learning rate times
+# g / (|g| + 1e-8): where the clipped |g| >= 100 x 1e-8 (the first
+# moment, 0.1 g, >= 1e-7) that is within 1 % of lr * sign(g) and moves
+# by under 1e-9 for a gradient difference of 1e-6 of its size, so the
+# parameters agree to f32's rounding (1e-6); nearer 0 the step turns
+# on the gradient's rounding noise (1 / 1e-8 per unit of g: about 0.1 lr
+# at this shape), so there only its length is bounded, by 2.1 lr
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_NORM_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_WELL_M = 0.1 * 100 * 1e-8
+TRAIN_PARAM_TOL = 1e-6
+TRAIN_BOUNDED_STEP = 2.1 * PARITY_LR
+TRAIN_LM_ARGS = ["--arch", ARCH, "--full-config", "--steps", "20",
+                 "--batch", "8", "--seq", "512"]
+
+
+def _lm_batch(cfg, batch: int, seq: int, dev, seed: int = 0) -> dict:
+    """A ``lm_batches`` batch on ``dev`` with the launcher's frontend
+    stubs."""
+    tokens = next(lm_batches(vocab=cfg.vocab, batch=batch, seq_len=seq,
+                             seed=seed))
+    return {"tokens": torch.from_numpy(tokens).to(dev),
+            **train_launch.frontends(cfg, batch, torch.device(dev))}
+
+
+def _no_kernel_launched(tag: str) -> dict:
+    """The kernels' counters since the last ``_zero_counters``: a train
+    step launches none (no kernel has a backward)."""
+    launches = _attention_launches()
+    fail_unless(not any(launches.values()),
+                f"{tag}: the train path launched a kernel: {launches}")
+    return launches
+
+
+def phase_train_parity():
+    """One train step of stablelm-3b at published width, depth 2, f32,
+    on the card and on the CPU from the same weights and batch (2 x 64
+    tokens): loss, aux, grad norm, the first moments (the clipped
+    gradients) and the parameters after the step.  -> the card's model
+    and optimizer state."""
+    cfg = get_config(ARCH).replace(n_layers=2, dtype="float32")
+    gpu, cpu = _card_and_cpu(cfg)
+    opt = AdamW(lr=PARITY_LR)
+    step = make_train_step(opt, total_steps=10, warmup=1)
+    out = {}
+    _zero_counters()
+    for tag, model in (("card", gpu), ("cpu", cpu)):
+        state = opt.init(dict(model.named_parameters()))
+        batch = _lm_batch(cfg, 2, 64, model.device)
+        t0 = time.perf_counter()
+        state, m = step(model, state, batch)
+        m = {k: float(v) for k, v in m.items()}
+        out[tag] = (state, m, (time.perf_counter() - t0) * 1e3)
+    launches = _no_kernel_launched("train_parity")
+    (sg, mg, ms_g), (sc, mc, ms_c) = out["card"], out["cpu"]
+    pg, pc = convert.lm_to_flat(gpu), convert.lm_to_flat(cpu)
+    gm, cm = convert.lm_flat(cfg, sg.m), convert.lm_flat(cfg, sc.m)
+    grad_err = max(((gm[k].cpu() - cm[k]).abs().max()
+                    / cm[k].abs().max()).item() for k in cm)
+    param_err, step_err, near_zero = 0.0, 0.0, 0
+    for k in pc:
+        err = (pg[k].cpu() - pc[k]).abs()
+        well = cm[k].abs() >= TRAIN_WELL_M
+        param_err = max(param_err, err[well].max().item()
+                        if well.any() else 0.0)
+        step_err = max(step_err, err.max().item())
+        near_zero += int((~well).sum())
+    rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30)
+           for k in ("loss", "total", "grad_norm")}
+    emit(phase="train_parity", arch=ARCH, layers=2, dtype="float32",
+         batch=[2, 64], lr=PARITY_LR, card=mg, cpu=mc, rel_err=rel,
+         aux_err=abs(mg["aux"] - mc["aux"]),
+         grad_err_of_leaf_max=grad_err, param_max_abs_err=param_err,
+         near_zero_grad_elements=near_zero,
+         near_zero_grad_param_max_abs_err=step_err,
+         step_ms_card=ms_g, step_ms_cpu=ms_c, launches=launches,
+         tol=dict(loss=TRAIN_LOSS_RTOL, grad_norm=TRAIN_NORM_RTOL,
+                  grad=TRAIN_GRAD_RTOL, param=TRAIN_PARAM_TOL,
+                  near_zero_grad_param=TRAIN_BOUNDED_STEP))
+    fail_unless(rel["loss"] <= TRAIN_LOSS_RTOL
+                and rel["total"] <= TRAIN_LOSS_RTOL
+                and abs(mg["aux"] - mc["aux"]) <= TRAIN_LOSS_RTOL
+                and rel["grad_norm"] <= TRAIN_NORM_RTOL
+                and mg["lr_scale"] == mc["lr_scale"]
+                and sg.count == sc.count == 1,
+                f"train_parity: metrics differ: {rel}")
+    fail_unless(grad_err <= TRAIN_GRAD_RTOL and param_err <= TRAIN_PARAM_TOL
+                and step_err <= TRAIN_BOUNDED_STEP,
+                f"train_parity: gradients {grad_err} / params {param_err}, "
+                f"{step_err} near a zero gradient")
+    del cpu, sc
+    return gpu, sg
+
+
+def phase_train_lm() -> None:
+    """The launcher at published width: stablelm-3b, 20 steps of 8 x 512
+    tokens, remat ``full``, bf16; every loss finite and the last below
+    the first, the peak memory under the card's, no kernel launched;
+    step ms, tokens/s, MFU and peak GB beside the memory the weights,
+    gradients and moments take."""
+    args = train_launch.parser().parse_args(TRAIN_LM_ARGS)
+    _zero_counters()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as runs:
+        args.runs = runs
+        out = train_launch.train(args)
+    wall = time.perf_counter() - t0
+    launches = _no_kernel_launched("train_lm")
+    perf, losses = out["perf"], out["losses"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    n = perf["n_params"]
+    emit(phase="train_lm", args=TRAIN_LM_ARGS,
+         losses=losses, step_ms_median=perf["step_ms_median"],
+         first_step_ms=perf["first_step_ms"], step_ms=perf["step_ms"],
+         tokens_per_s=perf["tokens_per_s"], mfu=perf["mfu"],
+         mfu_peak_flops=perf["mfu_peak_flops"], n_params=n,
+         peak_gb=perf["peak_mem_bytes"] / 1e9, card_gb=total / 1e9,
+         weights_grads_moments_gb=12 * n / 1e9,
+         functional_update_reckoned_gb=26 * n / 1e9,
+         card=perf["card"], energy_j=out["result"]["energy_j"],
+         seconds=wall, launches=launches)
+    fail_unless(all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0],
+                f"train_lm: losses {losses}")
+    fail_unless(perf["peak_mem_bytes"] < total,
+                f"train_lm: peak {perf['peak_mem_bytes']} of {total}")
+
+
+def phase_train_breakdown(peaks: dict) -> None:
+    """Where a full-width train step's time goes: stablelm-3b, bf16,
+    remat ``full``, 8 x 512 tokens, the launcher's step cut into the
+    forward (the loss), the backward (with each layer's forward
+    recomputed) and the in-place AdamW update, each timed to a
+    synchronise, the median of 3 steps after a first; the profiler's
+    products and the rest over one step; beside 6 N and 8 N FLOPs (8 N
+    with the recompute) at the bf16 peak and the update's bytes."""
+    cfg = get_config(ARCH)
+    model = tfm.init_lm(cfg, 0, device="cuda")
+    params = dict(model.named_parameters())
+    opt = AdamW(lr=1e-3)
+    state = opt.init(params)
+    batch = _lm_batch(cfg, 8, 512, "cuda")
+    tokens = batch["tokens"]
+    parts = {"forward": [], "backward": [], "optimizer": []}
+
+    def one_step(record=True):
+        nonlocal state
+        for p in params.values():
+            p.requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            loss, _ = lm_loss(model, tokens)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for p in params.values():
+            p.requires_grad_(False)
+        state, _ = opt.update_(dict(zip(params, grads)), state, params)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if record:
+            for k, a, b in (("forward", t0, t1), ("backward", t1, t2),
+                            ("optimizer", t2, t3)):
+                parts[k].append((b - a) * 1e3)
+
+    torch.cuda.reset_peak_memory_stats()
+    one_step(record=False)
+    for _ in range(3):
+        one_step()
+    peak = torch.cuda.max_memory_allocated()
+    try:
+        prof = _profile_step(lambda: one_step(record=False),
+                             attention="flash_attention")
+    except Exception as e:          # the profiler is untried on the card
+        prof = {"error": repr(e)[:200]}
+    n = sum(p.numel() for p in params.values())
+    ntok = tokens.shape[0] * (tokens.shape[1] - 1)
+    med = {k: float(np.median(v)) for k, v in parts.items()}
+    step_ms = sum(med.values())
+    emit(phase="train_breakdown", arch=ARCH, batch=[8, 512],
+         remat=cfg.remat_policy, ms=med, step_ms=step_ms, all_ms=parts,
+         bound_6n_ms=6 * n * ntok / peaks["bf16"] * 1e3,
+         bound_8n_ms=8 * n * ntok / peaks["bf16"] * 1e3,
+         optimizer_bytes=n * (2 + 2 + 16),
+         optimizer_bound_ms=n * (2 + 2 + 16) / peaks["hbm"] * 1e3,
+         peak_gb=peak / 1e9, profiler=prof)
+    del model, params, state
+    torch.cuda.empty_cache()
+
+
+def phase_train_families():
+    """Every other family at published width, depth 2 (recurrentgemma 3,
+    to hold its windowed-attention layer; whisper's encoder 2 too),
+    bf16, 3 steps on one batch of 2 x 256 tokens (mamba2's chunk of 256
+    whole): the loss falls, the grad norm (so every gradient) and every
+    parameter finite, no kernel launched; granite's aux positive;
+    whisper's encoder and paligemma's prefix path given nonzero
+    gradients.  -> whisper's model and optimizer state."""
+    kept = None
+    for arch in TRAIN_ARCHS:
+        cfg = get_config(arch).replace(
+            n_layers=3 if arch == HYBRID_ARCH else 2)
+        if cfg.family == "encdec":
+            cfg = cfg.replace(n_enc_layers=2)
+        model = tfm.init_lm(cfg, 0, device="cuda")
+        opt = AdamW(lr=3e-4)
+        state = opt.init(dict(model.named_parameters()))
+        step = make_train_step(opt, total_steps=3, warmup=1)
+        batch = _lm_batch(cfg, 2, 256, "cuda")
+        _zero_counters()
+        ms, metrics = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            state, m = step(model, state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = _no_kernel_launched(f"train_families {arch}")
+        losses = [m["loss"] for m in metrics]
+        finite = all(torch.isfinite(p).all().item()
+                     for p in model.parameters())
+        extra = {}
+        if cfg.family == "encdec":
+            extra["encoder_grad_max"] = max(
+                t.abs().max().item() for k, t in state.m.items()
+                if k.startswith("encoder."))
+        if cfg.family == "vlm":
+            pre = batch["prefix_embeds"].clone().requires_grad_(True)
+            with torch.enable_grad():
+                loss, _ = lm_loss(model, batch["tokens"], prefix_embeds=pre)
+                (g,) = torch.autograd.grad(loss, pre)
+            extra["prefix_grad_norm"] = g.float().norm().item()
+        emit(phase="train_families", arch=arch, layers=cfg.n_layers,
+             kinds=sorted(set(cfg.block_kinds)), dtype=cfg.dtype,
+             batch=[2, 256], ssm_chunk=cfg.ssm_chunk if arch == SSM_ARCH
+             else None, losses=losses,
+             grad_norms=[m["grad_norm"] for m in metrics],
+             aux=[m["aux"] for m in metrics], step_ms=ms,
+             params_finite=finite, launches=launches, **extra)
+        fail_unless(losses[-1] < losses[0]
+                    and all(math.isfinite(m["grad_norm"]) for m in metrics)
+                    and finite, f"train_families {arch}: {metrics}")
+        fail_unless(all(m["aux"] > 0 for m in metrics) == cfg.is_moe,
+                    f"train_families {arch}: aux {metrics}")
+        fail_unless(all(v > 0 for v in extra.values()),
+                    f"train_families {arch}: {extra}")
+        if cfg.family == "encdec":
+            kept = (model, state)
+        del model, state
+        torch.cuda.empty_cache()
+    return kept
+
+
+def phase_checkpoint(trained: dict) -> None:
+    """Each (model, optimizer state) saved in the reference's layout and
+    loaded into a fresh, uninitialised model and new moments on the
+    card: every parameter, moment and the count equal byte for byte in
+    their own dtypes."""
+    for tag, (model, state) in trained.items():
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "ck.npz")
+            t0 = time.perf_counter()
+            checkpoint.save(path, {"params": model, "opt": state},
+                            metadata={"arch": model.cfg.arch_id})
+            save_s = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            fresh = tfm.LM(model.cfg, device="cuda")
+            back = checkpoint.load_into(path, {
+                "params": fresh,
+                "opt": AdamW().init(dict(fresh.named_parameters()))})
+            load_s = time.perf_counter() - t0 - save_s
+        st = back["opt"]
+        equal = (all(torch.equal(a, b) and a.dtype == b.dtype
+                     for a, b in zip(model.state_dict().values(),
+                                     fresh.state_dict().values()))
+                 and all(torch.equal(state.m[k], st.m[k])
+                         and torch.equal(state.v[k], st.v[k])
+                         for k in state.m)
+                 and st.count == state.count)
+        emit(phase="checkpoint", model=tag, arch=model.cfg.arch_id,
+             dtypes=sorted({str(t.dtype) for t in model.parameters()}),
+             bytes=size, save_s=save_s, load_s=load_s, count=st.count,
+             equal=equal)
+        fail_unless(equal, f"checkpoint {tag}: not byte-equal")
+        del fresh, back
+
+
+def phase_quant(smi: str) -> None:
+    """stablelm-3b at published width, bf16, seeded: int8 through
+    ``quantize_tree`` on the reference's stacked layout, dequantised to
+    bf16 into a second model; one decode step after a 16-token prefill
+    at 8 rows against the bf16 model's: the largest logit error under
+    0.15 of the largest logit and top-1 agreement on half the rows or
+    more (``tests/test_quant.py``'s bounds); the int8 tree's bytes
+    against bf16's."""
+    cfg = get_config(ARCH)
+    model = tfm.init_lm(cfg, 0, device="cuda")
+    t0 = time.perf_counter()
+    qtree = quant.quantize_tree(convert.lm_to_flat(model))
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - t0
+    chosen = sorted(k for k, v in qtree.items() if isinstance(v, dict))
+    q_bytes = sum(t.numel() * t.element_size() for v in qtree.values()
+                  for t in (v.values() if isinstance(v, dict) else [v]))
+    qmodel = tfm.LM(cfg, device="cuda")
+    quant.load_dequantized(qmodel, qtree, torch.bfloat16)
+    del qtree
+    B = 8
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab, (B, 17))
+
+    def decode(m):
+        cache = tfm.init_cache(cfg, B, 32, device="cuda")
+        m.prefill(prompts[:, :16], cache)
+        return m.decode_step(prompts[:, 16:17], cache, 16)[0][:, 0].float()
+
+    ref, out = decode(model), decode(qmodel)
+    rel = ((out - ref).abs().max() / (ref.abs().max() + 1e-9)).item()
+    agree = (out.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    report = quant.quantization_error(convert.lm_to_flat(model))
+    emit(phase="quant", arch=ARCH, nvidia_smi=smi, quantized=chosen,
+         int8_tree_bytes=q_bytes, bf16_bytes=_weight_bytes(model),
+         ratio=q_bytes / _weight_bytes(model), quantize_s=q_s,
+         rows=B, max_rel_logit_err=rel, top1_agree=agree,
+         max_leaf_rel_err=max(report.values(), default=None))
+    fail_unless(bool(chosen) and chosen == sorted(report),
+                f"quant: chose {chosen}")
+    fail_unless(rel < 0.15 and agree >= 0.5,
+                f"quant: logits {rel} of the largest, agreement {agree}")
+    del model, qmodel
+    torch.cuda.empty_cache()
+
+
+def phase_train(smi: str, peaks: dict) -> None:
+    """The training phases, in order: train_parity, train_lm,
+    train_breakdown, train_families, checkpoint, quant."""
+    parity = phase_train_parity()
+    phase_train_lm()
+    phase_train_breakdown(peaks)
+    whisper = phase_train_families()
+    phase_checkpoint({"stablelm_f32": parity, "whisper_bf16": whisper})
+    del parity, whisper
+    torch.cuda.empty_cache()
+    phase_quant(smi)
+
+
 def kernel_entry(name, src, replaces, tpu_kernel, launches, max_err, main):
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -4239,13 +4633,24 @@ def disagg_only() -> None:
          seconds=time.perf_counter() - t0)
 
 
+def train_only() -> None:
+    """``--train``: the device, build and training phases alone: the
+    quickest check of LM training on the card."""
+    t0 = time.perf_counter()
+    name, smi, _ = phase_device()
+    phase_build()
+    phase_train(smi, PEAKS["pcie" if "pcie" in name.lower() else "sxm"])
+    emit(phase="train_only", seconds=time.perf_counter() - t0)
+
+
 ONLY = {"--decode-graph": decode_graph_only, "--fleet": fleet_only,
-        "--disagg": disagg_only}
+        "--disagg": disagg_only, "--train": train_only}
 
 
 def main(argv: list[str]) -> int:
     if argv and (len(argv) > 1 or argv[0] not in ONLY):
-        print(f"usage: chip_smoke.py [--decode-graph | --fleet | --disagg], "
+        print(f"usage: chip_smoke.py [--decode-graph | --fleet | --disagg | "
+              f"--train], "
               f"got {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4299,6 +4704,7 @@ def main(argv: list[str]) -> int:
     torch.cuda.empty_cache()
     fam = phase_families(peaks)
     new = phase_new_families(peaks)
+    phase_train(smi, peaks)
     moe, moe_paged = fam["serve_generate_moe"], fam["serve_generate_moe_paged"]
     by_path = {
         "flash_attention": {

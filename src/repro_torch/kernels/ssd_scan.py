@@ -83,7 +83,9 @@ def ssd_chunked_plain(x, dt, A, Bm, Cm, h0, chunk: int):
     f32: the quadratic form within chunks of ``min(chunk, S)`` rows
     (padded rows take dt = 0, the identity for the state), chunk states
     carried across by a loop.  -> (y [B,S,H,hd] in x's dtype, h_last
-    [B,H,hd,N] f32)."""
+    [B,H,hd,N] f32).  Differentiable, and the path a train step takes:
+    the intra-chunk decay is masked before its exponential, so the
+    gradient is finite where the forward is."""
     B_, S, H, hd = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -105,7 +107,13 @@ def ssd_chunked_plain(x, dt, A, Bm, Cm, h0, chunk: int):
     cb = torch.einsum("bcqn,bcsn->bcqs", Cc, Bc)
     decay = (l[:, :, :, None, :] - l[:, :, None, :, :]).permute(0, 1, 4, 2, 3)
     mask = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
-    att = torch.where(mask, torch.exp(decay) * cb[:, :, None], 0.0)
+    # the reference exponentiates the whole block and masks after: for
+    # s > t, l_t - l_s > 0 overflows f32 past 88 (mamba2's chunk of 256
+    # reaches thousands), and the masked inf sends 0 * inf = NaN into the
+    # gradient; masking before the exponential keeps the forward's values
+    # and gives a finite gradient
+    att = torch.where(mask, torch.exp(torch.where(mask, decay, -torch.inf))
+                      * cb[:, :, None], 0.0)
     att = att * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
     y_intra = torch.einsum("bchts,bcshd->bcthd", att, xc)
     # chunk states: sum_s exp(l_last - l_s) dt_s x_s (x) B_s

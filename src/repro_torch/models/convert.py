@@ -13,6 +13,11 @@ shape (dense ``[d_in, d_out]``, applied as ``x @ W``), so nothing is
 transposed but ResNet-18's convolutions (HWIO in the reference, OIHW in
 the port).  A missing or extra key, or a shape that differs, raises —
 as ``repro.training.checkpoint.load_into`` does.
+
+The other way, ``lm_to_flat`` gives an LM's weights in the reference's
+flat layout (layers stacked as the reference stacks them), which the
+port's checkpoints and int8 quantisation use, and ``load_lm`` loads
+such a dict, of numpy arrays or tensors, into an LM in place.
 """
 from __future__ import annotations
 
@@ -66,8 +71,9 @@ def load_state(model: torch.nn.Module, flat: dict[str, np.ndarray]) -> None:
         for k, name in want.items():
             # np.array copies (a JAX-backed array is read-only) and widens
             # bf16 exactly; copy_ casts to the parameter's own dtype
-            state[name].copy_(torch.from_numpy(
-                np.array(flat[k], dtype=np.float32)))
+            a = flat[k]
+            state[name].copy_(a if isinstance(a, torch.Tensor) else
+                              torch.from_numpy(np.array(a, dtype=np.float32)))
 
 
 def distilbert_from_numpy(cfg: dict, tree, *, device="cuda") -> DistilBERT:
@@ -106,6 +112,73 @@ def unstack_layers(flat: dict[str, np.ndarray], n_layers: int, *,
     return out
 
 
+def stack_layers(flat: dict, n_layers: int, *,
+                 prefix: str = "layers") -> dict:
+    """The inverse of :func:`unstack_layers`, on tensors or numpy
+    arrays: every ``prefix/i/rest`` (i < ``n_layers``) stacked along a
+    new first axis into ``prefix/rest``; keys elsewhere pass through.
+    Raises when a layer lacks a leaf the others have."""
+    head = prefix.split("/")
+    out, groups = {}, {}
+    for key, t in flat.items():
+        parts = key.split("/")
+        rest = parts[len(head):]
+        if parts[:len(head)] != head or not rest or not rest[0].isdigit():
+            out[key] = t
+            continue
+        groups.setdefault("/".join(rest[1:]), {})[int(rest[0])] = t
+    for rest, by_layer in groups.items():
+        if sorted(by_layer) != list(range(n_layers)):
+            raise ValueError(f"{prefix}/*/{rest} is held by layers "
+                             f"{sorted(by_layer)}, expected 0..{n_layers - 1}")
+        leaves = [by_layer[i] for i in range(n_layers)]
+        out["/".join([*head, rest])] = (
+            torch.stack(leaves) if isinstance(leaves[0], torch.Tensor)
+            else np.stack(leaves))
+    return out
+
+
+def lm_flat(cfg: ModelConfig, named) -> dict:
+    """A dict keyed by an LM's parameter names (``state_dict``,
+    ``named_parameters``, or AdamW moments over them) in the reference's
+    flat layout: '/' for '.', a homogeneous stack's layers stacked, a
+    mixed stack's kept per layer (the reference's list), an
+    encoder-decoder's ``encoder/layers`` and ``xattn`` stacked."""
+    flat = {k.replace(".", "/"): t for k, t in named.items()}
+    if cfg.homogeneous:
+        flat = stack_layers(flat, cfg.n_layers)
+    if cfg.family == "encdec":
+        flat = stack_layers(flat, cfg.n_enc_layers, prefix="encoder/layers")
+        flat = stack_layers(flat, cfg.n_layers, prefix="xattn")
+    return flat
+
+
+def lm_unflat(cfg: ModelConfig, flat: dict) -> dict:
+    """The inverse of :func:`lm_flat`: the reference's flat layout keyed
+    per layer, with '/' (the port's names with '/' for '.')."""
+    flat = unstack_layers(flat, cfg.n_layers)
+    if cfg.family == "encdec":
+        flat = unstack_layers(flat, cfg.n_enc_layers, prefix="encoder/layers")
+        flat = unstack_layers(flat, cfg.n_layers, prefix="xattn")
+    return flat
+
+
+def lm_to_flat(model: LM) -> dict[str, torch.Tensor]:
+    """The model's weights in the reference's flat layout (detached
+    copies where layers are stacked, on the model's device, in its
+    dtypes)."""
+    return lm_flat(model.cfg, {k: t.detach()
+                               for k, t in model.state_dict().items()})
+
+
+def load_lm(model: LM, flat: dict) -> LM:
+    """Copy a flat dict in the reference's layout (numpy arrays or
+    tensors) into ``model`` in place; raises on a missing or extra key
+    or a shape mismatch, as :func:`load_state` does."""
+    load_state(model, lm_unflat(model.cfg, flat))
+    return model
+
+
 def lm_from_numpy(cfg: ModelConfig, tree, *, device="cuda") -> LM:
     """A port LM on ``device`` holding the weights of the reference's
     ``init_lm`` tree (numpy leaves, e.g. ``jax.tree.map(np.asarray,
@@ -115,12 +188,7 @@ def lm_from_numpy(cfg: ModelConfig, tree, *, device="cuda") -> LM:
     a missing or extra key or a shape mismatch, as :func:`load_state`
     does."""
     model = LM(cfg, device=resolve_device(device))
-    flat = unstack_layers(flatten_tree(tree), cfg.n_layers)
-    if cfg.family == "encdec":
-        flat = unstack_layers(flat, cfg.n_enc_layers, prefix="encoder/layers")
-        flat = unstack_layers(flat, cfg.n_layers, prefix="xattn")
-    load_state(model, flat)
-    return model.eval()
+    return load_lm(model, flatten_tree(tree)).eval()
 
 
 def resnet_from_numpy(tree, *, device="cuda") -> ResNet18:

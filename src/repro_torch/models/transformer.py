@@ -53,6 +53,24 @@ CPU under ``"auto"`` and ``"xla"``; a decode step's single-step state
 update is plain PyTorch everywhere, and so is the RG-LRU (the reference
 runs no kernel there either).
 
+No kernel has a backward, and the reference defines none: its train
+step differentiates the einsum attention and the model's chunked SSD
+algorithm.  So a full-sequence call whose layer needs a gradient (grad
+mode on, and its input or one of its parameters requiring grad, as in
+``training.train_loop``'s step) takes the einsum / chunked path under
+``"auto"`` on the card too, ``"ref"`` its differentiable plain
+versions, and ``"cuda"`` forced raises: no kernel output reaches a loss
+without its gradient.  ``forward``, ``encode`` and
+``compute_cross_kv`` therefore run under the caller's grad mode; the
+parameters are frozen (``models.nn.param``), so serving builds no
+graph.  Remat follows the reference's (``transformer.py:437-446``): in
+``forward``, with grad on, when ``cfg.remat`` and ``cfg.remat_policy``
+is not ``"none"``, each layer runs under ``torch.utils.checkpoint``
+(non-reentrant); ``"full"`` recomputes the whole layer in the backward,
+``"dots"`` saves the outputs of the products without batch dimensions
+(``aten.mm`` / ``addmm``, not the attention's ``bmm``), the counterpart
+of ``dots_with_no_batch_dims_saveable``, and recomputes the rest.
+
 Parameters keep the reference's names and shapes, one module per layer
 (the reference stacks a homogeneous stack's leaves ``[L, ...]`` and its
 encoder's and cross-attention's; ``convert.lm_from_numpy`` unstacks
@@ -83,9 +101,13 @@ stack that mixes kinds.
 from __future__ import annotations
 
 import copy
+import functools
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.runtime import resolve_device
@@ -101,6 +123,27 @@ from repro_torch.models.nn import param
 # an SSD state or an RG-LRU state
 STATE_OF = {"attn": "kv", "local_attn": "kv", "mla": "latent", "ssd": "ssd",
             "rglru": "rglru"}
+
+
+# the products a "dots" remat saves: those without batch dimensions
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(policy: str):
+    """``checkpoint``'s ``context_fn`` for a remat policy: the default
+    (save nothing inside the layer) for ``"full"``, the selective policy
+    for ``"dots"``."""
+    if policy == "full":
+        return noop_context_fn
+    if policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_policy)
+    raise ValueError(f"unknown remat policy {policy!r}")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -454,9 +497,24 @@ class LM(nn.Module):
         return self.emb.device
 
     # -- pieces ---------------------------------------------------------------
-    def _use_kernel(self, x: torch.Tensor) -> bool:
+    def _use_kernel(self, x: torch.Tensor, layer: nn.Module) -> bool:
+        """Whether ``layer``'s temporal mix on ``x`` goes through the
+        kernel dispatch: never under ``"xla"``, on a CUDA tensor under
+        ``"auto"``; and, when the layer needs a gradient, only under
+        ``"ref"`` (plain, differentiable versions), while ``"cuda"``
+        raises (the module docstring says why)."""
         impl = self.attn_impl
-        return impl != "xla" and (impl != "auto" or x.device.type == "cuda")
+        if impl == "xla" or (impl == "auto" and x.device.type != "cuda"):
+            return False
+        needs_grad = torch.is_grad_enabled() and (
+            x.requires_grad
+            or any(p.requires_grad for p in layer.mix.parameters()))
+        if needs_grad and impl == "cuda":
+            raise ValueError(
+                'attn_impl="cuda" with grad enabled: the CUDA kernels have '
+                'no backward; train with attn_impl="auto" (the einsum and '
+                'chunked paths) or "xla"')
+        return not needs_grad or impl == "ref"
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         h = self.emb[tokens]
@@ -491,7 +549,7 @@ class LM(nn.Module):
                                    cfg.head_dim)
         q = nn_.rotate(q, *rope)
         k = nn_.rotate(k, *rope)
-        kernel = self._use_kernel(x) and prefix_len == 0
+        kernel = self._use_kernel(x, layer) and prefix_len == 0
         if mode in ("full", "prefill"):
             if kernel:
                 o = attn.causal_attention_kernel(q, k, v, window=window,
@@ -540,28 +598,26 @@ class LM(nn.Module):
             return mla.mla_prefill(layer.mix, lc, x, rope=rope)
         return mla.mla_decode(layer.mix, x, lc, pos=pos, rope=rope)[0]
 
-    def _channel(self, layer: Layer, h, aux: list | None):
+    def _channel(self, layer: Layer, h, need_aux: bool):
         """The channel mix (ref ``_channel_mix``, ``transformer.py:
-        255-270``): the MoE FFN, whose load-balance loss is appended to
-        ``aux`` when a list is given, or the dense MLP, or nothing."""
+        255-270``): the MoE FFN, with its load-balance loss when
+        ``need_aux``, or the dense MLP, or nothing; -> (h, aux or None)."""
         if layer.moe is not None:
             cfg = self.cfg
             y, a = moe.moe_forward(layer.moe, layer.norm2(h), top_k=cfg.top_k,
                                    capacity_factor=cfg.capacity_factor,
-                                   need_aux=aux is not None)
-            if aux is not None:
-                aux.append(a)
-            return h + y
+                                   need_aux=need_aux)
+            return h + y, a if need_aux else None
         if layer.mlp is not None:
-            return h + layer.mlp(layer.norm2(h))
-        return h
+            return h + layer.mlp(layer.norm2(h)), None
+        return h, None
 
     def _ssd(self, layer: Layer, x, *, mode, state):
         """Temporal mixing of an SSD layer: the chunked scan (through
         the kernel dispatch on ``attn_impl``'s rule) for prefill and
         forward, the single-step update for decode; ``state`` (None in
         ``full`` mode) is updated in place."""
-        impl = self.attn_impl if self._use_kernel(x) else None
+        impl = self.attn_impl if self._use_kernel(x, layer) else None
         return ssd.ssd_block(layer.mix, x, state, chunk=self.cfg.ssm_chunk,
                              single_step=mode == "decode", impl=impl)
 
@@ -577,28 +633,46 @@ class LM(nn.Module):
                                      cache.pos.shape[2])
             attn.paged_write_pos(cache.pos, rows)
         cfg = self.cfg
-        for i, layer in enumerate(self.layers):
-            lc = cache.layer(i) if cache is not None else None
-            x = layer.norm1(h)
-            if layer.kind == "ssd":
-                h = h + self._ssd(layer, x, mode=mode, state=lc)
-            elif layer.kind == "rglru":
-                h = h + rglru.rglru_block(layer.mix, x, lc,
-                                          single_step=mode == "decode")
-            elif layer.kind == "mla":
-                h = h + self._mla(layer, x, mode=mode, lc=lc, rope=rope,
-                                  pos=pos)
+        remat = (mode == "full" and cfg.remat and cfg.remat_policy != "none"
+                 and torch.is_grad_enabled())
+        for i in range(len(self.layers)):
+            kw = dict(mode=mode, lc=cache.layer(i) if cache is not None
+                      else None, rope=rope, pos=pos, cur=cur, table=table,
+                      rows=rows, prefix_len=prefix_len, cross=cross,
+                      need_aux=aux is not None)
+            if remat:
+                h, a = checkpoint(
+                    self._layer, i, h, use_reentrant=False,
+                    context_fn=_remat_context(cfg.remat_policy), **kw)
             else:
-                h = h + self._attn(layer, x, mode=mode, kv=lc, rope=rope,
-                                   pos=pos, cur=cur, table=table, rows=rows,
-                                   prefix_len=prefix_len)
-            if cross is not None:
-                xa = self.xattn[i]
-                h = h + attn.cross_attend(xa.mix, xa.norm(h), cross[0][i],
-                                          cross[1][i], cfg.n_heads,
-                                          cfg.head_dim)
-            h = self._channel(layer, h, aux)
+                h, a = self._layer(i, h, **kw)
+            if a is not None:
+                aux.append(a)
         return h
+
+    def _layer(self, i: int, h, *, mode, lc=None, rope=None, pos=None,
+               cur=None, table=None, rows=None, prefix_len: int = 0,
+               cross=None, need_aux: bool = False):
+        """Layer i on h: the temporal mix, the cross-attention of an
+        encoder-decoder, the channel mix; -> (h, the MoE aux or None)."""
+        cfg, layer = self.cfg, self.layers[i]
+        x = layer.norm1(h)
+        if layer.kind == "ssd":
+            h = h + self._ssd(layer, x, mode=mode, state=lc)
+        elif layer.kind == "rglru":
+            h = h + rglru.rglru_block(layer.mix, x, lc,
+                                      single_step=mode == "decode")
+        elif layer.kind == "mla":
+            h = h + self._mla(layer, x, mode=mode, lc=lc, rope=rope, pos=pos)
+        else:
+            h = h + self._attn(layer, x, mode=mode, kv=lc, rope=rope,
+                               pos=pos, cur=cur, table=table, rows=rows,
+                               prefix_len=prefix_len)
+        if cross is not None:
+            xa = self.xattn[i]
+            h = h + attn.cross_attend(xa.mix, xa.norm(h), cross[0][i],
+                                      cross[1][i], cfg.n_heads, cfg.head_dim)
+        return self._channel(layer, h, need_aux)
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
@@ -628,7 +702,6 @@ class LM(nn.Module):
         return self.compute_cross_kv(self.encode(enc_embeds))
 
     # -- the encoder ----------------------------------------------------------
-    @torch.no_grad()
     def encode(self, enc_embeds) -> torch.Tensor:
         """The bidirectional encoder over frame embeddings [B, Senc, D]
         (ref ``encode``, ``transformer.py:528-548``): sinusoidal
@@ -647,7 +720,6 @@ class LM(nn.Module):
             h = h + lp.mlp(lp.norm2(h))
         return self.encoder.final_norm(h)
 
-    @torch.no_grad()
     def compute_cross_kv(self, enc_out: torch.Tensor):
         """Every decoder layer's cross K/V from the encoder's output
         (ref ``compute_cross_kv``): (k, v), each [L, B, Senc, K, hd]."""
@@ -658,7 +730,6 @@ class LM(nn.Module):
                 torch.stack([v for _, v in kv]))
 
     # -- modes ----------------------------------------------------------------
-    @torch.no_grad()
     def forward(self, tokens, *, prefix_embeds=None, enc_embeds=None):
         """Full-sequence logits [B, S, V] of the tokens (the prefix rows
         cut off); returns (logits, aux_loss): the MoE layers'

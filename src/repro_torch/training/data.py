@@ -1,6 +1,11 @@
-"""``ClassificationData`` of ``repro.training.data``: the SST-2 stand-in
-the classify path serves (no external datasets).
+"""Synthetic data of ``repro.training.data`` (no external datasets),
+numpy only: the same seed gives the reference's arrays byte for byte.
 
+``lm_batches`` — a deterministic-seed token stream with Zipfian unigram
+statistics plus induced bigram structure, so language models have real
+signal to fit (loss decreases measurably within a few hundred steps).
+
+``ClassificationData`` — the SST-2 stand-in the classify path serves.
 Two classes, each example built from class-conditioned token
 distributions with a per-example **difficulty** knob.  Difficulty
 controls class separability, so model confidence/entropy varies across
@@ -13,6 +18,28 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+
+def lm_batches(*, vocab: int, batch: int, seq_len: int, seed: int = 0,
+               zipf_a: float = 1.2):
+    """Infinite iterator of (tokens [B,S+1]) with bigram structure."""
+    rng = np.random.default_rng(seed)
+    # zipfian unigram over an effective vocab slice
+    eff = min(vocab, 4096)
+    ranks = np.arange(1, eff + 1, dtype=np.float64)
+    p = ranks ** (-zipf_a)
+    p /= p.sum()
+    # deterministic "successor" table induces learnable bigrams
+    succ = rng.permutation(eff)
+    while True:
+        base = rng.choice(eff, size=(batch, seq_len + 1), p=p)
+        # half the positions follow the successor rule
+        follow = rng.random((batch, seq_len)) < 0.5
+        out = base.copy()
+        for t in range(seq_len):
+            out[:, t + 1] = np.where(follow[:, t], succ[out[:, t]],
+                                     base[:, t + 1])
+        yield out.astype(np.int32)
 
 
 @dataclass

@@ -1,12 +1,17 @@
-"""The classifier's training step and loop, ported from the classifier
-half of ``repro.training.train_loop``.
+"""Training steps and the classifier's loop, ported from
+``repro.training.train_loop``.
 
-The model carries its config and holds its parameters, so the step
-updates the module in place where the reference returns new params:
-``train_step(model, opt_state, tokens, labels) -> (opt_state,
-metrics)``.  The port's parameters are frozen (``models.nn.param``);
-the step turns gradients on for its own forward and backward only, so
-the model serves under ``inference_mode`` as before.
+The model carries its config and holds its parameters, so a step
+updates the module in place (``AdamW.update_``) where the reference
+returns new params: ``train_step(model, opt_state, batch) -> (opt_state,
+metrics)`` for the LM, ``train_step(model, opt_state, tokens, labels)``
+for the classifier.  The port's parameters are frozen
+(``models.nn.param``); a step turns gradients on for its own forward
+and backward only, so the model serves under ``inference_mode`` as
+before.  The LM step's forward takes the einsum and chunked paths, not
+the kernels (``models.transformer``: no kernel has a backward, and the
+reference differentiates those paths too), and remats each layer as
+``cfg.remat`` / ``cfg.remat_policy`` say.
 """
 from __future__ import annotations
 
@@ -17,7 +22,63 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.distilbert import DistilBERT
-from repro_torch.training.optimizer import AdamW, AdamWState
+from repro_torch.models.transformer import LM
+from repro_torch.training.optimizer import AdamW, AdamWState, cosine_schedule
+
+
+def _grads(model: torch.nn.Module, loss_fn: Callable):
+    """(loss_fn()'s outputs, {name: gradient}) with the model's frozen
+    parameters requiring grad for this forward and backward only;
+    ``loss_fn`` returns (the loss to differentiate, anything)."""
+    params = dict(model.named_parameters())
+    try:
+        with torch.enable_grad():
+            for p in params.values():
+                p.requires_grad_(True)
+            loss, extra = loss_fn()
+            grads = torch.autograd.grad(loss, list(params.values()))
+    finally:
+        for p in params.values():
+            p.requires_grad_(False)
+    return (loss.detach(), extra), params, dict(zip(params, grads))
+
+
+def lm_loss(model: LM, tokens: torch.Tensor, *, prefix_embeds=None,
+            enc_embeds=None):
+    """Next-token cross-entropy (tokens [B, S+1]) in f32 + the MoE aux
+    loss times ``cfg.router_aux_weight``; -> (total, {"loss", "aux"})."""
+    inp, tgt = tokens[:, :-1], tokens[:, 1:].long()
+    logits, aux = model(inp, prefix_embeds=prefix_embeds,
+                        enc_embeds=enc_embeds)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    loss = -torch.gather(logp, -1, tgt[..., None])[..., 0].mean()
+    total = loss + model.cfg.router_aux_weight * aux
+    return total, {"loss": loss, "aux": aux}
+
+
+def make_train_step(opt: AdamW, *, total_steps: int = 10_000,
+                    warmup: int = 100) -> Callable:
+    """-> ``train_step(model, opt_state, batch) -> (opt_state, metrics)``.
+
+    ``batch`` is a dict: {"tokens": [B, S+1]} plus "prefix_embeds" /
+    "enc_embeds" for a prefix-LM or an encoder-decoder.  The learning
+    rate scales by the cosine schedule at the count before the step, as
+    the reference's; the metrics are ``loss``, ``aux``, ``total``,
+    ``grad_norm`` (before clipping) and ``lr_scale``."""
+
+    def train_step(model: LM, opt_state: AdamWState, batch: dict):
+        (total, metrics), params, grads = _grads(model, lambda: lm_loss(
+            model, batch["tokens"], prefix_embeds=batch.get("prefix_embeds"),
+            enc_embeds=batch.get("enc_embeds")))
+        lr_scale = cosine_schedule(opt_state.count, warmup=warmup,
+                                   total=total_steps).to(total.device)
+        opt_state, gnorm = opt.update_(grads, opt_state, params,
+                                       lr_scale=lr_scale)
+        return opt_state, {"loss": metrics["loss"].detach(),
+                           "aux": metrics["aux"].detach(), "total": total,
+                           "grad_norm": gnorm, "lr_scale": lr_scale}
+
+    return train_step
 
 
 def make_classifier_train_step(opt: AdamW) -> Callable:
@@ -28,26 +89,15 @@ def make_classifier_train_step(opt: AdamW) -> Callable:
 
     def train_step(model: DistilBERT, opt_state: AdamWState,
                    tokens: torch.Tensor, labels: torch.Tensor):
-        params = dict(model.named_parameters())
-        try:
-            with torch.enable_grad():
-                for p in params.values():
-                    p.requires_grad_(True)
-                ce = F.cross_entropy(model.logits(tokens), labels)
-                ce_exit = F.cross_entropy(model.early_exit_logits(tokens),
-                                          labels)
-                grads = torch.autograd.grad(ce + 0.5 * ce_exit,
-                                            list(params.values()))
-        finally:
-            for p in params.values():
-                p.requires_grad_(False)
-        new_p, opt_state, gnorm = opt.update(dict(zip(params, grads)),
-                                             opt_state, params)
-        with torch.no_grad():
-            for k, p in params.items():
-                p.copy_(new_p[k])
-        return opt_state, {"ce": ce.detach(), "ce_exit": ce_exit.detach(),
-                           "grad_norm": gnorm}
+        def loss_fn():
+            ce = F.cross_entropy(model.logits(tokens), labels)
+            ce_exit = F.cross_entropy(model.early_exit_logits(tokens),
+                                      labels)
+            return ce + 0.5 * ce_exit, (ce.detach(), ce_exit.detach())
+
+        (_, (ce, ce_exit)), params, grads = _grads(model, loss_fn)
+        opt_state, gnorm = opt.update_(grads, opt_state, params)
+        return opt_state, {"ce": ce, "ce_exit": ce_exit, "grad_norm": gnorm}
 
     return train_step
 
