@@ -5,6 +5,7 @@
     python3 chip_smoke.py --fleet          # train_classifier, fleet only
     python3 chip_smoke.py --disagg         # the disagg phases only
     python3 chip_smoke.py --train          # the training phases only
+    python3 chip_smoke.py --shard          # the sharding phases only
 
 Drives ``src/repro_torch`` only (no JAX, nothing of ``repro``) and prints
 one JSON object per line; any failed check raises, so the exit code is
@@ -320,21 +321,41 @@ not 0.  Phases:
                bf16 model's, the largest logit error under 0.15 of the
                largest and top-1 agreement of 0.5 or more, the int8
                tree's bytes against bf16's;
- 19. kernels — one line with every kernel's numbers (the chunk entry
+ 19. sharding (``--shard`` runs these alone, with the whole dry-run
+               matrix): ``shard_specs`` — the parameter specs of
+               stablelm-3b, granite and llama3-405b at published width
+               on 16 x 16, with and without fsdp (meta models): the
+               leaves over "model" and over "data"; ``serve_sharded`` —
+               stablelm-3b at published width, bf16, on a one-rank NCCL
+               group and a 1 x 1 mesh on the card: 8 slots over 128
+               rows, a 16-token prefill and 16 greedy decode steps under
+               ``sharding.sharded`` on DTensor parameters, cache and
+               tokens, against the same steps without the mesh (tokens
+               byte-equal, logits within ``ATTN_BF16_ROW_TOL`` row-
+               scaled), flash and decode attention launched through
+               ``kernels.ops``' ``local_map``, the uncaptured ms per
+               decode step both ways; ``dryrun`` — ``launch.dryrun`` in a
+               subprocess (the fake group of 256 ranks, no card): the
+               stablelm ``decode_32k`` line and its record; with
+               ``--shard``, every arch on both meshes too (one process
+               an arch, all at once) and the ok / skip / fail counts;
+ 20. kernels — one line with every kernel's numbers (the chunk entry
                too; each kernel's launches summed over its main paths,
                with ``launches_by_path``: entropy's the four classify
                runs and the fleet's live runs (``fleet``), each attention
                kernel's stablelm's and granite's, the split-phase runs'
                as ``serve_disagg`` and ``serve_disagg_paged``, the live
-               generate replicas' as ``fleet_generate``; the disagg
+               generate replicas' as ``fleet_generate``, the sharded
+               run's as ``serve_sharded``; the disagg
                shapes' rows under ``new_shapes``;
                granite's G = 3 case as ``g3``);
- 20. the last line: ``{"ok": true, "device": {...}}``.
+ 21. the last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero without CUDA or without the repo.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import gc
@@ -355,7 +376,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import (ARCH_IDS, get_config,  # noqa: E402
+                                 get_smoke_config)
 from repro_torch.core import (AdaptiveThreshold,  # noqa: E402
                               AdmissionController, DecayingThreshold,
                               EnergyMeter, LatencyModel)
@@ -371,7 +393,9 @@ from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.runtime import (ATTN_BF16_ROW_TOL,  # noqa: E402
                                          row_scaled_error)
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import sharding as shd  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import convert, distilbert, quant  # noqa: E402
 from repro_torch.models import resnet  # noqa: E402
@@ -4343,6 +4367,9 @@ def phase_train_lm() -> None:
          first_step_ms=perf["first_step_ms"], step_ms=perf["step_ms"],
          tokens_per_s=perf["tokens_per_s"], mfu=perf["mfu"],
          mfu_peak_flops=perf["mfu_peak_flops"], n_params=n,
+         n_active_params=perf["n_active_params"],
+         mfu_every_param=6 * n * perf["tokens_per_step"]
+         / (perf["step_ms_median"] / 1e3) / perf["mfu_peak_flops"],
          peak_gb=perf["peak_mem_bytes"] / 1e9, card_gb=total / 1e9,
          weights_grads_moments_gb=12 * n / 1e9,
          functional_update_reckoned_gb=26 * n / 1e9,
@@ -4574,6 +4601,179 @@ def phase_train(smi: str, peaks: dict) -> None:
     phase_quant(smi)
 
 
+class _ShapeMesh:
+    """A mesh's axis sizes without a process group (the specs read only
+    ``.shape`` and ``.axis_names``)."""
+
+    def __init__(self, **axes):
+        self.shape = dict(axes)
+        self.axis_names = tuple(axes)
+
+
+def phase_shard_specs() -> None:
+    """The parameter specs of stablelm-3b, granite and llama3-405b at
+    published width on 16 x 16, with and without fsdp (meta models, on
+    the host): how many leaves shard over "model" and over "data"."""
+    mesh = _ShapeMesh(data=16, model=16)
+    rows = {}
+    for arch in (ARCH, "granite-moe-3b-a800m", "llama3-405b"):
+        cfg = get_config(arch)
+        flat = convert.lm_flat(cfg, dict(tfm.abstract_lm(cfg)
+                                         .named_parameters()))
+        for fsdp in (False, True):
+            specs = shd.param_specs(flat, mesh, cfg=cfg, fsdp=fsdp)
+            rows[f"{arch}{'+fsdp' if fsdp else ''}"] = {
+                "leaves": len(specs),
+                "model_sharded": sum("model" in s for s in specs.values()),
+                "data_sharded": sum("data" in s for s in specs.values())}
+    fail_unless(all(r["model_sharded"] > 0 for r in rows.values()),
+                f"shard_specs: every model shards some leaf over model: "
+                f"{rows}")
+    fail_unless(all(r["data_sharded"] > 0 for k, r in rows.items()
+                    if k.endswith("+fsdp")),
+                f"shard_specs: fsdp shards some leaf over data: {rows}")
+    emit(phase="shard_specs", mesh="16x16", specs=rows)
+
+
+def _greedy_steps(model, prompts, n_new, mesh=None):
+    """A prefill then ``n_new`` greedy ``decode_step``s over a bf16
+    cache of 128 rows, uncaptured; under ``sharded(mesh)`` on DTensors
+    when ``mesh`` is given.  -> (tokens [B, n_new], the logits each was
+    chosen from [B, n_new, V] in f32, ms per decode step, the sharded
+    context's counts of the ops that gave up a shard or None)."""
+    B, S = prompts.shape
+    cache = tfm.init_cache(model.cfg, B, 128, device="cuda")
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        shd.distribute_cache(cache, mesh, shd.cache_specs(model.cfg, cache,
+                                                          mesh, B))
+        ctx = shd.sharded(mesh)
+
+    def batch(t, key):
+        return t if mesh is None else shd.distribute_batch({key: t},
+                                                           mesh)[key]
+
+    toks, seen = [], []
+    with ctx as reshard:
+        logits, cache = model.prefill(batch(prompts, "tokens"), cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_new):
+            last = shd.full(logits)[:, -1]
+            tok = last.argmax(-1)[:, None]
+            toks.append(tok[:, 0])
+            seen.append(last.float())
+            logits, cache = model.decode_step(batch(tok, "token"), cache,
+                                              S + i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n_new * 1e3
+    return (torch.stack(toks, 1), torch.stack(seen, 1), ms,
+            reshard and reshard.counts())
+
+
+def phase_serve_sharded() -> dict:
+    """stablelm-3b at published width, bf16, seed 0, on a one-rank NCCL
+    group and a 1 x 1 (data, model) mesh on the card: 8 slots over 128
+    rows, a 16-token prefill and 16 greedy decode steps under
+    ``sharded(mesh)`` on DTensor parameters, cache and tokens, held
+    against the same steps without the mesh (tokens byte-equal, logits
+    within ``ATTN_BF16_ROW_TOL`` of each row's largest); the hand
+    kernels launch on the sharded path; the uncaptured ms per decode
+    step both ways.  -> the sharded run's kernel launches."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(data=1, model=1)
+        cfg = get_config(ARCH)
+        model = tfm.init_lm(cfg, 0, device="cuda")
+        gen = torch.Generator().manual_seed(5)
+        prompts = torch.randint(0, cfg.vocab, (8, 16), generator=gen).cuda()
+        want_toks, want_logits, plain_ms, _ = _greedy_steps(model, prompts,
+                                                            16)
+        flat = convert.lm_flat(cfg, dict(model.named_parameters()))
+        shd.distribute_lm(model, mesh, shd.param_specs(flat, mesh, cfg=cfg))
+        _zero_counters()
+        toks, logits, sharded_ms, resharded = _greedy_steps(
+            model, prompts, 16, mesh)
+        launches = _attention_launches()
+        err = row_scaled_error(logits, want_logits)
+        emit(phase="serve_sharded", arch=ARCH, mesh=[1, 1], slots=8,
+             rows=128, prompt=16, new_tokens=16,
+             tokens_equal=bool(torch.equal(toks, want_toks)),
+             logits_row_scaled_err=err, tol=ATTN_BF16_ROW_TOL,
+             decode_ms_per_step_sharded=sharded_ms,
+             decode_ms_per_step_unsharded=plain_ms, launches=launches,
+             resharded=resharded)
+        fail_unless(torch.equal(toks, want_toks),
+                    "serve_sharded: tokens equal to the unsharded steps")
+        fail_unless(err <= ATTN_BF16_ROW_TOL,
+                    f"serve_sharded: logits row-scaled error {err}")
+        fail_unless(launches["flash_attention"] > 0
+                    and launches["decode_attention"] > 0,
+                    f"serve_sharded: both kernels launched: {launches}")
+        del model, flat
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dryrun(matrix: bool = False) -> None:
+    """``launch.dryrun`` in a subprocess (the fake group of 256 ranks,
+    no card): the stablelm-3b ``decode_32k`` line, and its record; with
+    ``matrix``, every arch on both meshes too (one process an arch, all
+    at once), and the ok / skip / fail counts.  A fail is printed with
+    its error, not hidden, and does not stop the smoke; so is each ok
+    line's list of ops run on gathered values, replicated."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as out:
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             ARCH, "--shape", "decode_32k", "--mesh", "single", "--out",
+             out], env=env, capture_output=True, text=True, timeout=900)
+        fail_unless(run.returncode == 0
+                    and "done: 1 ok, 0 skip, 0 fail" in run.stdout,
+                    f"dryrun: the {ARCH} decode_32k line: "
+                    f"{run.stdout[-500:]} {run.stderr[-1500:]}")
+        with open(os.path.join(out, f"{ARCH}__decode_32k__single.json")) as f:
+            rec = json.load(f)
+        emit(phase="dryrun", seconds=time.perf_counter() - t0, record=rec)
+    if not matrix:
+        return
+    t0 = time.perf_counter()
+    counts = {"ok": 0, "skip": 0, "fail": 0}
+    fails, replicated = [], {}
+    with tempfile.TemporaryDirectory() as out:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--mesh", "both", "--out", out], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+            for arch in ARCH_IDS]
+        for p in procs:
+            stdout, _ = p.communicate(timeout=1500)
+            m = re.search(r"done: (\d+) ok, (\d+) skip, (\d+) fail", stdout)
+            fail_unless(m is not None, f"dryrun matrix: {stdout[-500:]}")
+            for k, v in zip(("ok", "skip", "fail"), m.groups()):
+                counts[k] += int(v)
+        steps = {}
+        for name in sorted(os.listdir(out)):
+            with open(os.path.join(out, name)) as f:
+                rec = json.load(f)
+            if rec["status"] == "fail":
+                fails.append({"line": name[:-5], "error": rec["error"][:400],
+                              "traceback": rec["traceback"][-1200:]})
+            elif rec["status"] == "ok":
+                steps[name[:-5]] = rec["step_s"]
+                if rec["resharded"]["replicated_ops"]:
+                    replicated[name[:-5]] = rec["resharded"]["replicated_ops"]
+    emit(phase="dryrun_matrix", meshes=["single", "multipod"],
+         seconds=time.perf_counter() - t0, step_s=steps, fails=fails,
+         replicated_ops=replicated, **counts)
+
+
 def kernel_entry(name, src, replaces, tpu_kernel, launches, max_err, main):
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -4643,14 +4843,29 @@ def train_only() -> None:
     emit(phase="train_only", seconds=time.perf_counter() - t0)
 
 
+def shard_only() -> None:
+    """``--shard``: the device, build and sharding phases alone
+    (``shard_specs``, ``serve_sharded``, ``dryrun`` with the whole
+    matrix): the quickest check of the sharded path on the card."""
+    t0 = time.perf_counter()
+    phase_device()
+    phase_build()
+    phase_shard_specs()
+    launches = phase_serve_sharded()
+    phase_dryrun(matrix=True)
+    emit(phase="shard_only", launches_by_path={"serve_sharded": launches},
+         seconds=time.perf_counter() - t0)
+
+
 ONLY = {"--decode-graph": decode_graph_only, "--fleet": fleet_only,
-        "--disagg": disagg_only, "--train": train_only}
+        "--disagg": disagg_only, "--train": train_only,
+        "--shard": shard_only}
 
 
 def main(argv: list[str]) -> int:
     if argv and (len(argv) > 1 or argv[0] not in ONLY):
         print(f"usage: chip_smoke.py [--decode-graph | --fleet | --disagg | "
-              f"--train], "
+              f"--train | --shard], "
               f"got {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4705,6 +4920,9 @@ def main(argv: list[str]) -> int:
     fam = phase_families(peaks)
     new = phase_new_families(peaks)
     phase_train(smi, peaks)
+    phase_shard_specs()
+    sharded = phase_serve_sharded()
+    phase_dryrun()
     moe, moe_paged = fam["serve_generate_moe"], fam["serve_generate_moe_paged"]
     by_path = {
         "flash_attention": {
@@ -4712,14 +4930,16 @@ def main(argv: list[str]) -> int:
             **{k: v["flash_attention"] for k, v in disagg.items()},
             "serve_generate_moe": moe["flash_attention"],
             "serve_generate_moe_paged": moe_paged["flash_attention"],
-            **{k: new[k]["flash_attention"] for k in new}},
+            **{k: new[k]["flash_attention"] for k in new},
+            "serve_sharded": sharded["flash_attention"]},
         "decode_attention": {
             "serve_generate": gen_launches["decode_attention"],
             "serve_disagg": disagg["serve_disagg"]["decode_attention"],
             "fleet_generate": disagg["fleet_generate"]["decode_attention"],
             "serve_generate_moe": moe["decode_attention"],
             **{k: new[k]["decode_attention"] for k in new
-               if k != "serve_generate_vlm_paged"}},
+               if k != "serve_generate_vlm_paged"},
+            "serve_sharded": sharded["decode_attention"]},
         "paged_decode_attention": {
             "serve_generate_paged": paged_launches,
             "serve_disagg_paged": disagg["serve_disagg_paged"][

@@ -17,6 +17,7 @@ TF32 (about three decimal digits) into the reference-parity path.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 __all__ = ["HOPPER_CAPABILITY", "on_hopper", "is_hopper", "resolve_device",
            "synchronize", "check_kernel_tensors", "row_scaled_error",
@@ -91,7 +92,14 @@ def check_kernel_tensors(what: str, tensors: dict, *, dtypes,
     tensor's), a dtype the kernel was compiled for, a contiguous last
     dimension, and with ``align`` a 16-byte aligned start and strides
     that are multiples of 4 elements (the kernel's vector loads).
-    Raises on the first tensor that fails."""
+    Raises on the first tensor that fails; a DTensor (a sharded step)
+    fails first: ``kernels.ops`` hands a kernel its local shards
+    through ``local_map``, and a kernel reads ``data_ptr()``."""
+    for name, t in tensors.items():
+        if isinstance(t, DTensor):
+            raise TypeError(f"the CUDA {what} kernel got a DTensor for "
+                            f"{name}; call it through kernels.ops, which "
+                            f"passes each rank's local tensor")
     dev = device or next(iter(tensors.values())).device
     for name, t in tensors.items():
         if t.device.type != "cuda":

@@ -23,8 +23,9 @@ It prints each logged step's loss and, last, the reference's JSON
 the card a line before it gives the card's name and power limit, the
 median step ms (the first step apart), tokens per second, the peak of
 ``torch.cuda.max_memory_allocated`` and the model FLOPs utilisation:
-6 x parameters x tokens per step over the step's time, against the
-card's dense bf16 peak.
+``step_flops`` (6 x ACTIVE parameters x tokens per step, the dry run's
+``model_flops``) over the step's time, against the card's dense bf16
+peak.
 """
 from __future__ import annotations
 
@@ -36,7 +37,9 @@ import time
 
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.configs import (ARCH_IDS, InputShape, get_config,
+                                 get_smoke_config)
+from repro_torch.launch.dryrun import model_flops
 from repro_torch.kernels.runtime import resolve_device, synchronize
 from repro_torch.models import transformer as tfm
 from repro_torch.telemetry import CarbonTracker, Tracker
@@ -70,6 +73,13 @@ def frontends(cfg, batch: int, device: torch.device) -> dict:
         out["prefix_embeds"] = 0.02 * torch.randn(
             batch, cfg.n_patches, cfg.d_model, generator=gen).to(device)
     return out
+
+
+def step_flops(cfg, batch: int, seq: int) -> float:
+    """A train step's model FLOPs, the MFU numerator: the dry run's
+    ``model_flops`` at this step's shape, 6 x ``cfg.n_active_params()``
+    x tokens (an MoE's experts count at top-k of n, not in full)."""
+    return model_flops(cfg, InputShape("train", seq, batch, "train"))
 
 
 def parser() -> argparse.ArgumentParser:
@@ -145,11 +155,12 @@ def train(args: argparse.Namespace) -> dict:
                 "remat": cfg.remat_policy if cfg.remat else "none",
                 "batch": args.batch, "seq": args.seq,
                 "tokens_per_step": tokens, "n_params": n_params,
+                "n_active_params": cfg.n_active_params(),
                 "first_step_ms": step_s[0] * 1e3, "step_ms_median": med * 1e3,
                 "step_ms": [s * 1e3 for s in step_s],
                 "tokens_per_s": tokens / med,
                 "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-                "mfu": 6 * n_params * tokens / med / peak,
+                "mfu": step_flops(cfg, args.batch, args.seq) / med / peak,
                 "mfu_peak_flops": peak}
     return {"result": {"first_loss": losses[0] if losses else None,
                        "last_loss": losses[-1] if losses else None,

@@ -24,6 +24,7 @@ the table.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -31,6 +32,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.nn import param, dense_init_
 
@@ -94,7 +96,21 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v [B,Skv,K,hd_v] -> [B,Sq,H,hd_v] (MLA's v is narrower than its q
     and k).  ``bias`` broadcasts against the scores [B,K,G,Sq,Skv];
     ``None`` is the all-visible mask (the reference adds zeros there,
-    which changes no bit)."""
+    which changes no bit).  On DTensors (a sharded step) each rank
+    attends its own rows and whole GQA groups, through
+    ``ops.local_call``: the score einsum would flatten a sharded head dim
+    into its batch, which DTensor can only do replicated."""
+    if isinstance(q, DTensor):
+        from repro_torch.kernels import ops
+        roles = (("b", None, "h", None), ("b", None, "kh", None),
+                 ("b", None, "kh", None))
+        args = (q, k, v)
+        if bias is not None:     # [.., Sq, Skv], or [B, 1, 1, 1, Skv]
+            batch = bias.dim() == 5 and bias.shape[0] > 1
+            roles += (("b" if batch else None,) + (None,) * (bias.dim() - 1),)
+            args += (bias,)
+        return ops.local_call(functools.partial(attend, scale=scale), roles,
+                              (("b", None, "h", None),), *args)
     B, Sq, H, hd = q.shape
     K = k.shape[2]
     G = H // K

@@ -24,8 +24,19 @@ token's kept rows are gathered back and combined.  Every shape is
 static and nothing syncs with the host, so the decode window that runs
 it is captured as a CUDA graph.  The reference computes MoE outside any
 Pallas kernel; the products here are plain ``torch.bmm``.
+
+Under a mesh (``launch.sharding.sharded``), ``ACTIVATION_SHARDING``
+holds the mesh's ``MoESharding``, the counterpart of the reference's
+``ACTIVATION_SHARDING`` hook: the tokens and the router are gathered,
+and the routing and the dispatch by index run as plain tensors on every
+rank, so the same tokens drop as in an unsharded step; the expert
+products run as DTensor ops on the rows it places, and the output goes
+back to the input's placements.  The context sets and resets it;
+outside one it is None.
 """
 from __future__ import annotations
+
+import contextvars
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +46,9 @@ from repro_torch.models import nn as nn_
 from repro_torch.models.nn import param
 
 GROUP_SIZE = 1024
+
+ACTIVATION_SHARDING: contextvars.ContextVar = contextvars.ContextVar(
+    "moe_activation_sharding", default=None)
 
 
 class MoEParams(nn.Module):
@@ -94,13 +108,16 @@ def moe_forward(p: MoEParams, x: torch.Tensor, *, top_k: int,
     """x [B, S, D] -> (y [B, S, D], the aux loss, an f32 scalar; None
     when ``need_aux`` is False, as on a decode step, whose aux the
     reference discards)."""
+    shard = ACTIVATION_SHARDING.get()
+    x_in, x = x, x if shard is None else shard.gather(x)
     B, S, D = x.shape
     E = p.router.shape[1]
     N = B * S
     g = min(group_size, N)
     G = -(-N // g)
     xt = F.pad(x.reshape(N, D), (0, 0, 0, G * g - N))          # [G*g, D]
-    gates, w, idx, pos, keep, C = route(p.router, xt.reshape(G, g, D),
+    router = p.router if shard is None else shard.gather(p.router)
+    gates, w, idx, pos, keep, C = route(router, xt.reshape(G, g, D),
                                         top_k, capacity_factor)
     # row of each kept (token, k-slot) in the [E, G, C] expert buffer;
     # a dropped one points past it
@@ -113,15 +130,21 @@ def moe_forward(p: MoEParams, x: torch.Tensor, *, top_k: int,
     src.scatter_(0, row.reshape(-1), tok.expand(G, g, top_k).reshape(-1))
     xz = torch.cat([xt, xt.new_zeros(1, D)])
     xe = xz[src[:-1]].reshape(E, G * C, D)
+    if shard is not None:
+        xe = shard.constrain(xe, ("experts", "tokens", None))
     h = F.silu(torch.bmm(xe, p.w_gate)) * torch.bmm(xe, p.w_up)
     ye = torch.bmm(h, p.w_down).reshape(E * G * C, D)
+    if shard is not None:
+        ye = shard.gather(ye)
     # combine: weights in the activation dtype, summed in f32
     cw = torch.where(keep, w, 0.0).to(x.dtype).float().reshape(G * g, top_k)
     yk = ye[torch.where(keep, row, 0).reshape(G * g, top_k)].float()
     y = (cw[..., None] * yk).sum(1).to(x.dtype)[:N].reshape(B, S, D)
+    if shard is not None:
+        y = shard.like(y, x_in)
     if not need_aux:
         return y, None
     # load balance (Switch eq. 4): E * <f_e * P_e> over every group row
     first = (idx[..., 0, None] == torch.arange(E, device=x.device)).float()
     aux = E * (first.mean((0, 1)) * gates.mean((0, 1))).sum()
-    return y, aux
+    return y, aux if shard is None else shard.like(aux)

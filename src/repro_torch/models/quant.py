@@ -9,9 +9,9 @@ an output channel then spans all L layers and a leaf is judged eligible
 judges it; per layer, other leaves would be chosen and other bytes
 written.  ``torch.round`` rounds half to even, as ``jnp.round`` does,
 so ``q`` and ``scale`` are the reference's byte for byte.
-``load_dequantized`` puts a dequantised tree back into an ``LM``.
-(``quantize_specs``, the reference's PartitionSpec mirror, belongs to
-the sharding layer.)
+``load_dequantized`` puts a dequantised tree back into an ``LM``, and
+``quantize_specs`` mirrors a sharding spec dict
+(``launch.sharding.param_specs``) onto the quantised structure.
 """
 from __future__ import annotations
 
@@ -54,6 +54,21 @@ def quantize_tree(params: dict) -> dict:
 def dequantize_tree(qparams: dict, dtype=torch.bfloat16) -> dict:
     return {k: dequantize(v, dtype) if _is_qdict(v) else v
             for k, v in qparams.items()}
+
+
+def quantize_specs(spec_tree: dict, params_abs: dict) -> dict:
+    """Mirror a spec dict onto ``quantize_tree(params_abs)``'s structure:
+    'q' keeps the original spec, 'scale' keeps only the last-dim
+    component (it broadcasts along the reduced axes)."""
+    out = {}
+    for k, spec in spec_tree.items():
+        leaf = params_abs[k]
+        if not _eligible(leaf):
+            out[k] = spec
+            continue
+        last = (tuple(spec) + (None,) * leaf.dim())[leaf.dim() - 1]
+        out[k] = {"q": spec, "scale": (None,) * (leaf.dim() - 1) + (last,)}
+    return out
 
 
 def quantization_error(params: dict) -> dict:

@@ -89,7 +89,14 @@ class RGLRUState(NamedTuple):
 def init_rglru_state(batch: int, width: int, conv_width: int, *,
                      device="cuda") -> RGLRUState:
     """A zero state for ``batch`` rows, on the card by default."""
-    dev = resolve_device(device)
+    return rglru_state_zeros(batch, width, conv_width,
+                             dev=resolve_device(device))
+
+
+def rglru_state_zeros(batch: int, width: int, conv_width: int, *,
+                      dev: torch.device) -> RGLRUState:
+    """``init_rglru_state``'s zeros on a device already chosen (the
+    cache builder's, the meta device among them)."""
     return RGLRUState(h=torch.zeros(batch, width, device=dev),
                       conv=torch.zeros(batch, conv_width - 1, width,
                                        device=dev))

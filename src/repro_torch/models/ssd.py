@@ -81,7 +81,16 @@ def init_ssd_state(batch: int, d_model: int, *, expand: int, headdim: int,
                    d_state: int, conv_width: int,
                    device="cuda") -> SSDState:
     """A zero state for ``batch`` rows, on the card by default."""
-    dev = resolve_device(device)
+    return ssd_state_zeros(batch, d_model, expand=expand, headdim=headdim,
+                           d_state=d_state, conv_width=conv_width,
+                           dev=resolve_device(device))
+
+
+def ssd_state_zeros(batch: int, d_model: int, *, expand: int, headdim: int,
+                    d_state: int, conv_width: int,
+                    dev: torch.device) -> SSDState:
+    """``init_ssd_state``'s zeros on a device already chosen (the cache
+    builder's, the meta device among them)."""
     d_inner = expand * d_model
     return SSDState(
         conv=torch.zeros(batch, conv_width - 1, d_inner + 2 * d_state,

@@ -100,6 +100,7 @@ stack that mixes kinds.
 """
 from __future__ import annotations
 
+import contextvars
 import copy
 import functools
 
@@ -123,6 +124,23 @@ from repro_torch.models.nn import param
 # an SSD state or an RG-LRU state
 STATE_OF = {"attn": "kv", "local_attn": "kv", "mla": "latent", "ssd": "ssd",
             "rglru": "rglru"}
+
+
+# under a mesh (``launch.sharding.sharded`` sets and resets it), the
+# function that places the residual stream [B, S, D] between blocks: its
+# batch over the data axes, replicated over "model".  DTensor chooses
+# each op's placements alone, and without a fixed point it carries
+# partial sums and a feature-sharded stream into the next block's
+# products, whose weights it then gathers whole; pinned here, each
+# block runs Megatron's pattern (column-parallel in, row-parallel out,
+# one all-reduce), which XLA's propagation reaches for the reference
+RESIDUAL_SHARDING: contextvars.ContextVar = contextvars.ContextVar(
+    "residual_sharding", default=None)
+
+
+def _pin(h: torch.Tensor) -> torch.Tensor:
+    place = RESIDUAL_SHARDING.get()
+    return h if place is None else place(h)
 
 
 # the products a "dots" remat saves: those without batch dimensions
@@ -398,9 +416,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     states are f32 whatever ``dtype``, and their size does not depend on
     ``max_seq``; an MLA latent and an encoder-decoder's cross K/V are
     ``dtype``, as the reference's (``transformer.py:159, 246``)."""
+    return _build_cache(cfg, batch, max_seq, dtype, resolve_device(device),
+                        layout)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                   dtype=torch.bfloat16) -> Cache:
+    """``init_cache``'s contiguous cache on the meta device: shapes and
+    dtypes without memory (the dry run's; ``init_cache`` itself takes
+    the card or the CPU only)."""
+    return _build_cache(cfg, batch, max_seq, dtype, torch.device("meta"),
+                        "contiguous")
+
+
+def _build_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+                 dev: torch.device, layout: str) -> Cache:
     if layout not in ("auto", "contiguous", "paged"):
         raise ValueError(f"unknown cache layout {layout!r}")
-    dev = resolve_device(device)
     K, hd = cfg.n_kv_heads, cfg.head_dim
     if cfg.paged_kv if layout == "auto" else layout == "paged":
         _check_paged_supported(cfg)
@@ -433,17 +465,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                                              -1),
                    pos=lat.pos.reshape(n["latent"], batch, max_seq))
     if n["ssd"]:
-        st = ssd.init_ssd_state(n["ssd"] * batch, cfg.d_model,
-                                expand=cfg.ssm_expand,
-                                headdim=cfg.ssm_headdim,
-                                d_state=cfg.ssm_state,
-                                conv_width=cfg.ssm_conv, device=dev)
+        st = ssd.ssd_state_zeros(n["ssd"] * batch, cfg.d_model,
+                                 expand=cfg.ssm_expand,
+                                 headdim=cfg.ssm_headdim,
+                                 d_state=cfg.ssm_state,
+                                 conv_width=cfg.ssm_conv, dev=dev)
         out.update(conv=st.conv.reshape(n["ssd"], batch, *st.conv.shape[1:]),
                    h=st.h.reshape(n["ssd"], batch, *st.h.shape[1:]))
     if n["rglru"]:
-        st = rglru.init_rglru_state(n["rglru"] * batch,
-                                    cfg.lru_width or cfg.d_model,
-                                    cfg.conv_width, device=dev)
+        st = rglru.rglru_state_zeros(n["rglru"] * batch,
+                                     cfg.lru_width or cfg.d_model,
+                                     cfg.conv_width, dev=dev)
         out.update(lru_h=st.h.reshape(n["rglru"], batch, -1),
                    lru_conv=st.conv.reshape(n["rglru"], batch,
                                             *st.conv.shape[1:]))
@@ -636,6 +668,7 @@ class LM(nn.Module):
         remat = (mode == "full" and cfg.remat and cfg.remat_policy != "none"
                  and torch.is_grad_enabled())
         for i in range(len(self.layers)):
+            h = _pin(h)
             kw = dict(mode=mode, lc=cache.layer(i) if cache is not None
                       else None, rope=rope, pos=pos, cur=cur, table=table,
                       rows=rows, prefix_len=prefix_len, cross=cross,
@@ -648,7 +681,7 @@ class LM(nn.Module):
                 h, a = self._layer(i, h, **kw)
             if a is not None:
                 aux.append(a)
-        return h
+        return _pin(h)
 
     def _layer(self, i: int, h, *, mode, lc=None, rope=None, pos=None,
                cur=None, table=None, rows=None, prefix_len: int = 0,
@@ -668,6 +701,7 @@ class LM(nn.Module):
             h = h + self._attn(layer, x, mode=mode, kv=lc, rope=rope,
                                pos=pos, cur=cur, table=table, rows=rows,
                                prefix_len=prefix_len)
+        h = _pin(h)
         if cross is not None:
             xa = self.xattn[i]
             h = h + attn.cross_attend(xa.mix, xa.norm(h), cross[0][i],
@@ -714,11 +748,12 @@ class LM(nn.Module):
         h = x + nn_.sinusoidal_positions(x.shape[1], x.shape[2],
                                          device=x.device).to(x.dtype)
         for lp in self.encoder.layers:
+            h = _pin(h)
             q, k, v = attn.project_qkv(lp.mix, lp.norm1(h), cfg.n_heads,
                                        cfg.n_kv_heads, cfg.head_dim)
-            h = h + attn.out_proj(lp.mix, attn.attend(q, k, v))
+            h = _pin(h + attn.out_proj(lp.mix, attn.attend(q, k, v)))
             h = h + lp.mlp(lp.norm2(h))
-        return self.encoder.final_norm(h)
+        return self.encoder.final_norm(_pin(h))
 
     def compute_cross_kv(self, enc_out: torch.Tensor):
         """Every decoder layer's cross K/V from the encoder's output
@@ -846,6 +881,14 @@ class LM(nn.Module):
         view._modules = dict(self._modules)
         view.layers = nn.ModuleList(self.layers[:n])
         return view
+
+
+def abstract_lm(cfg: ModelConfig) -> LM:
+    """The model with its parameters on the meta device: every shape and
+    dtype, no memory and no values (llama3-405b is 810 GB in bf16).  The
+    dry run shards and steps it; ``init_lm`` takes the card or the CPU
+    only."""
+    return LM(cfg, device=torch.device("meta")).eval()
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
