@@ -6,6 +6,7 @@
     python3 chip_smoke.py --disagg         # the disagg phases only
     python3 chip_smoke.py --train          # the training phases only
     python3 chip_smoke.py --shard          # the sharding phases only
+    python3 chip_smoke.py --attention      # attention kernels, hd-256 paths
 
 Drives ``src/repro_torch`` only (no JAX, nothing of ``repro``) and prints
 one JSON object per line; any failed check raises, so the exit code is
@@ -576,11 +577,17 @@ def phase_build():
     ssd_tc = {op: sass_count(ssd, op) for op in ("HMMA", "HGMMA")}
     fail_unless("not available" in ssd_tc.values() or sum(ssd_tc.values()),
                 "ssd_scan: the chunk-parallel products hold HMMA or HGMMA")
+    # the hd-256 instances: the tensor-core flash body and the wide decode
+    # body (registers and spills as ptxas reports them)
+    hd256 = {f"{lib}:{fn}": rep for lib in ("flash_attention",
+                                             "decode_attention")
+             for fn, rep in ptxas.get(lib, {}).items()
+             if "ILi256" in fn or fn.startswith("decode_wide_kernel")}
     emit(phase="build", seconds=secs,
          library_seconds=dict(build.build_seconds),
          libraries={n: os.path.relpath(p, ROOT) for n, p in paths.items()},
          flash_sass_hgmma=hgmma, ssd_sass_hmma=ssd_tc["HMMA"],
-         ssd_sass_hgmma=ssd_tc["HGMMA"], ptxas=ptxas)
+         ssd_sass_hgmma=ssd_tc["HGMMA"], ptxas_hd256=hd256, ptxas=ptxas)
 
 
 # entropy cases: the gated step's [64 or 128, 2] and its edges (one row,
@@ -1311,9 +1318,9 @@ ATTN_CASES = [
     dict(name="prefill_smoke_hd32_bf16", kind="flash", B=8, H=4, K=4, S=16,
          hd=32, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0, iters=200),
     # recurrentgemma-2b's windowed attention: 10 query heads over 1 KV head
-    # of 256 (G = 10: head groups of 4, 4 and 2), a 3000-token prompt
-    # through the 2048 window (the CUDA-core body: no tensor-core hd 256),
-    # and a decode step over the 2048-row ring written past its extent
+    # of 256 (G = 10: one block takes all ten), a 3000-token prompt through
+    # the 2048 window (the tensor-core body at hd 256), and a decode step
+    # over the 2048-row ring written past its extent (16 spans of 128)
     dict(name="prefill_hybrid", kind="flash", B=1, H=10, K=1, S=3000,
          hd=256, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=2048,
          iters=3),
@@ -1350,6 +1357,29 @@ ATTN_CASES = [
          bs=16, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
          lengths=[9 + 7 * b for b in range(8)], iters=200),
 ]
+# what these rows measured before the hd-256 bodies, printed beside this
+# run's (``earlier``): each row's last record (PERF.md section 6 names
+# the run it came from)
+EARLIER = {
+    "prefill_main": dict(ms=0.00569, plain_ms=0.0421, library_ms=0.01240,
+                         bound_ms=0.000783),
+    "decode_main_bf16q": dict(ms=0.00456, plain_ms=0.0730,
+                              library_ms=0.01220, bound_ms=0.000613),
+    "paged_main": dict(ms=0.00482, plain_ms=0.0833, library_ms=0.01217,
+                       bound_ms=0.000613),
+    "prefill_hybrid": dict(ms=4.527, plain_ms=3.380, library_ms=0.556,
+                           bound_ms=0.0419),
+    "decode_hybrid_ring": dict(ms=0.0832, plain_ms=0.1066, library_ms=0.0158,
+                               bound_ms=0.00505),
+    "prefill_paligemma": dict(ms=0.01885, plain_ms=0.0391, library_ms=0.01098,
+                              bound_ms=0.000352),
+    "decode_paligemma": dict(ms=0.00840, plain_ms=0.0300, library_ms=0.01154,
+                             bound_ms=0.000079),
+    "paged_paligemma": dict(ms=0.00852, plain_ms=0.0353, library_ms=0.01159,
+                            bound_ms=0.000080),
+    "paligemma_bf16": dict(ms=0.00850, plain_ms=0.0474, library_ms=0.01783,
+                           bound_ms=0.000138),
+}
 # the rows of later slices' shapes, listed beside each kernel's main row
 NEW_SHAPE_CASES = ("prefill_hybrid", "decode_hybrid_ring", "prefill_paligemma",
                    "decode_paligemma", "paged_paligemma", "decode_whisper",
@@ -1509,6 +1539,9 @@ def phase_attention(peaks):
                    library_max_abs_err=lib_err)
         if kind == "flash":
             row["body"] = fa_mod.body(case["qdt"], case["kvdt"], hd)
+            fail_unless(hd != 256 or f32 or row["body"] == "tensor_cores",
+                        f"{case['name']}: bf16 at hd 256 on the tensor "
+                        f"cores: {row['body']}")
         else:
             plan = da_mod.decode_span_plan(B, H, S, hd)
             fail_unless(combines == plan.combine,
@@ -1523,6 +1556,8 @@ def phase_attention(peaks):
         row["bound_ms"], row["bound_by"] = attention_bound_ms(
             kind, case, valid, peaks)
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        if case["name"] in EARLIER:
+            row["earlier"] = EARLIER[case["name"]]
         emit(**row)
         out[name]["max_err"] = max(out[name]["max_err"], err)
         if case["name"] in ("prefill_main", "decode_main_bf16q",
@@ -2915,6 +2950,8 @@ def phase_spec_chunk(peaks):
                    library_max_abs_err=lib_err,
                    bound_ms=bound_ms, bound_by=bound_by)
         row["share_of_bound"] = bound_ms / row["ms"]
+        if name in EARLIER:
+            row["earlier"] = EARLIER[name]
         emit(**row)
         max_err = max(max_err, err)
         if name == "serving_bf16":
@@ -4185,6 +4222,38 @@ def phase_encdec_generate(peaks) -> dict:
     return launches
 
 
+def _prefill_share(model, B: int, S: int) -> dict:
+    """One prefill of B seeded prompts of S tokens through the served
+    model (published width, bf16) into a fresh cache: ms from the host
+    around a synchronised call after a warm one, and the flash kernel's
+    share of the call's device time by the profiler."""
+    cfg = model.cfg
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab, (B, S))
+    cache = tfm.init_cache(cfg, B, max(S + 16, serve.GEN_MAX_SEQ),
+                           device="cuda")
+
+    def prefill():
+        model.prefill(prompts, cache)
+
+    prefill()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    try:
+        prof = _profile_step(prefill, attention="flash")
+    except Exception as e:          # the profiler is untried on the card
+        prof = {"error": repr(e)[:200]}
+    if prof is None or "error" in prof:
+        return dict(prompts=B, tokens=S, call_ms=ms,
+                    profiler=prof or "no device time recorded")
+    device_ms = prof["attention_ms"] + prof["products_ms"] + prof["rest_ms"]
+    return dict(prompts=B, tokens=S, call_ms=ms, device_ms=device_ms,
+                flash_ms=prof["attention_ms"],
+                flash_share_of_device=prof["attention_ms"] / device_ms)
+
+
 def phase_new_families(peaks) -> dict:
     """This slice's paths, each model freed before the next is built:
     recurrentgemma-2b through the launcher greedy and sampled
@@ -4207,6 +4276,9 @@ def phase_new_families(peaks) -> dict:
         HYBRID_ARCH, sampled, "serve_generate_hybrid_sampled", attn2, peaks)
     del other
     torch.cuda.empty_cache()
+    emit(phase="prefill_share_hybrid", arch=HYBRID_ARCH,
+         served=_prefill_share(model, 8, 16),
+         long=_prefill_share(model, 1, RING_PROMPT))
     emit(phase="step_hybrid", arch=HYBRID_ARCH, slots=8,
          **_step_profile(model, peaks), **_rglru_blocks(model))
     phase_decode_graph(HYBRID_ARCH, model.cfg, model)
@@ -4228,6 +4300,8 @@ def phase_new_families(peaks) -> dict:
         peaks)
     del other
     torch.cuda.empty_cache()
+    emit(phase="prefill_share_vlm", arch=VLM_ARCH,
+         served=_prefill_share(model, 8, 16))
     emit(phase="step_vlm", arch=VLM_ARCH, slots=8,
          **_step_profile(model, peaks))
     phase_decode_graph(VLM_ARCH, model.cfg, model)
@@ -4857,15 +4931,31 @@ def shard_only() -> None:
          seconds=time.perf_counter() - t0)
 
 
+def attention_only() -> None:
+    """``--attention``: the device, build, attention (every case and
+    ``decode_invariance``), ``spec_chunk`` and the hd-256 families'
+    phases (``phase_new_families``): the quickest check of the attention
+    kernels on the card."""
+    t0 = time.perf_counter()
+    name, _, _ = phase_device()
+    peaks = PEAKS["pcie" if "pcie" in name.lower() else "sxm"]
+    phase_build()
+    phase_attention(peaks)
+    phase_spec_chunk(peaks)
+    launches = phase_new_families(peaks)
+    emit(phase="attention_only", launches_by_path=launches,
+         seconds=time.perf_counter() - t0)
+
+
 ONLY = {"--decode-graph": decode_graph_only, "--fleet": fleet_only,
         "--disagg": disagg_only, "--train": train_only,
-        "--shard": shard_only}
+        "--shard": shard_only, "--attention": attention_only}
 
 
 def main(argv: list[str]) -> int:
     if argv and (len(argv) > 1 or argv[0] not in ONLY):
         print(f"usage: chip_smoke.py [--decode-graph | --fleet | --disagg | "
-              f"--train | --shard], "
+              f"--train | --shard | --attention], "
               f"got {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():

@@ -30,15 +30,19 @@
 // whose rows are never valid by kv_pos; the table entry of a row is read
 // only when the row is valid.
 //
-// Design: split-span flash-decode, one body for both layouts.  The logical
-// rows are cut into spans of kSpan rows; one block of 256 threads (8 warps)
-// runs per (slot, kv head, group of up to 4 query heads of that kv head,
-// span), so a K/V row read from memory serves every query head of its group
-// and a long cache spreads over many SMs even for one slot.  Inside a span
+// Design: split-span flash-decode, one schedule for both layouts and two
+// bodies by head dim.  The logical rows are cut into spans whose length is a
+// function of the head dim alone: kSpan = 1024 rows at hd <= 128, kSpanWide
+// = 128 rows above.
+//
+// The narrow body (hd <= 128): one block of 256 threads (8 warps) runs per
+// (slot, kv head, group of up to 4 query heads of that kv head, span), so a
+// K/V row read from memory serves every query head of its group and a long
+// cache spreads over many SMs even for one slot.  Inside a span
 // the rows are interleaved finely over the warps: of every 32 rows, warp w
 // takes rows 4w .. 4w + 3, its four 8-lane subgroups one row each, so the 17
 // to 31 valid rows of a served slot land on all 8 warps.  A warp works a tile
-// of two such groups at once (8 rows; one group, 4 rows, at hd > 128):
+// of two such groups at once (8 rows):
 // each lane reads its rows' kv_pos (and on the paged layout works out the
 // pool row from the table, once per row), skips the tile when no row is
 // valid, loads
@@ -52,6 +56,16 @@
 // out directly: one launch, no scratch.  Longer caches write each span's
 // (max, sum, acc) in f32 to scratch [B, H, spans, hd + 2] that the wrapper
 // allocates, and combine_kernel merges the spans in span order.
+//
+// The wide body (hd > 128: recurrentgemma's and paligemma's 256, G = 10 and 8
+// over one kv head): the narrow body's accumulators, 4 heads x 32 dims a
+// thread, took 227 registers there, its groups of 4 heads read each row
+// three times at G = 10, and its 1024-row spans gave a 2048-row ring of 8
+// slots 48 blocks for 132 SMs.  So one block takes every query head of its
+// kv head (up to 16), the accumulators are spread over the threads by head
+// dim (16 a thread), and the span is 128 rows: the ring makes 128 blocks,
+// each reading its 128 rows' K and V once, through shared memory (kernel
+// decode_wide_kernel below sets out its schedule).
 //
 // The chunk: q [B, n, H, hd] and out [B, n, H, hd], cur = start [B], query
 // row j of slot b at position start[b] + j.  The grid runs over the B * n
@@ -79,9 +93,11 @@
 // so its least time is the valid K/V rows (plus q, kv_pos, the table and out)
 // over HBM bandwidth (3.35 TB/s on the SXM part).  What the design does about
 // it: masked rows are skipped; each row is read once for all the heads of
-// its group; 16-byte loads with 8 rows per warp in flight; and spans put
-// B * K * groups * spans blocks on the card, so that one user's 8192-row
-// context fills 132 SMs where a block per (slot, head) gave 32.  At the
+// its group (the wide body: of its kv head); 16-byte loads with 8 rows per
+// warp in flight (the wide body: the span's valid rows copied to shared
+// memory by cp.async, all in flight before the first tile is worked); and
+// spans put B * K * groups * spans blocks on the card, so that one user's
+// 8192-row context fills 132 SMs where a block per (slot, head) gave 32.  At the
 // serving shape (17-31 valid rows of 128) the launch, not the bytes, is the
 // cost; the CUDA-graph-captured decode step is the later work there.
 //
@@ -99,7 +115,10 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kHeads = 4;                  // query heads per block, at most
 constexpr int kMaxHd = 256;
-constexpr int kSpan = 1024;                // logical rows per span
+constexpr int kSpan = 1024;                // logical rows per span, hd <= 128
+constexpr int kSpanWide = 128;             // and at hd > 128 (the wide body)
+constexpr int kTileWide = 32;              // rows per tile of the wide body
+constexpr int kHeadsWide = 16;             // its query heads per block, at most
 constexpr int kCombineThreads = 128;
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -165,11 +184,24 @@ __device__ __forceinline__ void unpack(const uint4& u, float (&x)[8]) {
   }
 }
 
-template <typename TQ, typename TKV, bool kPaged, int NH, int DPL>
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+template <typename TQ, typename TKV, bool kPaged, int NH>
 __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
   constexpr int VEC = kVec<TKV>;
+  constexpr int DPL = 16;                     // head dims per lane (hd <= 128)
   constexpr int CH = DPL / VEC;               // chunks per lane and row
-  constexpr int RJ = DPL <= 16 ? 2 : 1;       // rows per lane and tile
+  constexpr int RJ = 2;                       // rows per lane and tile
   __shared__ float qs[NH][kMaxHd];
   __shared__ float sm_m[kWarps][NH];
   __shared__ float sm_l[kWarps][NH];
@@ -413,13 +445,411 @@ __global__ void __launch_bounds__(kCombineThreads)
   }
 }
 
-template <typename TQ, typename TKV, bool kPaged, int NH, int DPL>
+// The wide body (hd > 128): one block per (query row, kv head, group of up
+// to 16 query heads, span of kSpanWide rows), every query head of a kv head
+// in one block, so each K/V row is read once for all of them.  The last
+// warp first reads the span's kv_pos (and on the paged layout its table
+// entries) and leaves each 32-row tile's valid-row mask and row addresses
+// in shared memory, while every warp stages q (all of a thread's reads
+// issued before any is used); every valid row's K and V are then copied
+// into a ring of two tile stages by cp.async (16 bytes a copy), the next
+// tile's copies in flight while a tile is worked (four bf16 stages, the
+// whole span in flight, measured no faster on recurrentgemma's ring).  A
+// tile is worked in three steps, each thread's registers holding what it
+// reuses, so that shared memory is read far less often than the products
+// are taken:
+//   A. warp w takes tile rows 4w .. 4w + 3 and lane i head dims 4i .. 4i + 3
+//      and 128 + 4i .. 128 + 4i + 3 of every head: the four rows' K values
+//      stay in registers while each head's q values are read once for the
+//      four rows (both reads free of bank conflicts); the 4 x 16 partial
+//      scores are then summed over the 32 lanes by a butterfly that leaves
+//      lane i with rows and heads (i / 8, 2 (i % 8)) and (i / 8,
+//      2 (i % 8) + 1);
+//   B. warp w runs the online softmax of heads w and w + 8 over the tile's
+//      32 scores (lane = row): one max and one rescale per head and tile,
+//      the weights back into shared memory;
+//   C. thread t owns head dims 4 (t % 64) .. + 3 of heads t / 64 + 4i: it
+//      rescales its 16 accumulators and adds the tile's valid rows in row
+//      order, each V chunk read once for its four heads.
+// A tile no row of which is valid is neither copied nor worked, and the
+// tiles past the last one with a valid row are not visited.  Every
+// sum's order is a function of the logical row index alone, as in the
+// narrow body, and a span writes the same (max, sum, acc) triple to the
+// same scratch for the same combine.
+constexpr int kStagesWide = 2;             // K/V tiles in flight
+
+template <typename TKV>
+__host__ __device__ constexpr size_t smem_wide() {
+  return static_cast<size_t>(kStagesWide) * 2 * kTileWide * kMaxHd *
+         sizeof(TKV);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// one level of step A's butterfly over N values: a lane keeps the upper
+// half where its bit `o` is set, else the lower, and adds the lane
+// across's half to it
+template <int N>
+__device__ __forceinline__ void fold(float (&v)[64], bool upper, int o) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float give = upper ? v[i] : v[i + N / 2];
+    const float keep = upper ? v[i + N / 2] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFull, give, o);
+  }
+}
+
+// 4 consecutive elements of shared memory as floats (8- or 16-byte aligned)
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = c.x;
+  x[3] = c.y;
+}
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  x[0] = f.x;
+  x[1] = f.y;
+  x[2] = f.z;
+  x[3] = f.w;
+}
+
+template <typename TQ, typename TKV, bool kPaged>
+__global__ void __launch_bounds__(kThreads)
+    decode_wide_kernel(const DecodeArgs a) {
+  constexpr int VEC = kVec<TKV>;
+  constexpr int HW = kHeadsWide;
+  constexpr int HPW = HW / kWarps;            // heads per warp in step B
+  constexpr int HPT = HW / 4;                 // heads per thread in step C
+  constexpr int NT = kSpanWide / kTileWide;   // tiles per span
+  constexpr int NS = kStagesWide;
+  static_assert(kThreads == 256 && kTileWide == 32 && HW == 16,
+                "the step A butterfly and the step C split assume these");
+  extern __shared__ uint4 kv_raw[];           // NS x (K tile, V tile)
+  __shared__ __align__(16) float qs[HW][kMaxHd];
+  __shared__ __align__(16) float ps[HW][kTileWide];
+  __shared__ float corr_s[HW], m_s[HW], l_s[HW];
+  __shared__ int64_t row_s[NT][kTileWide];    // the row each tile row reads
+  __shared__ unsigned mask_s[NT];             // each tile's valid rows
+
+  const int r = blockIdx.x;                   // query row: slot b, query j
+  const int b = r / a.nq;
+  const int jq = r - b * a.nq;
+  const int kh = blockIdx.y;
+  const int G = a.H / a.K;
+  const int grp = blockIdx.z / a.spans;
+  const int sp = blockIdx.z - grp * a.spans;
+  const int g0 = grp * HW;
+  const int ng = min(HW, G - g0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int hd = a.hd;
+  const int cur = a.cur[b] + jq;
+  const int s_begin = sp * kSpanWide;
+  const int s_end = min(a.S, s_begin + kSpanWide);
+  const int tile_elems = kTileWide * hd;      // a K or V tile, elements
+  TKV* kv_s = reinterpret_cast<TKV*>(kv_raw);
+
+  const TQ* qb = static_cast<const TQ*>(a.q) + b * a.q_sb + jq * a.q_sn;
+  const TKV* kb = static_cast<const TKV*>(a.k) + b * a.k_sb + kh * a.k_sh;
+  const TKV* vb = static_cast<const TKV*>(a.v) + b * a.v_sb + kh * a.v_sh;
+
+  // every read of the prologue is issued before any is used: the last
+  // warp's kv_pos (lane t: row t of every tile), then everyone's q
+  int kp[NT];
+  if (warp == kWarps - 1) {
+    const int32_t* pb = a.kv_pos + b * a.p_sb;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int s = s_begin + kTileWide * j + lane;
+      kp[j] = s < s_end ? pb[s * a.p_ss] : -1;
+    }
+  }
+  // thread d stages head dim d of every head (hd <= kThreads)
+  float qv[HW];
+#pragma unroll
+  for (int g = 0; g < HW; ++g)
+    qv[g] = g < ng && threadIdx.x < hd
+                ? to_float(qb[(kh * G + g0 + g) * a.q_sh + threadIdx.x])
+                : 0.0f;
+  if (warp == kWarps - 1) {
+    // each tile row's validity and the row to read; on the paged layout
+    // every valid row's table entry read before any is used
+    bool ok[NT];
+    int blk[NT], ent[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int s = s_begin + kTileWide * j + lane;
+      ok[j] = kp[j] >= 0 && kp[j] <= cur &&
+              (a.window == 0 || cur - kp[j] < a.window);
+      if constexpr (kPaged) {
+        blk[j] = a.bs_shift >= 0 ? s >> a.bs_shift : s / a.bs;
+        ent[j] = ok[j] ? a.tbl[b * a.t_sb + blk[j] * a.t_sj] : 0;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int s = s_begin + kTileWide * j + lane;
+      int64_t row = s;
+      if constexpr (kPaged) {
+        if (ok[j])
+          row = static_cast<int64_t>(ent[j]) * a.bs + s - blk[j] * a.bs;
+      }
+      row_s[j][lane] = row;
+      const unsigned m = __ballot_sync(kFull, ok[j]);
+      if (lane == 0) mask_s[j] = m;
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < HW; ++g)
+    if (g < ng && threadIdx.x < hd) qs[g][threadIdx.x] = qv[g] * a.scale;
+  __syncthreads();
+
+  // the tiles up to the last one with a valid row
+  int nt = 0;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    if (mask_s[j]) nt = j + 1;
+
+  // tile j's valid rows into stage j % NS, one commit group per tile
+  const int nchunk = hd / VEC;
+  auto issue = [&](int j) {
+    if (j < nt) {
+      const unsigned mask = mask_s[j];
+      TKV* kd = kv_s + (j % NS) * 2 * tile_elems;
+      TKV* vd = kd + tile_elems;
+      for (int i = threadIdx.x; i < kTileWide * nchunk; i += kThreads) {
+        const int t = i / nchunk;
+        const int c = i - t * nchunk;
+        if ((mask >> t) & 1u) {
+          const int64_t row = row_s[j][t];
+          cp_async16(kd + t * hd + c * VEC, kb + row * a.k_ss + c * VEC);
+          cp_async16(vd + t * hd + c * VEC, vb + row * a.v_ss + c * VEC);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < NS - 1; ++j) issue(j);
+
+  // step A's head dims (da and 128 + da; hd > 128), step C's dims and heads
+  const int da = 4 * lane;
+  const bool a_hi = 128 + da < hd;
+  const int dc = 4 * (threadIdx.x & 63);
+  const int hc = threadIdx.x >> 6;
+  const bool c_live = dc < hd;
+  float m[HPW], l[HPW], acc[HPT][4];
+#pragma unroll
+  for (int i = 0; i < HPW; ++i) {
+    m[i] = kNeg;
+    l[i] = 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < HPT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+
+  for (int j = 0; j < nt; ++j) {
+    if (j > 0) __syncthreads();   // tile j - 1's stage and ps are free
+    issue(j + NS - 1);
+    cp_async_wait<NS - 1>();      // this thread's copies of tile j are in
+    __syncthreads();              // and every thread's
+    const unsigned mask = mask_s[j];
+    if (mask == 0) continue;      // the same in every thread
+    const TKV* kt = kv_s + (j % NS) * 2 * tile_elems;
+    const TKV* vt = kt + tile_elems;
+
+    // A: rows 4 warp .. + 3, head dims da .. da + 7, every head
+    float v[4 * HW];              // index row * 16 + head
+#pragma unroll
+    for (int i = 0; i < 4 * HW; ++i) v[i] = 0.0f;
+    {
+      float kx[4][8];
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const TKV* kr = kt + (4 * warp + rr) * hd + da;
+        float lo[4], hi[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        load4(kr, lo);
+        if (a_hi) load4(kr + 128, hi);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          kx[rr][e] = lo[e];
+          kx[rr][4 + e] = hi[e];
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < HW; ++g) {
+        if (g >= ng) break;
+        float qx[8];
+        const float4 f = *reinterpret_cast<const float4*>(&qs[g][da]);
+        const float4 h = a_hi ? *reinterpret_cast<const float4*>(
+                                    &qs[g][128 + da])
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        qx[0] = f.x, qx[1] = f.y, qx[2] = f.z, qx[3] = f.w;
+        qx[4] = h.x, qx[5] = h.y, qx[6] = h.z, qx[7] = h.w;
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          float sc = 0.0f;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) sc = fmaf(qx[e], kx[rr][e], sc);
+          v[rr * HW + g] = sc;
+        }
+      }
+    }
+    // the butterfly: each level keeps half of the values, summed with the
+    // lane across; lane i ends with indices 2i and 2i + 1
+    fold<64>(v, lane & 16, 16);
+    fold<32>(v, lane & 8, 8);
+    fold<16>(v, lane & 4, 4);
+    fold<8>(v, lane & 2, 2);
+    fold<4>(v, lane & 1, 1);
+    {
+      const int rr = lane >> 3;
+      const int g = 2 * (lane & 7);
+      const bool tok = (mask >> (4 * warp + rr)) & 1u;
+      if (g < ng) ps[g][4 * warp + rr] = tok ? v[0] : kNeg;
+      if (g + 1 < ng) ps[g + 1][4 * warp + rr] = tok ? v[1] : kNeg;
+    }
+    __syncthreads();
+
+    // B: the online softmax of this warp's heads over the tile
+#pragma unroll
+    for (int i = 0; i < HPW; ++i) {
+      const int g = warp + kWarps * i;
+      if (g < ng) {
+        const float sv = ps[g][lane];
+        const float m_new = fmaxf(m[i], warp_max(sv));
+        const float c = expf(m[i] - m_new);
+        const float p = expf(sv - m_new);
+        l[i] = l[i] * c + warp_sum(p);
+        m[i] = m_new;
+        ps[g][lane] = p;
+        if (lane == 0) corr_s[g] = c;
+      }
+    }
+    __syncthreads();
+
+    // C: head dims dc .. dc + 3 of heads hc + 4i, the valid rows in order
+    if (c_live) {
+#pragma unroll
+      for (int i = 0; i < HPT; ++i) {
+        const int g = hc + 4 * i;
+        if (g < ng) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][e] *= corr_s[g];
+        }
+      }
+#pragma unroll
+      for (int t4 = 0; t4 < kTileWide; t4 += 4) {
+        const unsigned m4 = (mask >> t4) & 0xfu;
+        if (m4 == 0) continue;
+        float vx[4][4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if ((m4 >> u) & 1u) load4(vt + (t4 + u) * hd + dc, vx[u]);
+        }
+#pragma unroll
+        for (int i = 0; i < HPT; ++i) {
+          const int g = hc + 4 * i;
+          if (g >= ng) break;
+          const float4 p4 = *reinterpret_cast<const float4*>(&ps[g][t4]);
+          const float pu[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if ((m4 >> u) & 1u) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[i][e] = fmaf(pu[u], vx[u][e], acc[i][e]);
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < HPW; ++i) {
+    const int g = warp + kWarps * i;
+    if (g < ng && lane == 0) {
+      m_s[g] = m[i];
+      l_s[g] = l[i];
+    }
+  }
+  __syncthreads();
+  if (!c_live) return;
+#pragma unroll
+  for (int i = 0; i < HPT; ++i) {
+    const int g = hc + 4 * i;
+    if (g >= ng) break;
+    const int h = kh * G + g0 + g;
+    if (a.spans == 1) {
+      TQ* ob = static_cast<TQ*>(a.out) + b * a.o_sb + jq * a.o_sn +
+               h * a.o_sh + dc;
+      const float den = fmaxf(l_s[g], 1e-30f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) store(ob + e, acc[i][e] / den);
+    } else {
+      float* pp =
+          a.part + ((static_cast<int64_t>(r) * a.H + h) * a.spans + sp) *
+                       (hd + 2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pp[dc + e] = acc[i][e];
+      if (dc == 0) {
+        pp[hd] = m_s[g];
+        pp[hd + 1] = l_s[g];
+      }
+    }
+  }
+}
+
+template <typename TQ, typename TKV, bool kPaged, int NH>
 int launch_body(const DecodeArgs& a, int B, cudaStream_t stream) {
   const int G = a.H / a.K;
   const unsigned rows = static_cast<unsigned>(B) * static_cast<unsigned>(a.nq);
   const dim3 grid(rows, static_cast<unsigned>(a.K),
                   static_cast<unsigned>((G + NH - 1) / NH * a.spans));
-  decode_kernel<TQ, TKV, kPaged, NH, DPL><<<grid, kThreads, 0, stream>>>(a);
+  decode_kernel<TQ, TKV, kPaged, NH><<<grid, kThreads, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.spans == 1) return static_cast<int>(err);
+  const dim3 cgrid(rows, static_cast<unsigned>(a.H));
+  combine_kernel<TQ><<<cgrid, kCombineThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TQ, typename TKV, bool kPaged>
+int launch_wide(const DecodeArgs& a, int B, cudaStream_t stream) {
+  constexpr size_t bytes = smem_wide<TKV>();
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_wide_kernel<TQ, TKV, kPaged>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  const int G = a.H / a.K;
+  const unsigned rows = static_cast<unsigned>(B) * static_cast<unsigned>(a.nq);
+  const dim3 grid(rows, static_cast<unsigned>(a.K),
+                  static_cast<unsigned>((G + kHeadsWide - 1) / kHeadsWide *
+                                        a.spans));
+  decode_wide_kernel<TQ, TKV, kPaged><<<grid, kThreads, bytes, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.spans == 1) return static_cast<int>(err);
   const dim3 cgrid(rows, static_cast<unsigned>(a.H));
@@ -430,17 +860,17 @@ int launch_body(const DecodeArgs& a, int B, cudaStream_t stream) {
 template <typename TQ, typename TKV, bool kPaged>
 int launch(const DecodeArgs& a, int B, void* stream_ptr) {
   const auto stream = static_cast<cudaStream_t>(stream_ptr);
-  const bool mha = a.H == a.K;
-  if (a.hd <= 128)
-    return mha ? launch_body<TQ, TKV, kPaged, 1, 16>(a, B, stream)
-               : launch_body<TQ, TKV, kPaged, kHeads, 16>(a, B, stream);
-  return mha ? launch_body<TQ, TKV, kPaged, 1, 32>(a, B, stream)
-             : launch_body<TQ, TKV, kPaged, kHeads, 32>(a, B, stream);
+  if (a.hd > 128) return launch_wide<TQ, TKV, kPaged>(a, B, stream);
+  return a.H == a.K ? launch_body<TQ, TKV, kPaged, 1>(a, B, stream)
+                    : launch_body<TQ, TKV, kPaged, kHeads>(a, B, stream);
 }
 
 }  // namespace
 
-extern "C" int decode_attention_span_rows() { return kSpan; }
+// the logical rows of a span: a function of the head dim alone
+extern "C" int decode_attention_span_rows(int hd) {
+  return hd <= 128 ? kSpan : kSpanWide;
+}
 
 #define DECODE_ENTRY(NAME, TQ, TKV)                                            \
   extern "C" int NAME(const void* q, const void* k, const void* v,             \

@@ -18,9 +18,10 @@
 // Two bodies.
 //
 // The tensor-core body (entry flash_attention_bf16_bf16, the serving
-// prefill's: bf16 q, k and v, at hd 64, 80, 96 or 128).  One warpgroup (128
-// threads) per (64 query rows, head, batch row).  The Q tile and a ring of 3
-// K/V stages of 64 keys (2 at hd 128, so that two blocks fit an SM) sit in
+// prefill's: bf16 q, k and v, at hd 64, 80, 96, 128 or 256).  One warpgroup
+// (128 threads) per (64 query rows, head, batch row).  The Q tile and a ring
+// of 3 K/V stages of 64 keys (2 at hd 128, so that two blocks fit an SM, and
+// 2 at hd 256, where Q and the stages take 160 KB: one block an SM) sit in
 // shared memory, brought in by TMA (cp.async.bulk.tensor) with mbarrier
 // completion; thread 0 issues the copies, refilling a stage as soon as it
 // is released.  The tensor maps are encoded on the host with
@@ -29,7 +30,8 @@
 // passed as __grid_constant__ parameters; out-of-bounds rows of a ragged
 // Sq or Skv are filled with zeros by TMA and the scores of keys past Skv
 // are masked too.
-// Head dims: a 64 + 16 pair of boxes for hd 80 (64 + 32 for hd 96): the
+// Head dims: a 64 + 16 pair of boxes for hd 80 (64 + 32 for hd 96; hd 64,
+// 128 and 256 are one, two and four 64-column boxes with no tail): the
 // first 64 columns of a row in 128-byte-swizzled boxes, the rest in one box
 // with the 32-byte (64-byte) swizzle, so no head dim is padded and the
 // copies move 128-byte rows (32-byte rows, 16-column boxes throughout, make
@@ -40,9 +42,10 @@
 // max and one rescale per row and key tile, each weight exp((s - m) /
 // sqrt(hd)) as one fma and one ex2.approx; P is rounded to bf16 in
 // registers, where the accumulator's fragment is already the A operand's
-// layout, and O += P.V runs as wgmma m64n64k16 (n128 at hd 128) over the
-// wide boxes plus m64n16k16 (n32) over the tail box, A from registers and
-// V from shared memory through the transpose (MN-major) mode.  The products
+// layout, and O += P.V runs as wgmma m64n64k16 (n128 at hd 128, two n128
+// halves at hd 256) over the wide boxes plus m64n16k16 (n32) over the tail
+// box, A from registers and V from shared memory through the transpose
+// (MN-major) mode.  The products
 // are asynchronous: tile t's S = Q.K^T and tile t - 1's O += P.V are
 // issued together, and the warps work tile t's softmax (in f32, in S's
 // registers) while P.V still runs on the tensor cores; P is packed into the
@@ -65,10 +68,15 @@
 // (tests/test_torch_attention_hopper.py holds an emulation of this
 // arithmetic to that budget, and shows that a dropped key tile breaks it).
 //
+// At hd 256 a thread holds O's 128 f32 accumulators, S's 32 and P's 16
+// packed registers at once (the products overlap the softmax), within the
+// 255 a thread may have at 128 threads a block; chip_smoke.py's build phase
+// prints what ptxas gives the instance.
+//
 // The CUDA-core body (the entries with an f32 operand, the f32 parity
 // path; and the bf16 entry at the head dims the tensor-core body does not
-// take: a multiple of 8 up to 256 other than 64, 80, 96, 128, such as the
-// smoke configurations' hd 32).  One block of 256 threads (8 warps) per
+// take: a multiple of 8 up to 256 other than 64, 80, 96, 128 and 256, such
+// as the smoke configurations' hd 32).  One block of 256 threads (8 warps) per
 // (query tile of 32 rows, head, batch row); warp w owns rows 4w .. 4w + 3.
 // Key tiles of 32 are staged in shared memory as f32: K transposed,
 // [hd][33] (padded, so that both the coalesced fill and the per-lane reads
@@ -316,7 +324,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 // swizzle, then tail(hd) (16 or 32) in one box with the 32- or 64-byte one
 __host__ __device__ constexpr int wide(int hd) { return hd / kWide * kWide; }
 __host__ __device__ constexpr int tail(int hd) { return hd % kWide; }
-// K/V tiles in flight: 3, or 2 at hd 128 so that two blocks fit an SM
+// K/V tiles in flight: 3, or 2 at hd 128 (so that two blocks fit an SM)
+// and at hd 256 (Q and two stages of K and V: 160 KB, one block an SM)
 __host__ __device__ constexpr int stages(int hd) { return hd <= 96 ? 3 : 2; }
 
 struct Args {
@@ -628,11 +637,18 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], Rows& r,
   r.m_hi = mn_hi;
   const float off_lo = -mn_lo * a.scale_log2;
   const float off_hi = -mn_hi * a.scale_log2;
+  // a row that has seen only masked keys so far (its max still -1e30)
+  // weighs each of them 1, exp(0): fma(-1e30, scale, 1e30 * scale) would
+  // give the rounding error of 1e30 * scale, some 1e21, whose ex2 may be
+  // inf; once a key is visible, its tile's rescale by 0 drops them
+  const bool dead_lo = mn_lo == kNeg, dead_hi = mn_hi == kNeg;
   float sum_lo = 0.0f, sum_hi = 0.0f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const bool hi = (i & 3) >= 2;
-    s[i] = ex2(fmaf(s[i], a.scale_log2, hi ? off_hi : off_lo));
+    s[i] = (hi ? dead_hi : dead_lo)
+               ? 1.0f
+               : ex2(fmaf(s[i], a.scale_log2, hi ? off_hi : off_lo));
     if (hi) sum_hi += s[i];
     else sum_lo += s[i];
   }
@@ -672,6 +688,17 @@ __device__ __forceinline__ void pv_step(float (&o)[HD / 2],
       gmma_desc(sv + KK * 16 * 128, kWideBox, 8 * 128, Swizzle::B128);
   if constexpr (wide(HD) == 64) wgmma_rs_n64<KK>(ow, p, dw, 1);
   if constexpr (wide(HD) == 128) wgmma_rs_n128<KK>(ow, p, dw, 1);
+  if constexpr (wide(HD) == 256) {
+    // two n128 halves: o[0 .. 64) from boxes 0-1, o[64 .. 128) from 2-3
+    float (&o0)[64] = *reinterpret_cast<float(*)[64]>(&o[0]);
+    float (&o1)[64] = *reinterpret_cast<float(*)[64]>(&o[64]);
+    wgmma_rs_n128<KK>(o0, p, dw, 1);
+    wgmma_rs_n128<KK>(
+        o1, p,
+        gmma_desc(sv + 2 * kWideBox + KK * 16 * 128, kWideBox, 8 * 128,
+                  Swizzle::B128),
+        1);
+  }
   if constexpr (tail(HD) > 0) {
     float (&ot)[tail(HD) / 2] =
         *reinterpret_cast<float(*)[tail(HD) / 2]>(&o[wide(HD) / 2]);
@@ -907,10 +934,10 @@ int launch_hd(const FlashArgs& f, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the tensor-core body takes hd 64, 80, 96, 128 and TMA-describable views:
-// 16-byte aligned starts and strides that are multiples of 8 elements (the
-// wrapper raises on anything else at these head dims, so no cp.async path
-// is needed)
+// the tensor-core body takes hd 64, 80, 96, 128, 256 and TMA-describable
+// views: 16-byte aligned starts and strides that are multiples of 8
+// elements (the wrapper raises on anything else at these head dims, so no
+// cp.async path is needed)
 int launch(const FlashArgs& f, int B, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   switch (f.hd) {
@@ -918,6 +945,7 @@ int launch(const FlashArgs& f, int B, void* stream) {
     case 80: return launch_hd<80>(f, B, s);
     case 96: return launch_hd<96>(f, B, s);
     case 128: return launch_hd<128>(f, B, s);
+    case 256: return launch_hd<256>(f, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -943,8 +971,8 @@ FLASH_ENTRY(flash_attention_f32_f32, float, float)
 FLASH_ENTRY(flash_attention_f32_bf16, float, __nv_bfloat16)
 FLASH_ENTRY(flash_attention_bf16_f32, __nv_bfloat16, float)
 
-// the serving prefill's entry: the tensor-core body at hd 64, 80, 96, 128,
-// the CUDA-core body at the other head dims
+// the serving prefill's entry: the tensor-core body at hd 64, 80, 96, 128
+// and 256, the CUDA-core body at the other head dims
 extern "C" int flash_attention_bf16_bf16(
     const void* q, const void* k, const void* v, void* out, int B, int H,
     int K, int Sq, int Skv, int hd, int64_t q_sb, int64_t q_sh, int64_t q_ss,
@@ -955,7 +983,8 @@ extern "C" int flash_attention_bf16_bf16(
                     q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,   v_sh,   v_ss,
                     o_sb, o_sh, o_ss, scale, causal, window, q_offset};
   switch (hd) {
-    case 64: case 80: case 96: case 128: return tc::launch(a, B, stream);
+    case 64: case 80: case 96: case 128: case 256:
+      return tc::launch(a, B, stream);
     default: return launch<__nv_bfloat16, __nv_bfloat16>(a, B, stream);
   }
 }

@@ -8,11 +8,15 @@ of ``repro.kernels.decode_attention.decode_attention``:
 
   - on CUDA tensors it launches the hand-written Hopper kernel
     ``csrc/decode_attention.cu`` (split-span flash-decode: one block per
-    slot, kv head, group of up to four query heads and span of ``SPAN``
-    logical rows, the valid rows spread over all eight warps; a cache
-    longer than one span writes per-span partials to scratch that a
-    second small kernel merges in span order; see the source for its
-    bound and design) and adds one to ``launches`` per call (and one to
+    slot, kv head, group of query heads and span of ``span_rows(hd)``
+    logical rows; at hd <= 128 groups of up to four query heads, the
+    valid rows spread over all eight warps; above, up to 16 query heads
+    of a kv head in one block, the span's rows copied to shared memory
+    by ``cp.async`` and worked in 32-row tiles with register-tiled
+    products; a cache longer than one span writes per-span partials to
+    scratch that a second small kernel merges in span order; see the
+    source for its bound and design) and adds one to ``launches`` per
+    call (and one to
     ``combine_launches`` when the merge runs); on a card that is not
     sm_90 it raises;
   - on CPU tensors it runs ``decode_attention_plain``, the plain
@@ -94,7 +98,8 @@ combine_launches = 0
 COUNTERS = ("launches", "paged_launches", "chunk_launches",
             "combine_launches")
 
-SPAN = 1024              # logical rows per span: kSpan of the CUDA source
+SPAN = 1024              # logical rows per span at hd <= 128: kSpan of the
+SPAN_WIDE = 128          # CUDA source; and above (kSpanWide)
 
 NEG_INF = -2.0 ** 30     # repro.kernels.ref's mask value
 _TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -137,12 +142,20 @@ class SpanPlan(NamedTuple):
     combine: bool
 
 
+def span_rows(hd: int) -> int:
+    """The logical rows of a span, a function of the head dim alone:
+    ``SPAN`` for the narrow body (hd <= 128), ``SPAN_WIDE`` for the
+    wide one."""
+    return SPAN if hd <= 128 else SPAN_WIDE
+
+
 def decode_span_plan(B: int, H: int, S: int, hd: int) -> SpanPlan:
     """The split of a decode call over S logical rows: one span (the
     kernel writes ``out`` itself: one launch, no scratch) up to S =
-    ``SPAN``, else ceil(S / SPAN) spans merged by the combine kernel.
-    The same for both layouts (S is the logical extent)."""
-    spans = max(1, -(-S // SPAN))
+    ``span_rows(hd)``, else ceil(S / span_rows(hd)) spans merged by the
+    combine kernel.  The same for both layouts (S is the logical
+    extent)."""
+    spans = max(1, -(-S // span_rows(hd)))
     if spans == 1:
         return SpanPlan(1, None, False)
     return SpanPlan(spans, (B, H, spans, hd + 2), True)
@@ -192,11 +205,14 @@ def _library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     lib.decode_attention_error_string.argtypes = [ctypes.c_int]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
+    lib.decode_attention_span_rows.argtypes = [ctypes.c_int]
     lib.decode_attention_span_rows.restype = ctypes.c_int
-    if lib.decode_attention_span_rows() != SPAN:
-        raise RuntimeError(f"decode_attention.cu splits at "
-                           f"{lib.decode_attention_span_rows()} rows, the "
-                           f"wrapper at SPAN = {SPAN}")
+    for hd in (128, 256):
+        if lib.decode_attention_span_rows(hd) != span_rows(hd):
+            raise RuntimeError(f"decode_attention.cu splits at "
+                               f"{lib.decode_attention_span_rows(hd)} rows "
+                               f"at hd {hd}, the wrapper at "
+                               f"{span_rows(hd)}")
     return lib
 
 

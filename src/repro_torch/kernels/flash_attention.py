@@ -7,12 +7,12 @@ k/v [B,K,Skv,hd] (GQA: H = K*G) -> [B,H,Sq,hd] in q's dtype, the port of
   - on CUDA tensors it launches the hand-written Hopper kernel
     ``csrc/flash_attention.cu`` and adds one to ``launches``; on a card
     that is not sm_90 it raises.  bf16 q, k and v (the serving
-    prefill) at head dims 64, 80, 96 and 128 run the tensor-core body:
-    one warpgroup per 64 query rows, K/V tiles of 64 keys brought in by
-    TMA, both products as ``wgmma`` with P rounded to bf16.  Entries
-    with an f32 operand (the f32 parity path), and bf16 at the other
-    head dims (the smoke configurations' hd 32), run the CUDA-core body
-    (32-row tiles, f32 products); :func:`body` says which.  See the
+    prefill) at head dims 64, 80, 96, 128 and 256 run the tensor-core
+    body: one warpgroup per 64 query rows, K/V tiles of 64 keys brought
+    in by TMA, both products as ``wgmma`` with P rounded to bf16.
+    Entries with an f32 operand (the f32 parity path), and bf16 at the
+    other head dims (the smoke configurations' hd 32), run the CUDA-core
+    body (32-row tiles, f32 products); :func:`body` says which.  See the
     source for both bounds and designs;
   - on CPU tensors it runs ``flash_attention_plain``, the plain PyTorch
     version of ``repro.kernels.ref.flash_attention``, which
@@ -43,7 +43,7 @@ COUNTERS = ("launches",)
 
 NEG_INF = -2.0 ** 30     # repro.kernels.ref's mask value
 _TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-TC_HEAD_DIMS = (64, 80, 96, 128)   # the tensor-core body's head dims
+TC_HEAD_DIMS = (64, 80, 96, 128, 256)   # the tensor-core body's head dims
 
 
 def body(q_dtype: torch.dtype, kv_dtype: torch.dtype, hd: int) -> str:

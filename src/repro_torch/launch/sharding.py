@@ -51,7 +51,7 @@ from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_map_only
+from torch.utils._pytree import tree_flatten, tree_map_only
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import axis_sizes, batch_axes, model_axis_size
@@ -476,9 +476,12 @@ class _Reshard(TorchDispatchMode):
     And an op DTensor has no sharding strategy for (RG-LRU's
     ``log_sigmoid_backward``), or whose strategy or redistribution
     fails on its inputs' placements (some releases fail so on the
-    multi-pod mesh), unless it writes in place or is a view: it runs on
-    the gathered values, and its result is replicated.  An op that
-    fails on the gathered values too raises its own error.
+    multi-pod mesh), or whose result's placements do not match its mesh
+    (2.11's ``constant_pad_nd`` on a replicated 5-d input), unless it
+    writes in place or is a view: it runs on the gathered values
+    (gathered below autograd, :func:`_gathered`), and its result is
+    replicated.  An op that fails on the gathered values too raises its
+    own error.
 
     Anything that still fails raises its own error.  Both ways of giving
     up a shard are counted by op (``counts()``: ``gathered_views``,
@@ -521,19 +524,49 @@ class _Reshard(TorchDispatchMode):
         if func is _aten.index_put_.default:
             return _index_put(*args)
         try:
-            return func(*args, **kwargs)
+            out = func(*args, **kwargs)
         except (RuntimeError, IndexError):  # NotImplementedError included
             if func._schema.is_mutable or func.is_view:
                 raise
+        else:
+            # some releases' strategies (2.11's constant_pad_nd) give a
+            # result whose placements do not match its mesh: refused too
+            if not any(len(t.placements) != t.device_mesh.ndim
+                       for t in tree_flatten(out)[0]
+                       if isinstance(t, DTensor)):
+                return out
+            if func._schema.is_mutable or func.is_view:
+                raise RuntimeError(f"sharded: {func} gave a DTensor whose "
+                                   f"placements do not match its mesh")
         self.replicated_ops[str(func)] += 1
         warnings.warn(f"sharded: {func} runs on gathered values, "
                       f"replicated on every rank", stacklevel=2)
         mesh = args[0].device_mesh
-        args, kwargs = tree_map_only(DTensor, lambda t: t.full_tensor(),
-                                     (args, kwargs))
+        args, kwargs = tree_map_only(DTensor, _gathered, (args, kwargs))
         return tree_map_only(torch.Tensor, lambda t: DTensor.from_local(
             t, mesh, [Replicate()] * mesh.ndim, run_check=False),
             func(*args, **kwargs))
+
+
+def _gathered(t: DTensor) -> torch.Tensor:
+    """``t``'s whole value on every rank as a plain tensor, for an op run
+    replicated below autograd.  Gathered by DTensor's local
+    redistribution where the release has it (a private API: looked up by
+    name, and ``full_tensor()`` where it is missing): ``full_tensor()``
+    runs an autograd function whose DTensor output some releases (2.11)
+    detach in place, and ``aten.detach_`` has no sharding strategy."""
+    try:
+        from torch.distributed.tensor._dtensor_spec import DTensorSpec
+        from torch.distributed.tensor._redistribute import (
+            redistribute_local_tensor)
+    except ImportError:
+        return t.full_tensor()
+    spec = t._spec
+    whole = DTensorSpec(spec.mesh, (Replicate(),) * spec.mesh.ndim,
+                        tensor_meta=spec.tensor_meta)
+    out = redistribute_local_tensor(t._local_tensor, spec, whole)
+    wait = getattr(out, "wait", None)   # an AsyncCollectiveTensor
+    return wait() if callable(wait) else out
 
 
 class _Pin(torch.autograd.Function):

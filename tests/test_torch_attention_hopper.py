@@ -8,19 +8,24 @@ on inputs made from numpy seeds, and held against the JAX oracles
 (``repro.kernels.ref``):
 
   - the split-span flash-decode (``csrc/decode_attention.cu``): the span
-    plan the wrapper launches by; each span's blocks, warps, tiles and
-    subgroups merged as the kernel merges them; f32 to 1e-5 against
+    plan the wrapper launches by (1024 rows at hd <= 128, 128 above);
+    each span's blocks, warps, tiles and subgroups merged as the narrow
+    body merges them, or its 32-row tiles worked as the wide body (hd
+    256, every head of a kv head in one block) works them; f32 to 1e-5
+    against
     ``ref.decode_attention``, and bitwise equal with and without
     trailing empty spans and between the contiguous and the paged
-    layout (bs 1, 16, 128), which is what lets the card's native ==
+    layout (bs 1, 16, 128), at hd 256 too, which is what lets the card's
+    native ==
     shim, paged == contiguous and one-span == many-span checks hold;
   - the tensor-core flash prefill (``csrc/flash_attention.cu``): 64-row
     query tiles, 64-key tiles, scores in f32, P rounded to bf16 before
     P.V, the sum of the weights in f32; against
-    ``ref.flash_attention`` at hd 64, 80 and 128, causal, windowed and
-    ragged, within the error budget ``_within_budget`` states; which
-    body a call runs (tensor cores at hd 64, 80, 96, 128 in bf16, the
-    CUDA cores otherwise);
+    ``ref.flash_attention`` at hd 64, 80, 128 and 256 (G = 10 and 8
+    over one kv head), causal, windowed and ragged, within the error
+    budget ``_within_budget`` states and the card's row limit; which
+    body a call runs (tensor cores at hd 64, 80, 96, 128, 256 in bf16,
+    the CUDA cores otherwise);
   - the card's bf16 limit (``row_scaled_error`` within
     ``ATTN_BF16_ROW_TOL``): it covers the tensor-core arithmetic at the
     card's long shapes, and a dropped key tile, a dropped span or a
@@ -35,6 +40,10 @@ import re
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from port_threads import share_cores  # noqa: E402
+
+share_cores()
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -55,36 +64,150 @@ L = tda.SPAN
 # the split-span flash-decode
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("hd", [80, 128])
+@pytest.mark.parametrize("hd", [80, 128, 256])
 @pytest.mark.parametrize("S", [1, 128, L, L + 1, 8192])
 def test_decode_span_plan(S, hd):
-    B, H = 8, 32
-    plan = tda.decode_span_plan(B, H, S, hd)
-    spans = -(-S // L)
-    assert plan.spans == spans
-    if S <= L:
-        # the serving shape: one launch, the kernel writes out itself
-        assert plan.scratch_shape is None and plan.combine is False
-    else:
-        assert plan.scratch_shape == (B, H, spans, hd + 2)
-        assert plan.combine is True
+    # stablelm's 32 heads; at hd 256 recurrentgemma's G = 10 and
+    # paligemma's G = 8 over one kv head: the span follows hd alone
+    B = 8
+    span = tda.span_rows(hd)
+    assert span == (L if hd <= 128 else tda.SPAN_WIDE)
+    for H in ((32,) if hd <= 128 else (10, 8)):
+        plan = tda.decode_span_plan(B, H, S, hd)
+        spans = -(-S // span)
+        assert plan.spans == spans
+        if S <= span:
+            # the serving shape: one launch, the kernel writes out itself
+            assert plan.scratch_shape is None and plan.combine is False
+        else:
+            assert plan.scratch_shape == (B, H, spans, hd + 2)
+            assert plan.combine is True
+    # recurrentgemma's 2048-row ring: 16 spans, 128 blocks at 8 slots
+    assert tda.decode_span_plan(8, 10, 2048, 256).spans == 16
 
 
 def test_span_length_matches_the_cuda_source():
     src = (build.CSRC / "decode_attention.cu").read_text()
     assert int(re.search(r"kSpan = (\d+);", src).group(1)) == tda.SPAN
+    assert int(re.search(r"kSpanWide = (\d+);", src).group(1)) == (
+        tda.SPAN_WIDE)
+    assert int(re.search(r"kTileWide = (\d+);", src).group(1)) == TILE_WIDE
+    assert int(re.search(r"kHeadsWide = (\d+);", src).group(1)) == (
+        HEADS_WIDE)
+    assert "return hd <= 128 ? kSpan : kSpanWide;" in src
+    assert [tda.span_rows(hd) for hd in (64, 128, 136, 256)] == [
+        L, L, tda.SPAN_WIDE, tda.SPAN_WIDE]
+
+
+TILE_WIDE = 32         # the wide body's rows per tile (kTileWide)
+HEADS_WIDE = 16        # and its query heads per block (kHeadsWide)
+
+
+def _narrow_span(qg, read, b, kh, ok_row, s_begin, s_end, rj=2):
+    """One span of the narrow body (hd <= 128) for the heads qg [G, hd]:
+    each warp's tiles of 4 x rj rows (two rows a lane), its four
+    subgroups' partial
+    accumulators, then the warps merged in order -> (max [G], sum [G],
+    acc [G, hd])."""
+    G, hd = qg.shape
+    S = len(ok_row)
+    wm, wl, wacc = [], [], []
+    for w in range(WARPS):
+        m = torch.full((G,), NEG)
+        l = torch.zeros(G)
+        acc = torch.zeros(4, G, hd)                  # subgroups
+        for base in range(s_begin, s_end, 32 * rj):
+            rows = torch.tensor([[base + 32 * j + 4 * w + r
+                                  for r in range(4)]
+                                 for j in range(rj)])
+            ok = rows < s_end
+            ok &= ok_row[rows.clamp(max=S - 1)]
+            if not ok.any():
+                continue
+            kr, vr = read(b, kh, rows[ok])
+            k = torch.zeros(rj, 4, hd)
+            v = torch.zeros(rj, 4, hd)
+            k[ok], v[ok] = kr.float(), vr.float()
+            s = torch.einsum("gd,jrd->gjr", qg, k)
+            s = torch.where(ok, s, torch.tensor(NEG))
+            m_new = torch.maximum(m, s.amax(dim=(1, 2)))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[:, None, None])   # [G,rj,4]
+            ps = torch.zeros(G, 4)
+            for j in range(rj):
+                ps = ps + p[:, j]
+            psum = (ps[:, 0] + ps[:, 1]) + (ps[:, 2] + ps[:, 3])
+            l = l * corr + psum
+            for r in range(4):
+                a = acc[r] * corr[:, None]
+                for j in range(rj):
+                    a = a + p[:, j, r, None] * v[j, r]
+                acc[r] = a
+            m = m_new
+        wm.append(m)
+        wl.append(l)
+        wacc.append((acc[0] + acc[1]) + (acc[2] + acc[3]))
+    mx = torch.full((G,), NEG)
+    for w in range(WARPS):
+        mx = torch.maximum(mx, wm[w])
+    tot, num = torch.zeros(G), torch.zeros(G, hd)
+    for w in range(WARPS):
+        c = torch.exp(wm[w] - mx)
+        tot = tot + wl[w] * c
+        num = num + wacc[w] * c[:, None]
+    return mx, tot, num
+
+
+_LANES = torch.arange(TILE_WIDE)
+
+
+def _wide_span(qg, read, b, kh, ok_row, s_begin, s_end):
+    """One span of the wide body (hd > 128) for the heads qg [G, hd]:
+    tiles of 32 rows, each scored against every head, one max and one
+    rescale per head and tile, the weights' sum by the warp's butterfly
+    (lane t holds row t; xor 1, 2, 4, 8, 16), the accumulators adding
+    the valid rows in row order -> (max [G], sum [G], acc [G, hd])."""
+    G, hd = qg.shape
+    S = len(ok_row)
+    m = torch.full((G,), NEG)
+    l = torch.zeros(G)
+    acc = torch.zeros(G, hd)
+    for base in range(s_begin, s_end, TILE_WIDE):
+        rows = base + _LANES
+        ok = (rows < s_end) & ok_row[rows.clamp(max=S - 1)]
+        if not ok.any():
+            continue
+        kr, vr = read(b, kh, rows[ok])
+        k = torch.zeros(TILE_WIDE, hd)
+        v = torch.zeros(TILE_WIDE, hd)
+        k[ok], v[ok] = kr.float(), vr.float()
+        s = torch.where(ok, qg @ k.T, torch.tensor(NEG))       # [G, 32]
+        m_new = torch.maximum(m, s.amax(1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[:, None])
+        ps = p
+        for o in (1, 2, 4, 8, 16):
+            ps = ps + ps[:, _LANES ^ o]
+        l = l * corr + ps[:, 0]
+        acc = acc * corr[:, None]
+        for t in torch.nonzero(ok).flatten().tolist():
+            acc = acc + p[:, t, None] * v[t]
+        m = m_new
+    return m, l, acc
 
 
 def _split_decode(q, read, kv_pos, cur, S, window=0, fault=None):
     """The kernel's arithmetic in its order, in f32: q [B,H,hd];
     ``read(b, kh, rows)`` -> K and V rows [n, hd] of logical ``rows``;
-    kv_pos [B,S] int; cur [B] -> out [B,H,hd].  ``fault`` breaks the
-    combine on purpose: ("drop", s) leaves span s out, ("no_rescale",
-    None) merges the spans without their exp(m_s - M) factors."""
+    kv_pos [B,S] int; cur [B] -> out [B,H,hd].  The narrow body at
+    hd <= 128, the wide one above, each over spans of
+    ``span_rows(hd)`` rows.  ``fault`` breaks the combine on purpose:
+    ("drop", s) leaves span s out, ("no_rescale", None) merges the spans
+    without their exp(m_s - M) factors."""
     B, H, hd = q.shape
     K = read.K
     G = H // K
-    rj = 2 if hd <= 128 else 1           # rows per lane and tile
+    span = tda.span_rows(hd)
     qs = q.float() / math.sqrt(hd)
     plan = tda.decode_span_plan(B, H, S, hd)
     out = torch.zeros(B, H, hd)
@@ -92,74 +215,41 @@ def _split_decode(q, read, kv_pos, cur, S, window=0, fault=None):
         ok_row = ((kv_pos[b] >= 0) & (kv_pos[b] <= cur[b])
                   & ((cur[b] - kv_pos[b] < window) if window else True))
         for kh in range(K):
-            qg = qs[b, kh * G:(kh + 1) * G]                      # [G, hd]
-            parts = []
-            for sp in range(plan.spans):
-                s_begin, s_end = sp * L, min(S, sp * L + L)
-                wm, wl, wacc = [], [], []
-                for w in range(WARPS):
-                    m = torch.full((G,), NEG)
-                    l = torch.zeros(G)
-                    acc = torch.zeros(4, G, hd)                  # subgroups
-                    for base in range(s_begin, s_end, 32 * rj):
-                        rows = torch.tensor([[base + 32 * j + 4 * w + r
-                                              for r in range(4)]
-                                             for j in range(rj)])
-                        ok = rows < s_end
-                        ok &= ok_row[rows.clamp(max=S - 1)]
-                        if not ok.any():
-                            continue
-                        kr, vr = read(b, kh, rows[ok])
-                        k = torch.zeros(rj, 4, hd)
-                        v = torch.zeros(rj, 4, hd)
-                        k[ok], v[ok] = kr.float(), vr.float()
-                        s = torch.einsum("gd,jrd->gjr", qg, k)
-                        s = torch.where(ok, s, torch.tensor(NEG))
-                        m_new = torch.maximum(m, s.amax(dim=(1, 2)))
-                        corr = torch.exp(m - m_new)
-                        p = torch.exp(s - m_new[:, None, None])   # [G,rj,4]
-                        ps = torch.zeros(G, 4)
-                        for j in range(rj):
-                            ps = ps + p[:, j]
-                        psum = (ps[:, 0] + ps[:, 1]) + (ps[:, 2] + ps[:, 3])
-                        l = l * corr + psum
-                        for r in range(4):
-                            a = acc[r] * corr[:, None]
-                            for j in range(rj):
-                                a = a + p[:, j, r, None] * v[j, r]
-                            acc[r] = a
-                        m = m_new
-                    wm.append(m)
-                    wl.append(l)
-                    wacc.append((acc[0] + acc[1]) + (acc[2] + acc[3]))
-                mx = torch.full((G,), NEG)
-                for w in range(WARPS):
-                    mx = torch.maximum(mx, wm[w])
-                tot, num = torch.zeros(G), torch.zeros(G, hd)
-                for w in range(WARPS):
-                    c = torch.exp(wm[w] - mx)
-                    tot = tot + wl[w] * c
-                    num = num + wacc[w] * c[:, None]
-                parts.append((mx, tot, num))
-            if plan.spans == 1:
-                mx, tot, num = parts[0]
-                res = num / torch.clamp(tot, min=1e-30)[:, None]
-            else:                                # the combine, span order
-                M = torch.full((G,), NEG)
-                for mx, _, _ in parts:
-                    M = torch.maximum(M, mx)
-                tot, num = torch.zeros(G), torch.zeros(G, hd)
-                for sp, (mx, t, n) in enumerate(parts):
-                    if fault == ("drop", sp):
-                        continue
-                    c = torch.exp(mx - M)
-                    if fault == ("no_rescale", None):
-                        c = torch.ones_like(c)
-                    tot = tot + t * c
-                    num = num + n * c[:, None]
-                res = num / torch.clamp(tot, min=1e-30)[:, None]
-            out[b, kh * G:(kh + 1) * G] = res
+            # the narrow body's groups of 4 heads merge every head alike;
+            # the wide body takes up to 16 heads a block
+            step = G if hd <= 128 else HEADS_WIDE
+            for g0 in range(0, G, step):
+                qg = qs[b, kh * G + g0:kh * G + min(G, g0 + step)]
+                parts = []
+                for sp in range(plan.spans):
+                    s_begin, s_end = sp * span, min(S, sp * span + span)
+                    body = _narrow_span if hd <= 128 else _wide_span
+                    parts.append(body(qg, read, b, kh, ok_row, s_begin,
+                                      s_end))
+                out[b, kh * G + g0:kh * G + g0 + len(qg)] = _combine(
+                    parts, plan.spans, fault)
     return out
+
+
+def _combine(parts, spans, fault):
+    """One span's result written directly, or the spans merged in span
+    order as combine_kernel merges them."""
+    if spans == 1:
+        mx, tot, num = parts[0]
+        return num / torch.clamp(tot, min=1e-30)[:, None]
+    M = torch.full_like(parts[0][0], NEG)
+    for mx, _, _ in parts:
+        M = torch.maximum(M, mx)
+    tot, num = torch.zeros_like(M), torch.zeros_like(parts[0][2])
+    for sp, (mx, t, n) in enumerate(parts):
+        if fault == ("drop", sp):
+            continue
+        c = torch.exp(mx - M)
+        if fault == ("no_rescale", None):
+            c = torch.ones_like(c)
+        tot = tot + t * c
+        num = num + n * c[:, None]
+    return num / torch.clamp(tot, min=1e-30)[:, None]
 
 
 def _contiguous(k, v):
@@ -204,11 +294,15 @@ def _decode_inputs(B, H, K, S, hd, lengths, seed):
 
 
 # (B, H, K, S, hd, valid rows per slot): one span, the serving shape's
-# few valid rows, GQA; two and three spans; a ragged last span
+# few valid rows, GQA; two and three spans; a ragged last span; the wide
+# body at hd 256: paligemma's G = 8 at the serving shape, recurrentgemma's
+# G = 10 over a 2048-row cache (16 spans)
 DECODE = {
     "serving_one_span": (3, 4, 4, 128, 80, [17, 31, 1]),
     "gqa_two_spans": (2, 8, 2, 2 * L, 32, [2 * L, 600]),
     "ragged_three_spans": (2, 4, 4, 2 * L + 128, 80, [2 * L + 128, 5]),
+    "wide_g8_serving": (3, 8, 1, 128, 256, [17, 31, 1]),
+    "wide_g10_sixteen_spans": (2, 10, 1, 2048, 256, [2048, 600]),
 }
 
 
@@ -226,15 +320,21 @@ def test_split_span_emulation_matches_ref(case):
 
 
 @pytest.mark.parametrize("extra_spans", [1, 3])
-@pytest.mark.parametrize("S", [128, L + 64])
-def test_split_span_trailing_empty_spans_change_no_bit(S, extra_spans):
+@pytest.mark.parametrize("S,hd", [
+    pytest.param(128, 80, id="128"), pytest.param(L + 64, 80, id=str(L + 64)),
+    # the wide body: one span of 128 rows, and two
+    pytest.param(128, 256, id="128-hd256"),
+    pytest.param(192, 256, id="192-hd256")])
+def test_split_span_trailing_empty_spans_change_no_bit(S, hd, extra_spans):
     """The same valid rows in a cache of S rows and in one of
-    S + extra_spans * L rows whose extra rows are empty: the same bytes,
-    whether S is one span (out written directly) or two (the combine)."""
-    B, H, K, hd = 2, 4, 2, 80
+    S + extra_spans spans' rows whose extra rows are empty: the same
+    bytes, whether S is one span (out written directly) or two (the
+    combine); at hd 256 with recurrentgemma's G = 10."""
+    B = 2
+    H, K = (4, 2) if hd <= 128 else (10, 1)
     lengths = [S, S // 2 + 3]
     q, k, v, kv, cur = _decode_inputs(B, H, K, S, hd, lengths, 12)
-    S2 = S + extra_spans * L
+    S2 = S + extra_spans * tda.span_rows(hd)
     k2 = np.zeros((B, K, S2, hd), np.float32)
     v2 = np.zeros_like(k2)
     k2[:, :, :S], v2[:, :, :S] = k, v
@@ -251,9 +351,15 @@ def test_split_span_trailing_empty_spans_change_no_bit(S, extra_spans):
 @pytest.mark.parametrize("bs", [1, 16, 128])
 def test_split_span_paged_equals_contiguous(bs):
     """The paged layout changes only the row a key is read from: the
-    same bytes as the contiguous cache, over one span and over two."""
-    for S, lengths in ((128, [100, 17]), (2 * L, [2 * L - 5, 300])):
-        B, H, K, hd = 2, 4, 2, 32
+    same bytes as the contiguous cache, over one span and over two; at
+    hd 32 (the narrow body) and at hd 256 with G = 10 (the wide one)."""
+    W = tda.SPAN_WIDE
+    for S, lengths, (H, K, hd) in (
+            (128, [100, 17], (4, 2, 32)),
+            (2 * L, [2 * L - 5, 300], (4, 2, 32)),
+            (W, [W - 28, 17], (10, 1, 256)),
+            (4 * W, [4 * W - 5, 150], (10, 1, 256))):
+        B = 2
         q, k, v, kv, cur = _decode_inputs(B, H, K, S, hd, lengths, 13)
         t = torch.from_numpy
         contiguous = _split_decode(t(q), _contiguous(t(k), t(v)), t(kv),
@@ -337,6 +443,11 @@ FLASH = {
     "hd80_window_offset": (1, 2, 2, 70, 110, 80, True, 37, 40),
     "hd64_full_ragged": (1, 2, 2, 65, 129, 64, False, 0, 0),
     "hd128_serving_prompt": (2, 2, 2, 16, 16, 128, True, 0, 0),
+    # hd 256: recurrentgemma's G = 10 over one kv head, windowed and
+    # ragged; causal, ragged, with an offset; paligemma's serving prompt
+    "hd256_window_g10_ragged": (1, 10, 1, 150, 150, 256, True, 48, 0),
+    "hd256_causal_offset": (1, 2, 1, 70, 110, 256, True, 0, 40),
+    "hd256_serving_prompt_g8": (2, 8, 1, 16, 16, 256, True, 0, 0),
 }
 
 
@@ -366,6 +477,8 @@ def test_tensor_core_flash_emulation_matches_ref(case):
     want = np.asarray(ref.flash_attention(
         *(jnp.asarray(t.float().numpy()) for t in (q, k, v)), **kw))
     _within_budget(got, want, v)
+    # and the card's limit, each row against its largest output
+    assert row_scaled_error(got, torch.tensor(want)) <= ATTN_BF16_ROW_TOL
     # and with the port's plain version, the card's reference, in f32
     plain = tfa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
     _within_budget(got, plain, v)
@@ -401,8 +514,11 @@ BF16, F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize("q_dtype,kv_dtype,hd,want", [
     (BF16, BF16, 64, "tensor_cores"), (BF16, BF16, 80, "tensor_cores"),
     (BF16, BF16, 96, "tensor_cores"), (BF16, BF16, 128, "tensor_cores"),
-    # the smoke configurations' head dim and the widest the kernel takes
-    (BF16, BF16, 32, "cuda_cores"), (BF16, BF16, 256, "cuda_cores"),
+    # recurrentgemma's and paligemma's, the widest the kernel takes
+    (BF16, BF16, 256, "tensor_cores"),
+    # the smoke configurations' head dim, and others the body does not take
+    (BF16, BF16, 32, "cuda_cores"), (BF16, BF16, 48, "cuda_cores"),
+    (BF16, BF16, 192, "cuda_cores"),
     # an f32 operand: the f32 parity path
     (F32, F32, 80, "cuda_cores"), (F32, BF16, 80, "cuda_cores"),
     (BF16, F32, 128, "cuda_cores"),
@@ -422,6 +538,9 @@ CARD_FLASH = {
     "prefill_long_hd64_bf16": (1, 2, 2, 2048, 64, 0),
     "prefill_ragged_bf16": (1, 2, 2, 1000, 80, 0),
     "prefill_gqa_window_bf16": (1, 4, 1, 512, 128, 128),
+    # recurrentgemma's prefill_hybrid at hd 256 and G = 10, its prompt and
+    # window cut to 600 and 256 (the card's: 3,000 and 2048)
+    "prefill_hybrid_short": (1, 10, 1, 600, 256, 256),
 }
 
 
@@ -443,7 +562,8 @@ def test_row_tolerance_covers_the_tensor_core_arithmetic(case):
 
 
 @pytest.mark.parametrize("case", ["prefill_long", "prefill_ragged_bf16",
-                                  "prefill_gqa_window_bf16"])
+                                  "prefill_gqa_window_bf16",
+                                  "prefill_hybrid_short"])
 @pytest.mark.parametrize("where", ["first", "last"])
 def test_row_tolerance_fails_a_dropped_key_tile(case, where):
     """A query tile that skips one key tile, the first or the last one

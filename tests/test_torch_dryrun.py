@@ -26,6 +26,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from port_threads import share_cores  # noqa: E402
+
+share_cores()
+
 from repro.configs import (ARCH_IDS, INPUT_SHAPES,  # noqa: E402
                            applicable, get_config as jget, get_shape,
                            get_smoke_config as jsmoke, shape_variant)

@@ -14,6 +14,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from port_threads import share_cores  # noqa: E402
+
+share_cores()
+
 import json  # noqa: E402
 
 import numpy as np  # noqa: E402

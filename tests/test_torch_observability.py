@@ -18,6 +18,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from port_threads import share_cores  # noqa: E402
+
+share_cores()
+
 from repro_torch.kernels import build, graphs  # noqa: E402
 from repro_torch.launch import compile_cache  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402

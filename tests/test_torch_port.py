@@ -13,6 +13,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from port_threads import share_cores  # noqa: E402
+
+share_cores()
+
 import numpy as np  # noqa: E402
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
@@ -171,3 +175,15 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
     alone = _run_smoke(tmp_path, env)
     assert alone.returncode != 0
     assert '"ok"' not in alone.stdout
+
+
+@pytest.mark.parametrize("script", ["entropy_compare.py",
+                                    "attention_compare.py"])
+def test_compare_scripts_need_a_card(script):
+    env = _env()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, str(ROOT / "scripts" / script)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, env=env)
+    assert out.returncode != 0
+    assert "needs a CUDA card" in out.stderr

@@ -36,6 +36,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from port_threads import share_cores  # noqa: E402
+
+share_cores()
+
 import torch.distributed as dist  # noqa: E402
 import torch.multiprocessing as mp  # noqa: E402
 

@@ -14,6 +14,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from port_threads import share_cores  # noqa: E402
+
+share_cores()
+
 import numpy as np  # noqa: E402
 
 from repro.core import AdmissionController as JController  # noqa: E402

@@ -33,6 +33,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from port_threads import share_cores  # noqa: E402
+
+share_cores()
+
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
