@@ -556,7 +556,8 @@ GEN_PROMPT_LEN = 16
 # the speculative ones when speculative: ref launch/serve.py:446-458)
 DECODE_STATS = ("mode", "decode_steps", "occupancy", "host_syncs",
                 "prefill_calls", "device_s", "prefill_s", "window",
-                "window_issue_s", "capture_s", "captures", "pool_blocks",
+                "window_issue_s", "window_sync_s", "harvest_s", "caller_s",
+                "capture_s", "captures", "pool_blocks",
                 "blocks_allocated", "blocks_freed", "peak_blocks_in_use",
                 "free_blocks", "draft_layers", "spec_proposed",
                 "spec_accepted", "acceptance_rate", "accepted_per_step",

@@ -113,9 +113,28 @@ Invariants, as the reference's:
   slot (ref ``continuous.py:1001-1092``).  Like a refill it writes the
   pool and the slot state in place, so a window captured before the
   insert reads the inserted rows when it is replayed.
+
+- **Spans and counters.**  A session's ``tracer`` (``NULL_TRACER``
+  unless ``start_session(tracer=...)`` passes one) records each
+  ``advance`` as a tree of host spans: ``decode.advance``, and under it
+  ``decode.insert``, ``decode.refill`` (``.alloc``, ``.prefill``,
+  ``.scatter``, ``.first``: the row cache, the prefill, its write into
+  the pool, the first tokens and their host sync), ``decode.window.issue``
+  (the graph's replay), ``decode.window.sync`` (the one copy back) and
+  ``decode.harvest`` (the slots' tokens and completions).  With a
+  ``WallClock`` tracer the spans lie on a ``torch.profiler`` trace's
+  timeline (``WallClock.epoch_ns``), so the card's idle time in an
+  operator's trace can be put down to them.  The counters in
+  ``stats()`` are kept whether or not a tracer is on: ``device_s``,
+  ``prefill_s`` and ``window_issue_s`` as before, the sync's wait
+  (``window_sync_s``), the harvest (``harvest_s``), and the caller's
+  own time between one ``advance`` and the next while slots are active
+  (``caller_s``).  No span is a ``record_function`` range: the
+  profiler would give those a device-side copy.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 
@@ -131,6 +150,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.serving import sampling as smp
 from repro_torch.serving.engine import bucket_size
 from repro_torch.serving.sampling import SamplingParams
+from repro_torch.telemetry.trace import NULL_TRACER, Tracer
 
 
 @dataclass
@@ -685,9 +705,9 @@ class ContinuousBatchingEngine:
         return r.sampling if r.sampling is not None else self.default_sampling
 
     # -- serving ------------------------------------------------------------
-    def start_session(self, prompt_len: int | None = None
-                      ) -> "DecodeSession":
-        return DecodeSession(self, prompt_len=prompt_len)
+    def start_session(self, prompt_len: int | None = None, *,
+                      tracer: Tracer = NULL_TRACER) -> "DecodeSession":
+        return DecodeSession(self, prompt_len=prompt_len, tracer=tracer)
 
     def serve(self, requests: list[GenRequest], *,
               prompt_len: int | None = None, legacy: bool = False) -> dict:
@@ -718,11 +738,6 @@ class ContinuousBatchingEngine:
             n_admitted=sum(r.admitted for r in requests),
             tokens_generated=sum(len(r.generated) for r in requests),
             wall_s=wall,
-            host_s=max(wall - stats["device_s"], 0.0),
-            host_sync_frac=(max(wall - stats["device_s"], 0.0)
-                            / wall if wall > 0 else 0.0),
-            steps_per_s=(stats["decode_steps"] / wall if wall > 0
-                         else 0.0),
         )
         return stats
 
@@ -827,6 +842,35 @@ class ContinuousBatchingEngine:
 # incremental session — what the serving adapter drives
 # ---------------------------------------------------------------------------
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _traced(tracer: Tracer, name: str, parent):
+    s = tracer.begin(name, parent=parent)
+    try:
+        yield s
+    finally:
+        tracer.end(s)
+
+
+def _phase(tracer: Tracer, name: str, parent):
+    """A span named ``name`` under ``parent`` around a with-block (bound
+    to the span), or nothing where ``parent`` is None: tracing is off."""
+    return _NO_SPAN if parent is None else _traced(tracer, name, parent)
+
+
+def _describe_wave(span, reqs: list[GenRequest], rows: int, plen: int) -> None:
+    """A refill span's attributes: the wave's requests, the prefill's
+    rows (padding rows too), the padded length, and the prompt tokens
+    real and as prefilled."""
+    if span is not None:
+        span.attrs.update(
+            rids=[r.rid for r in reqs], rows=rows, plen=plen,
+            prompt_tokens=sum(min(len(r.prompt), plen) for r in reqs),
+            padded_tokens=rows * plen)
+
+
 class DecodeSession:
     """One slot-pool decode session.  ``push`` enqueues at any time;
     ``advance`` refills free slots with one prefill, runs one
@@ -836,9 +880,12 @@ class DecodeSession:
     CUDA graph of the window reads and writes)."""
 
     def __init__(self, engine: ContinuousBatchingEngine,
-                 prompt_len: int | None = None):
+                 prompt_len: int | None = None, *,
+                 tracer: Tracer = NULL_TRACER):
         self.engine = engine
         self.prompt_len = prompt_len
+        self.tracer = tracer
+        self._span = None               # the open decode.advance span
         B, dev = engine.n_slots, engine.device
         self.queue: list[GenRequest] = []
         self.slots: list[GenRequest | None] = [None] * B
@@ -892,6 +939,12 @@ class DecodeSession:
         self.prefill_s = 0.0            # of which prefills
         self.issue_s = 0.0              # of the windows': issuing them
         self.capture_s = 0.0            # of which capturing graphs
+        self.window_sync_s = 0.0        # of the windows': the host sync
+        self.harvest_s = 0.0            # after the sync, to advance's return
+        # between an advance's return, with slots active, and the next
+        # advance: the caller's own loop
+        self.caller_s = 0.0
+        self._t_return = None
         self.captures = 0
         # speculative decode telemetry
         self.spec_proposed = 0          # drafted tokens offered to verify
@@ -1016,15 +1069,22 @@ class DecodeSession:
     # -- refill -------------------------------------------------------------
     @torch.no_grad()
     def _refill(self) -> None:
-        eng = self.engine
-        B, dev = eng.n_slots, eng.device
-        free = [s for s in range(B) if not self._active_host[s]]
+        free = [s for s in range(self.engine.n_slots)
+                if not self._active_host[s]]
         take = min(len(free), len(self.queue))
         if take == 0:
             return
-        if eng.paged:
-            self._refill_paged(free, take)
-            return
+        # the span's self time is the host's planning: the queue, the
+        # wave's arrays and the prompt tokens' copy to the device
+        with _phase(self.tracer, "decode.refill", self._span) as span:
+            if self.engine.paged:
+                self._refill_paged(free, take, span)
+            else:
+                self._refill_contiguous(free, take, span)
+
+    def _refill_contiguous(self, free: list[int], take: int, span) -> None:
+        eng, tr = self.engine, self.tracer
+        B, dev = eng.n_slots, eng.device
         reqs = [self.queue.pop(0) for _ in range(take)]
         # the reference's prompt-length rule: a fixed prompt_len, else the
         # wave's longest prompt rounded up to a bucket
@@ -1032,17 +1092,22 @@ class DecodeSession:
             _bucket(max(max(len(r.prompt) for r in reqs), 1)),
             eng.max_seq - 1)
         nb = eng.prefill_rows(take)
+        _describe_wave(span, reqs, nb, plen)
         toks, rem_new, eos_new = _wave_arrays(reqs, plen, nb)
         slot_idx = np.asarray(free[:take])
         t0 = time.perf_counter()
-        rows = eng.init_cache(nb)
-        logits, rows = eng.params.prefill(torch.from_numpy(toks).to(dev),
-                                          rows)
+        with _phase(tr, "decode.refill.alloc", span):
+            rows = eng.init_cache(nb)
+        toks_d = torch.from_numpy(toks).to(dev)
+        with _phase(tr, "decode.refill.prefill", span):
+            logits, rows = eng.params.prefill(toks_d, rows)
         # padding rows go to slot B, out of range: not written
-        slot_write(self._pool, rows, np.pad(slot_idx, (0, nb - take),
-                                            constant_values=B))
-        first_h = self._start_slots(logits[:take], slot_idx, plen, rem_new,
-                                    eos_new, reqs)
+        with _phase(tr, "decode.refill.scatter", span):
+            slot_write(self._pool, rows, np.pad(slot_idx, (0, nb - take),
+                                                constant_values=B))
+        with _phase(tr, "decode.refill.first", span):
+            first_h = self._start_slots(logits[:take], slot_idx, plen,
+                                        rem_new, eos_new, reqs)
         dt = time.perf_counter() - t0
         self.device_s += dt
         self.prefill_s += dt
@@ -1121,7 +1186,7 @@ class DecodeSession:
         self._table_h[s] = 0
         self._table_dirty = True
 
-    def _refill_paged(self, free: list[int], take: int) -> None:
+    def _refill_paged(self, free: list[int], take: int, span) -> None:
         """Paged refill (ref ``continuous.py:1174-1270``): reserve each
         request's WHOLE block budget before seating it.  FIFO: the head
         waits while the pool cannot cover its budget.  The wave, and its
@@ -1131,7 +1196,7 @@ class DecodeSession:
         plen grows only with the members actually taken, so a long
         prompt deeper in the queue never inflates an earlier request's
         budget (that error is judged at the request's own padding)."""
-        eng = self.engine
+        eng, tr = self.engine, self.tracer
         dev = eng.device
         bs = eng.cfg.kv_block_size
         allocatable = eng.pool_blocks - 1           # block 0 = trash
@@ -1170,6 +1235,7 @@ class DecodeSession:
         reqs = [self.queue.pop(0) for _ in wave]
         n, npb = len(reqs), -(-plen // bs)
         nb = eng.prefill_rows(n)
+        _describe_wave(span, reqs, nb, plen)
         toks, rem_new, eos_new = _wave_arrays(reqs, plen, nb)
         # padding rows' entries and slots are out of range: not written
         table_rows = np.full((nb, eng.blocks_per_slot), eng.pool_blocks,
@@ -1182,15 +1248,19 @@ class DecodeSession:
         self.peak_blocks_in_use = max(self.peak_blocks_in_use,
                                       allocatable - len(self._free_blocks))
         t0 = time.perf_counter()
-        rows = eng.init_cache(nb, npb * bs, layout="contiguous")
-        logits, rows = eng.params.prefill(torch.from_numpy(toks).to(dev),
-                                          rows)
-        paged_slot_write(self._pool, rows,
-                         np.pad(slot_idx, (0, nb - n),
-                                constant_values=eng.n_slots),
-                         table_rows, block_size=bs, n_pref_blocks=npb)
-        first_h = self._start_slots(logits[:n], slot_idx, plen, rem_new,
-                                    eos_new, reqs)
+        with _phase(tr, "decode.refill.alloc", span):
+            rows = eng.init_cache(nb, npb * bs, layout="contiguous")
+        toks_d = torch.from_numpy(toks).to(dev)
+        with _phase(tr, "decode.refill.prefill", span):
+            logits, rows = eng.params.prefill(toks_d, rows)
+        with _phase(tr, "decode.refill.scatter", span):
+            paged_slot_write(self._pool, rows,
+                             np.pad(slot_idx, (0, nb - n),
+                                    constant_values=eng.n_slots),
+                             table_rows, block_size=bs, n_pref_blocks=npb)
+        with _phase(tr, "decode.refill.first", span):
+            first_h = self._start_slots(logits[:n], slot_idx, plen, rem_new,
+                                        eos_new, reqs)
         dt = time.perf_counter() - t0
         self.device_s += dt
         self.prefill_s += dt
@@ -1205,8 +1275,32 @@ class DecodeSession:
     def advance(self) -> list[GenRequest]:
         """Refill free slots, run one ``sync_every``-step window,
         harvest.  Returns the requests COMPLETED by this window."""
-        eng = self.engine
-        self._drain_inserts()
+        t_in = time.perf_counter()
+        if self._t_return is not None:
+            self.caller_s += t_in - self._t_return
+        tr = self.tracer
+        if tr.enabled:
+            self._span = tr.begin("decode.advance", active=self.n_active,
+                                  queued=self.n_queued)
+        try:
+            return self._advance()
+        finally:
+            if self._span is not None:
+                tr.end(self._span)
+                self._span = None
+            self._t_return = (time.perf_counter()
+                              if self._active_host.any() else None)
+
+    def _advance(self) -> list[GenRequest]:
+        eng, tr, root = self.engine, self.tracer, self._span
+        if self._insert_q:
+            # a span only for a drain that seats a request
+            seated = self.insert_calls
+            t = tr.clock.now() if root is not None else None
+            self._drain_inserts()
+            if root is not None and self.insert_calls > seated:
+                tr.span("decode.insert", t, tr.clock.now(), parent=root,
+                        seated=self.insert_calls - seated)
         self._refill()
         done_at_prefill, self._prefill_done = self._prefill_done, []
         if not self._active_host.any():
@@ -1220,19 +1314,33 @@ class DecodeSession:
         # reference's lax.cond, decided on the host)
         kind = ("sampled" if (self._temp_h[self._active_host] > 0).any()
                 else "greedy")
-        spec = eng.draft_depth > 0
-        if spec:
-            depth = eng.current_depth()
+        depth = eng.current_depth() if eng.draft_depth > 0 else 0
+        if depth:
             self.last_depth = depth
             self._depth_cap.fill_(depth)
         t0 = time.perf_counter()
-        self._run_window(kind)
+        with _phase(tr, "decode.window.issue", root):
+            self._run_window(kind)
         t1 = time.perf_counter()
         # ONE host sync per window: tokens, emission masks and live flags
         # come back in a single copy
-        packed = self._packed.cpu().numpy()
-        self.device_s += time.perf_counter() - t0
+        with _phase(tr, "decode.window.sync", root):
+            packed = self._packed.cpu().numpy()
+        t2 = time.perf_counter()
+        self.device_s += t2 - t0
         self.issue_s += t1 - t0
+        self.window_sync_s += t2 - t1
+        with _phase(tr, "decode.harvest", root):
+            completed = self._harvest(packed, done_at_prefill, depth)
+        self.harvest_s += time.perf_counter() - t2
+        return completed
+
+    def _harvest(self, packed: np.ndarray, done_at_prefill: list,
+                 depth: int) -> list[GenRequest]:
+        """The window's copy read back into the slots and the counters:
+        each seated request's new tokens, and the requests that finished
+        (the slot freed, and on a paged pool its blocks)."""
+        eng = self.engine
         m = self._emissions
         toks_h = packed[:m]                   # chronological
         emit_h = packed[m:2 * m].astype(bool)
@@ -1245,7 +1353,7 @@ class DecodeSession:
         live = emit3[:, 0, :]
         self.decode_steps += int(live.any(axis=1).sum())
         self.occupied_slot_steps += int(live.sum())
-        if spec:
+        if eng.draft_depth > 0:
             accepted = int(emit3[:, 1:, :].sum())
             proposed = int(live.sum()) * depth
             self.spec_accepted += accepted
@@ -1338,6 +1446,9 @@ class DecodeSession:
             "prefill_s": self.prefill_s,
             "window": "graph" if eng.graphed else "eager",
             "window_issue_s": self.issue_s,
+            "window_sync_s": self.window_sync_s,
+            "harvest_s": self.harvest_s,
+            "caller_s": self.caller_s,
             "capture_s": self.capture_s,
             "captures": self.captures,
         }

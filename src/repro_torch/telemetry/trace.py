@@ -54,10 +54,19 @@ __all__ = [
 
 
 class WallClock:
-    """Monotonic wall clock, re-zeroed at construction so traces start ~0."""
+    """Monotonic wall clock, re-zeroed at construction so traces start ~0.
+
+    ``epoch_ns`` is the same zero on ``time.time_ns()``'s scale, which is
+    the scale ``torch.profiler`` (Kineto) puts its host and device events
+    on: a span timed ``t`` seconds after the zero lies at ``epoch_ns +
+    t * 1e9 - trace_start_ns`` nanoseconds on a profile's timeline (its
+    ``FunctionEvent.time_range`` is that over 1e3), where
+    ``trace_start_ns`` is ``prof.profiler.kineto_results.trace_start_ns()``.
+    """
 
     def __init__(self) -> None:
         self._t0 = time.perf_counter()
+        self.epoch_ns = time.time_ns()
 
     def now(self) -> float:
         return time.perf_counter() - self._t0
