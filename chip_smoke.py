@@ -91,7 +91,11 @@ not 0.  Phases:
                output) at the generate path's shapes, long shapes (one
                user's 8192-row context among them), ragged and GQA +
                window cases, granite-moe-3b-a800m's G = 3 shapes (24
-               query heads over 8 KV heads of 64: ``*_granite``), the
+               query heads over 8 KV heads of 64: ``*_granite``, and
+               ``decode_granite_backlog``, its decode-backlog cell's 128
+               slots over 2048 rows, ~840 live), llama3's G = 16 at hd
+               128 (``decode_llama3``; each decode row prints the body
+               that ran and ``gqa_launches``), the
                smoke configuration's hd 32 and the disaggregated path's
                (``*_disagg*``: batch-1 prefills of 8 and 32 tokens, a
                decode worker's 8 slots over 64 rows, contiguous and
@@ -104,15 +108,19 @@ not 0.  Phases:
                launches; then ``decode_invariance``: the serving case's
                valid rows in a 128-row and in a mostly empty 4096-row
                cache, contiguous and paged, all equal byte for byte, at
-               stablelm's 32/32 heads of 80 and granite's 24/8 of 64;
+               stablelm's 32/32 heads of 80, granite's 24/8 of 64,
+               llama3's 128/8 of 128, the smoke configuration's 16/4 of
+               16 and recurrentgemma's 10/1 of 256;
      spec_chunk — the verify chunk's entry on the flash-decode body
                (``decode_attention_chunk_cuda``, n query rows per slot)
                against its plain version (f32 to 1e-4; bf16 to 3e-2 and
                each row to 2^-6 of its largest output) at the serving
                shape (8 slots x 4 queries x 32 heads, 128 rows, 17-31
-               valid), a 4096-row cache (spans merged), ragged starts and
+               valid), a 4096-row cache (spans merged), ragged starts,
                a chunk written by ``cache_write_chunk`` whose last rows
-               clamp onto the cache's last row; row j ``torch.equal`` to
+               clamp onto the cache's last row, and granite's 24/8 heads
+               of 64 (the GQA body) at 128 and 4096 rows; row j
+               ``torch.equal`` to
                the single-query kernel at ``start + j``; timed beside its
                bound, the n single-query launches and SDPA with the
                [B, H, n, S] mask;
@@ -583,11 +591,15 @@ def phase_build():
                                              "decode_attention")
              for fn, rep in ptxas.get(lib, {}).items()
              if "ILi256" in fn or fn.startswith("decode_wide_kernel")}
+    # the GQA decode body's instances, by types, layout, heads and head dims
+    gqa = {fn: rep for fn, rep in ptxas.get("decode_attention", {}).items()
+           if fn.startswith("decode_kernel_gqa")}
     emit(phase="build", seconds=secs,
          library_seconds=dict(build.build_seconds),
          libraries={n: os.path.relpath(p, ROOT) for n, p in paths.items()},
          flash_sass_hgmma=hgmma, ssd_sass_hmma=ssd_tc["HMMA"],
-         ssd_sass_hgmma=ssd_tc["HGMMA"], ptxas_hd256=hd256, ptxas=ptxas)
+         ssd_sass_hgmma=ssd_tc["HGMMA"], ptxas_hd256=hd256, ptxas_gqa=gqa,
+         ptxas=ptxas)
 
 
 # entropy cases: the gated step's [64 or 128, 2] and its edges (one row,
@@ -1253,6 +1265,11 @@ def attention_bound_ms(kind, case, valid_pairs, peaks):
                                        else "operations")
 
 
+# live rows of granite's 128 slots in the decode-backlog cell: lognormal
+# about the ~840 a slot that its live K/V (7.06-7.09 GB over 32 layers)
+# works out to, within the 2048-row cache
+GRANITE_BACKLOG_ROWS = np.clip(np.round(np.exp(np.random.default_rng(31).normal(
+    np.log(840), 0.45, 128))), 64, 2047).astype(int).tolist()
 ATTN_CASES = [
     # the generate path's shapes: prefill of up to 8 prompts of 16 tokens,
     # a decode step at 8 slots over the 128-row bf16 pool
@@ -1273,6 +1290,15 @@ ATTN_CASES = [
     dict(name="paged_granite", kind="paged", B=8, H=24, K=8, S=128, hd=64,
          bs=16, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
          lengths=list(range(17, 33, 2)), iters=200),
+    # granite's decode-backlog cell: 128 slots over a 2048-row cache, live
+    # rows about its measured mean of ~840 a slot (two spans, the merge)
+    dict(name="decode_granite_backlog", kind="decode", B=128, H=24, K=8,
+         S=2048, hd=64, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         lengths=GRANITE_BACKLOG_ROWS, ring=False, iters=20),
+    # llama3-405b's G = 16 at hd 128 (128 over 8 heads), 8 long contexts
+    dict(name="decode_llama3", kind="decode", B=8, H=128, K=8, S=2048,
+         hd=128, qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0,
+         lengths=[1500 + 61 * b for b in range(8)], ring=False, iters=20),
     # long shapes
     dict(name="prefill_long", kind="flash", B=1, H=32, K=32, S=2048, hd=80,
          qdt=torch.bfloat16, kvdt=torch.bfloat16, window=0, iters=5),
@@ -1490,9 +1516,9 @@ def phase_attention(peaks):
                 q, k, v, kv_pos, cur, window=window)
             lib = _library_call(kind, q, k, v, mask, False)
             name = "decode_attention"
-        da_mod.combine_launches = 0
+        da_mod.combine_launches = da_mod.gqa_launches = 0
         got, want = kern(), plain()
-        combines = da_mod.combine_launches
+        combines, gqa = da_mod.combine_launches, da_mod.gqa_launches
         if kind == "paged":
             fail_unless(torch.equal(got, shim()),
                         f"{case['name']}: paged kernel != gather shim")
@@ -1547,7 +1573,12 @@ def phase_attention(peaks):
             fail_unless(combines == plan.combine,
                         f"{case['name']}: {combines} span merges for "
                         f"{plan.spans} spans")
-            row.update(spans=plan.spans, combine_launches=combines)
+            body = da_mod.decode_body(H, K, hd)
+            fail_unless(gqa == (body == "gqa"),
+                        f"{case['name']}: {gqa} GQA-body launches on the "
+                        f"{body} body")
+            row.update(spans=plan.spans, combine_launches=combines,
+                       body=body, gqa_launches=gqa)
         if kind == "paged":
             row.update(bs=case["bs"], pool_blocks=kp.shape[0],
                        pool_bytes=2 * kp.numel() * kp.element_size(),
@@ -1571,8 +1602,10 @@ def phase_attention(peaks):
                                     "call_ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "max_abs_err",
                                     "row_scaled_err")}
-    # stablelm, granite, recurrentgemma (G = 10, hd 256)
-    for H, K, hd in ((32, 32, 80), (24, 8, 64), (10, 1, 256)):
+    # stablelm, granite, llama3 (G = 16, hd 128), the smoke configuration's
+    # G = 4 at hd 16, recurrentgemma (G = 10, hd 256)
+    for H, K, hd in ((32, 32, 80), (24, 8, 64), (128, 8, 128), (16, 4, 16),
+                     (10, 1, 256)):
         phase_decode_invariance(gen, H, K, hd)
     return out
 
@@ -2823,6 +2856,12 @@ SPEC_CHUNK_CASES = [
     # paligemma-3b's verify at D = 3: 8 query heads over 1 KV head of 256
     ("paligemma_bf16", torch.bfloat16, 8, 4, 128, list(range(17, 33, 2)),
      (8, 1, 256)),
+    # granite's verify (the GQA body): 24 over 8 heads of 64, one span and
+    # a 4096-row cache
+    ("granite_bf16", torch.bfloat16, 8, 4, 128, list(range(17, 33, 2)),
+     (24, 8, 64)),
+    ("granite_long_4096_bf16", torch.bfloat16, 8, 4, 4096,
+     [4096 - 37 * b for b in range(8)], (24, 8, 64)),
 ]
 
 
@@ -3680,7 +3719,7 @@ MOE_ARCH, MLA_ARCH = "granite-moe-3b-a800m", "minicpm3-4b"
 MOE_LAYER_TOL = 1e-4
 _COUNTERS = ((fa_mod, "launches"), (da_mod, "launches"),
              (da_mod, "paged_launches"), (da_mod, "chunk_launches"),
-             (ssd_mod, "launches"))
+             (da_mod, "gqa_launches"), (ssd_mod, "launches"))
 
 
 def _zero_counters() -> None:
@@ -3693,6 +3732,7 @@ def _attention_launches() -> dict:
             "decode_attention": da_mod.launches,
             "paged_decode_attention": da_mod.paged_launches,
             "decode_attention_chunk": da_mod.chunk_launches,
+            "decode_attention_gqa_body": da_mod.gqa_launches,
             "ssd_scan": ssd_mod.launches}
 
 
@@ -3968,13 +4008,16 @@ def phase_families(peaks) -> dict:
     t0 = time.perf_counter()
     phase_moe_layer()
     launches = {}
+    # granite's G = 3 decode runs the GQA body
     launches["serve_generate_moe"], model = _serve_family(
         MOE_ARCH, [], "serve_generate_moe",
-        ("flash_attention", "decode_attention"), peaks)
+        ("flash_attention", "decode_attention", "decode_attention_gqa_body"),
+        peaks)
     launches["serve_generate_moe_paged"], paged = _serve_family(
         MOE_ARCH, ["--kv-block-size", str(PAGED_BS)],
         "serve_generate_moe_paged",
-        ("flash_attention", "paged_decode_attention"), peaks)
+        ("flash_attention", "paged_decode_attention",
+         "decode_attention_gqa_body"), peaks)
     del paged
     torch.cuda.empty_cache()
     emit(phase="step_moe", arch=MOE_ARCH, slots=8,

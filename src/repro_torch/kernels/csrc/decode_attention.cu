@@ -30,19 +30,20 @@
 // whose rows are never valid by kv_pos; the table entry of a row is read
 // only when the row is valid.
 //
-// Design: split-span flash-decode, one schedule for both layouts and two
-// bodies by head dim.  The logical rows are cut into spans whose length is a
+// Design: split-span flash-decode, one schedule for both layouts and three
+// bodies, chosen by what a call's shape is (launch() below): the narrow body
+// at G = 1 and hd <= 128, the GQA body at G > 1 and hd <= 128, the wide body
+// above hd 128.  The logical rows are cut into spans whose length is a
 // function of the head dim alone: kSpan = 1024 rows at hd <= 128, kSpanWide
 // = 128 rows above.
 //
-// The narrow body (hd <= 128): one block of 256 threads (8 warps) runs per
-// (slot, kv head, group of up to 4 query heads of that kv head, span), so a
-// K/V row read from memory serves every query head of its group and a long
-// cache spreads over many SMs even for one slot.  Inside a span
-// the rows are interleaved finely over the warps: of every 32 rows, warp w
-// takes rows 4w .. 4w + 3, its four 8-lane subgroups one row each, so the 17
-// to 31 valid rows of a served slot land on all 8 warps.  A warp works a tile
-// of two such groups at once (8 rows):
+// The narrow body (G = 1, hd <= 128: stablelm's 32 heads of 80, whisper's 16
+// of 64): one block of 256 threads (8 warps) runs per (slot, query head,
+// span), so a long cache spreads over many SMs even for one slot.  Inside a
+// span the rows are interleaved finely over the warps: of every 32 rows,
+// warp w takes rows 4w .. 4w + 3, its four 8-lane subgroups one row each, so
+// the 17 to 31 valid rows of a served slot land on all 8 warps.  A warp works
+// a tile of two such groups at once (8 rows):
 // each lane reads its rows' kv_pos (and on the paged layout works out the
 // pool row from the table, once per row), skips the tile when no row is
 // valid, loads
@@ -56,6 +57,20 @@
 // out directly: one launch, no scratch.  Longer caches write each span's
 // (max, sum, acc) in f32 to scratch [B, H, spans, hd + 2] that the wrapper
 // allocates, and combine_kernel merges the spans in span order.
+//
+// The GQA body (G > 1, hd <= 128: granite's 24 over 8 heads of 64, G = 6 and
+// 16 at 128, the smoke configurations' G = 2 and 4): the narrow body took
+// groups of 4 query heads with 4 x 16 accumulators a thread whatever G and
+// hd were, and each warp's tile was a serial chain (kv_pos, then the rows'
+// loads, then the arithmetic), so that few bytes were in flight per SM:
+// granite's decode attention ran at 17.6 % of its roofline.  Here one block
+// takes every query head of its kv head (up to 16), so a K/V row crosses HBM
+// once per kv head; each warp reads its rows' kv_pos (and table entries) for
+// the whole span up front, then streams its valid rows' K and V through its
+// own ring of shared-memory tiles by cp.async, the next tile in flight while
+// one is worked, with no barrier across warps until the end; and the
+// registers are sized at compile time by head-dim bucket (64, 128) and G
+// bucket (4, 8, 16) (kernel decode_kernel_gqa below sets out its schedule).
 //
 // The wide body (hd > 128: recurrentgemma's and paligemma's 256, G = 10 and 8
 // over one kv head): the narrow body's accumulators, 4 heads x 32 dims a
@@ -92,11 +107,12 @@
 // element it reads, far below the card's ratio of ~295 operations per byte,
 // so its least time is the valid K/V rows (plus q, kv_pos, the table and out)
 // over HBM bandwidth (3.35 TB/s on the SXM part).  What the design does about
-// it: masked rows are skipped; each row is read once for all the heads of
-// its group (the wide body: of its kv head); 16-byte loads with 8 rows per
-// warp in flight (the wide body: the span's valid rows copied to shared
-// memory by cp.async, all in flight before the first tile is worked); and
-// spans put B * K * groups * spans blocks on the card, so that one user's
+// it: masked rows are skipped; each row is read once for all the query
+// heads of its kv head (the narrow body has one); 16-byte loads with 8 rows
+// per warp in flight (the GQA body: each warp's next tile copied to shared
+// memory by cp.async while one is worked; the wide body: the span's valid
+// rows in flight before the first tile is worked); and spans put
+// B * K * groups * spans blocks on the card, so that one user's
 // 8192-row context fills 132 SMs where a block per (slot, head) gave 32.  At the
 // serving shape (17-31 valid rows of 128) the launch, not the bytes, is the
 // cost; the CUDA-graph-captured decode step is the later work there.
@@ -113,7 +129,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kHeads = 4;                  // query heads per block, at most
 constexpr int kMaxHd = 256;
 constexpr int kSpan = 1024;                // logical rows per span, hd <= 128
 constexpr int kSpanWide = 128;             // and at hd > 128 (the wide body)
@@ -152,6 +167,9 @@ struct DecodeArgs {
   // stepping a slot's rows by q_sn / o_sn
   int nq;
   int64_t q_sn, o_sn;
+  // the GQA body: q and out are f32 (else bf16), so that its instances are
+  // by the cache's type alone
+  bool q_f32;
 };
 
 template <typename T>
@@ -196,8 +214,9 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename TQ, typename TKV, bool kPaged, int NH>
+template <typename TQ, typename TKV, bool kPaged>
 __global__ void __launch_bounds__(kThreads) decode_kernel(const DecodeArgs a) {
+  constexpr int NH = 1;                       // query heads per block
   constexpr int VEC = kVec<TKV>;
   constexpr int DPL = 16;                     // head dims per lane (hd <= 128)
   constexpr int CH = DPL / VEC;               // chunks per lane and row
@@ -498,11 +517,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// one level of step A's butterfly over N values: a lane keeps the upper
-// half where its bit `o` is set, else the lower, and adds the lane
-// across's half to it
-template <int N>
-__device__ __forceinline__ void fold(float (&v)[64], bool upper, int o) {
+// one level of a butterfly over the first N of a lane's values: a lane
+// keeps the upper half where its bit `o` is set, else the lower, and adds
+// the lane across's half to it
+template <int N, int M>
+__device__ __forceinline__ void fold(float (&v)[M], bool upper, int o) {
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
     const float give = upper ? v[i] : v[i + N / 2];
@@ -819,13 +838,373 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename TQ, typename TKV, bool kPaged, int NH>
-int launch_body(const DecodeArgs& a, int B, cudaStream_t stream) {
+// The GQA body (G > 1, hd <= 128): one block per (query row, kv head,
+// group of up to 16 query heads, span of kSpan rows), every query head of a
+// kv head in one block, so each K/V row is read once for all of them.  The
+// rows are dealt to the warps as in the narrow body: of every 64 rows, warp
+// w takes rows 4w .. 4w + 3 and 32 + 4w .. 32 + 4w + 3, its tile of
+// kTileGqa = 8 rows (tile row rho = 4j + r is row 32j + 4w + r).  Each warp
+// runs on its own, with no barrier across warps until the merge:
+//   prologue: lane l reads the kv_pos of tile l / 2's rows 4 (l % 2) .. + 3
+//      (every read of the span issued before any is used; on the paged
+//      layout then the valid rows' table entries, the pool rows left in
+//      shared memory), and the warp keeps each tile's 8-bit valid-row mask
+//      in its lanes and the set of tiles with a valid row in one word;
+//   ring: the valid rows' K and V of the next tile are copied by cp.async
+//      (16 bytes a copy) into the warp's ring of kStagesGqa stages while
+//      one is worked; a tile no row of which is valid is neither copied
+//      nor worked;
+//   scores: lane (rho = l / 4, part = l % 4) takes a quarter of tile row
+//      rho's 16-byte chunks (chunks part + 4i, the order rotated by rho so
+//      that the 8 rows' reads fall on distinct banks) against every head's
+//      q from shared memory; a two-level butterfly over the row's 4 lanes
+//      leaves lane (rho, part) with the scores of heads part * NG / 4 + k;
+//   softmax: per head, ONE max and ONE rescale per tile over the 8 rows
+//      (a butterfly over rho), the weights and the rescale to shared memory;
+//   values: lane l owns head dims HD / 32 * l .. + HD / 32 - 1 of every head
+//      (the accumulators: NG x HD / 32 a thread, 8 for granite): it rescales
+//      them, then adds the tile's valid rows in row order.
+// At the end the 8 warps' (max, sum, acc) are merged through shared memory
+// (the rings' space) in warp order, as in the narrow body.  Every sum's
+// order is a function of the logical row index alone, and a masked row, a
+// skipped tile and an empty warp or span merge as exact no-ops, so the
+// invariances of the narrow body hold here too.
+constexpr int kTileGqa = 8;                // rows of a warp's tile
+constexpr int kGroupRows = kTileGqa * kWarps;   // rows of one tile of each warp
+constexpr int kTilesGqa = kSpan / kGroupRows;   // a warp's tiles per span
+
+// the stages of a warp's ring: the next tile in flight while one is worked,
+// so 8 tiles a block and, at 4 blocks an SM, 64 KB an SM at bf16 hd 64.
+// Deeper rings cost blocks an SM: on an H100 at granite's decode-backlog
+// shape 4 stages (3 blocks an SM) ran 7.9 % slower and 3 stages 4.0 %
+// slower than 2.
+constexpr int kStagesGqa = 2;
+
+// dynamic shared memory: the warps' rings, reused by the merge
+template <typename TKV, int NG>
+__host__ __device__ constexpr size_t smem_gqa(int hd) {
+  const size_t ring = static_cast<size_t>(kWarps) * kStagesGqa * 2 *
+                      kTileGqa * hd * sizeof(TKV);
+  const size_t merge = static_cast<size_t>(kWarps) * NG * hd * sizeof(float);
+  return ring > merge ? ring : merge;
+}
+
+// DPL consecutive elements of shared memory as floats (aligned to their size)
+template <int DPL, typename T>
+__device__ __forceinline__ void load_dims(const T* p, float (&x)[DPL]) {
+  if constexpr (DPL == 4) {
+    load4(p, x);
+  } else if constexpr (sizeof(T) == 4) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    x[0] = f.x;
+    x[1] = f.y;
+  } else {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    x[0] = f.x;
+    x[1] = f.y;
+  }
+}
+
+template <typename TKV, bool kPaged, int NG, int HD>
+__global__ void __launch_bounds__(kThreads)
+    decode_kernel_gqa(const DecodeArgs a) {
+  constexpr int VEC = kVec<TKV>;
+  constexpr int NS = kStagesGqa;
+  constexpr int CK = HD / VEC / 4;            // scores: chunks a lane and row
+  constexpr int HPL = NG / 4;                 // scores: heads a lane, folded
+  constexpr int DPL = HD / 32;                // values: head dims a lane
+  constexpr int CPR = HD / VEC;               // copies: chunks a row, at most
+  constexpr int RPP = 32 / CPR;               // copies: rows a pass
+  static_assert(kThreads == 256 && kTileGqa == 8 && kTilesGqa == 16,
+                "the lane maps and the tile word assume these");
+  static_assert((NG == 4 || NG == 8 || NG == 16) && (HD == 64 || HD == 128),
+                "the buckets");
+  extern __shared__ uint4 gqa_raw[];          // the warps' rings; the merge
+  __shared__ __align__(16) float qs[NG][HD];
+  __shared__ __align__(16) float ps[kWarps][kTileGqa][NG];  // a tile's weights
+  __shared__ __align__(16) float cs[kWarps][NG];            // and rescales
+  __shared__ float m_s[kWarps][NG], l_s[kWarps][NG];
+  __shared__ int32_t prow_s[kPaged ? kWarps : 1]
+                           [kPaged ? kTilesGqa * kTileGqa : 1];
+
+  const int r = blockIdx.x;                   // query row: slot b, query j
+  const int b = r / a.nq;
+  const int jq = r - b * a.nq;
+  const int kh = blockIdx.y;
   const int G = a.H / a.K;
+  const int grp = blockIdx.z / a.spans;
+  const int sp = blockIdx.z - grp * a.spans;
+  const int g0 = grp * NG;
+  const int ng = min(NG, G - g0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int hd = a.hd;
+  const int nchunk = hd / VEC;
+  const int cur = a.cur[b] + jq;
+  const int s_begin = sp * kSpan;
+  const int s_end = min(a.S, s_begin + kSpan);
+
+  const int64_t q0 = b * a.q_sb + jq * a.q_sn;
+  const TKV* kb = static_cast<const TKV*>(a.k) + b * a.k_sb + kh * a.k_sh;
+  const TKV* vb = static_cast<const TKV*>(a.v) + b * a.v_sb + kh * a.v_sh;
+
+  // prologue: lane l reads tile l / 2's rows 4 (l % 2) .. + 3, every read
+  // issued before any is used (then everyone's q)
+  const int lt = lane >> 1;
+  const int ls = s_begin + kGroupRows * lt + 32 * (lane & 1) + 4 * warp;
+  int kp[4];
+  {
+    const int32_t* pb = a.kv_pos + b * a.p_sb;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      kp[i] = ls + i < s_end ? pb[(ls + i) * a.p_ss] : -1;
+  }
+  for (int i = threadIdx.x; i < ng * hd; i += kThreads) {
+    const int g = i / hd;
+    const int d = i - g * hd;
+    const int64_t qi = q0 + (kh * G + g0 + g) * a.q_sh + d;
+    qs[g][d] = (a.q_f32 ? static_cast<const float*>(a.q)[qi]
+                        : to_float(static_cast<const __nv_bfloat16*>(a.q)[qi])) *
+               a.scale;
+  }
+  unsigned nib = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool ok =
+        kp[i] >= 0 && kp[i] <= cur && (a.window == 0 || cur - kp[i] < a.window);
+    nib |= static_cast<unsigned>(ok) << i;
+  }
+  if constexpr (kPaged) {
+    int ent[4], blk[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      blk[i] = a.bs_shift >= 0 ? (ls + i) >> a.bs_shift : (ls + i) / a.bs;
+      ent[i] = (nib >> i) & 1u ? a.tbl[b * a.t_sb + blk[i] * a.t_sj] : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      prow_s[warp][kTileGqa * lt + 4 * (lane & 1) + i] =
+          ent[i] * a.bs + (ls + i) - blk[i] * a.bs;
+  }
+  // tile t's mask (bit rho = 4j + r) in lanes 2t and 2t + 1; bit 2t of
+  // `todo` set where tile t has a valid row
+  const unsigned across = __shfl_xor_sync(kFull, nib, 1);
+  const unsigned m8 = lane & 1 ? across | nib << 4 : nib | across << 4;
+  const unsigned todo = __ballot_sync(kFull, m8 != 0) & 0x55555555u;
+  __syncthreads();                            // q, and the pool rows
+
+  // the ring: the k-th valid tile goes to stage k % NS, one commit group a
+  // call (empty once every tile is issued)
+  const int tile_elems = kTileGqa * hd;
+  TKV* ring = reinterpret_cast<TKV*>(gqa_raw) + warp * NS * 2 * tile_elems;
+  unsigned to_issue = todo;
+  int issued = 0;
+  auto issue = [&]() {
+    if (to_issue) {
+      const int bit = __ffs(to_issue) - 1;
+      to_issue &= to_issue - 1;
+      const unsigned mask = __shfl_sync(kFull, m8, bit);
+      const int t = bit >> 1;
+      TKV* kd = ring + (issued % NS) * 2 * tile_elems;
+      TKV* vd = kd + tile_elems;
+      const int c = lane % CPR;
+#pragma unroll
+      for (int pass = 0; pass < kTileGqa / RPP; ++pass) {
+        const int rho = pass * RPP + lane / CPR;
+        if ((mask >> rho) & 1u && c < nchunk) {
+          int64_t row;
+          if constexpr (kPaged) {
+            row = prow_s[warp][kTileGqa * t + rho];
+          } else {
+            row = s_begin + kGroupRows * t + 32 * (rho >> 2) + 4 * warp +
+                  (rho & 3);
+          }
+          cp_async16(kd + rho * hd + c * VEC, kb + row * a.k_ss + c * VEC);
+          cp_async16(vd + rho * hd + c * VEC, vb + row * a.v_ss + c * VEC);
+        }
+      }
+    }
+    ++issued;
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) issue();
+
+  const int rho = lane >> 2;                  // scores: the tile row
+  const int part = lane & 3;                  // and the quarter of it
+  const int d0 = DPL * lane;                  // values: the head dims
+  const bool d_live = d0 < hd;
+  float m[HPL], l[HPL], acc[NG][DPL];
+#pragma unroll
+  for (int k = 0; k < HPL; ++k) {
+    m[k] = kNeg;
+    l[k] = 0.0f;
+  }
+#pragma unroll
+  for (int g = 0; g < NG; ++g)
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[g][e] = 0.0f;
+
+  unsigned to_work = todo;
+  for (int k = 0; to_work; ++k) {
+    const int bit = __ffs(to_work) - 1;
+    to_work &= to_work - 1;
+    const unsigned mask = __shfl_sync(kFull, m8, bit);
+    __syncwarp();                 // every lane is done with tile k - 1's stage
+    issue();                      // tile k + NS - 1 into it
+    cp_async_wait<NS - 1>();      // this lane's copies of tile k are in
+    __syncwarp();                 // and every lane's
+    const TKV* kt = ring + (k % NS) * 2 * tile_elems;
+    const TKV* vt = kt + tile_elems;
+
+    // scores: a quarter of row rho against every head, then the row's sum
+    float v[NG];
+#pragma unroll
+    for (int g = 0; g < NG; ++g) v[g] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < CK; ++i) {
+      const int c = part + 4 * ((i + rho) & (CK - 1));
+      if (c < nchunk) {
+        float kx[VEC];
+        unpack(*reinterpret_cast<const uint4*>(kt + rho * hd + c * VEC), kx);
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          if (g < ng) {
+#pragma unroll
+            for (int e = 0; e < VEC; e += 4) {
+              const float4 f =
+                  *reinterpret_cast<const float4*>(&qs[g][c * VEC + e]);
+              v[g] = fmaf(f.x, kx[e], v[g]);
+              v[g] = fmaf(f.y, kx[e + 1], v[g]);
+              v[g] = fmaf(f.z, kx[e + 2], v[g]);
+              v[g] = fmaf(f.w, kx[e + 3], v[g]);
+            }
+          }
+        }
+      }
+    }
+    fold<NG>(v, part & 2, 2);
+    fold<NG / 2>(v, part & 1, 1);
+
+    // softmax: heads part * HPL + k over the tile's 8 rows
+    const bool row_ok = (mask >> rho) & 1u;
+#pragma unroll
+    for (int k2 = 0; k2 < HPL; ++k2) {
+      const int g = part * HPL + k2;
+      const float sv = row_ok ? v[k2] : kNeg;
+      float mt = sv;
+      mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, 4));
+      mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, 8));
+      mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, 16));
+      const float m_new = fmaxf(m[k2], mt);
+      const float corr = expf(m[k2] - m_new);
+      const float p = expf(sv - m_new);
+      float psum = p;
+      psum += __shfl_xor_sync(kFull, psum, 4);
+      psum += __shfl_xor_sync(kFull, psum, 8);
+      psum += __shfl_xor_sync(kFull, psum, 16);
+      l[k2] = l[k2] * corr + psum;
+      m[k2] = m_new;
+      ps[warp][rho][g] = p;
+      if (rho == 0) cs[warp][g] = corr;
+    }
+    __syncwarp();
+
+    // values: rescale, then the valid rows in row order
+    if (d_live) {
+#pragma unroll
+      for (int g4 = 0; g4 < NG; g4 += 4) {
+        if (g4 >= ng) break;
+        const float4 c4 = *reinterpret_cast<const float4*>(&cs[warp][g4]);
+        const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int e = 0; e < DPL; ++e) acc[g4 + u][e] *= cv[u];
+      }
+#pragma unroll
+      for (int t = 0; t < kTileGqa; ++t) {
+        if (!((mask >> t) & 1u)) continue;
+        float vx[DPL];
+        load_dims<DPL>(vt + t * hd + d0, vx);
+#pragma unroll
+        for (int g4 = 0; g4 < NG; g4 += 4) {
+          if (g4 >= ng) break;
+          const float4 p4 = *reinterpret_cast<const float4*>(&ps[warp][t][g4]);
+          const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int e = 0; e < DPL; ++e)
+              acc[g4 + u][e] = fmaf(pv[u], vx[e], acc[g4 + u][e]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // the warps' states through shared memory (the rings' space), merged in
+  // warp order
+  __syncthreads();                            // every ring is drained
+  float* sacc = reinterpret_cast<float*>(gqa_raw);   // [kWarps][NG][hd]
+  if (rho == 0) {
+#pragma unroll
+    for (int k2 = 0; k2 < HPL; ++k2) {
+      m_s[warp][part * HPL + k2] = m[k2];
+      l_s[warp][part * HPL + k2] = l[k2];
+    }
+  }
+  if (d_live) {
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      if (g >= ng) break;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e)
+        sacc[(warp * NG + g) * hd + d0 + e] = acc[g][e];
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < ng * hd; i += kThreads) {
+    const int g = i / hd;
+    const int d = i - g * hd;
+    float mx = kNeg;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_s[w][g]);
+    float sum = 0.0f, num = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = expf(m_s[w][g] - mx);
+      sum += l_s[w][g] * c;
+      num += sacc[(w * NG + g) * hd + d] * c;
+    }
+    const int h = kh * G + g0 + g;
+    if (a.spans == 1) {
+      const int64_t oi = b * a.o_sb + jq * a.o_sn + h * a.o_sh + d;
+      const float o = num / fmaxf(sum, 1e-30f);
+      if (a.q_f32)
+        store(static_cast<float*>(a.out) + oi, o);
+      else
+        store(static_cast<__nv_bfloat16*>(a.out) + oi, o);
+    } else {
+      float* pp =
+          a.part + ((static_cast<int64_t>(r) * a.H + h) * a.spans + sp) *
+                       (hd + 2);
+      pp[d] = num;
+      if (d == 0) {
+        pp[hd] = mx;
+        pp[hd + 1] = sum;
+      }
+    }
+  }
+}
+
+template <typename TQ, typename TKV, bool kPaged>
+int launch_body(const DecodeArgs& a, int B, cudaStream_t stream) {
   const unsigned rows = static_cast<unsigned>(B) * static_cast<unsigned>(a.nq);
   const dim3 grid(rows, static_cast<unsigned>(a.K),
-                  static_cast<unsigned>((G + NH - 1) / NH * a.spans));
-  decode_kernel<TQ, TKV, kPaged, NH><<<grid, kThreads, 0, stream>>>(a);
+                  static_cast<unsigned>(a.spans));
+  decode_kernel<TQ, TKV, kPaged><<<grid, kThreads, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.spans == 1) return static_cast<int>(err);
   const dim3 cgrid(rows, static_cast<unsigned>(a.H));
@@ -857,12 +1236,49 @@ int launch_wide(const DecodeArgs& a, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename TQ, typename TKV, bool kPaged, int NG, int HD>
+int launch_gqa_instance(const DecodeArgs& a, int B, cudaStream_t stream) {
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_kernel_gqa<TKV, kPaged, NG, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem_gqa<TKV, NG>(HD)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
+  const int G = a.H / a.K;
+  const unsigned rows = static_cast<unsigned>(B) * static_cast<unsigned>(a.nq);
+  const dim3 grid(rows, static_cast<unsigned>(a.K),
+                  static_cast<unsigned>((G + NG - 1) / NG * a.spans));
+  DecodeArgs g = a;
+  g.q_f32 = sizeof(TQ) == sizeof(float);
+  decode_kernel_gqa<TKV, kPaged, NG, HD>
+      <<<grid, kThreads, smem_gqa<TKV, NG>(a.hd), stream>>>(g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.spans == 1) return static_cast<int>(err);
+  const dim3 cgrid(rows, static_cast<unsigned>(a.H));
+  combine_kernel<TQ><<<cgrid, kCombineThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the GQA body's instance: query heads a block by G (4, 8, 16: groups of 16
+// above), head dims by hd (64, 128)
+template <typename TQ, typename TKV, bool kPaged, int HD>
+int launch_gqa(const DecodeArgs& a, int B, cudaStream_t stream) {
+  const int G = a.H / a.K;
+  if (G <= 4) return launch_gqa_instance<TQ, TKV, kPaged, 4, HD>(a, B, stream);
+  if (G <= 8) return launch_gqa_instance<TQ, TKV, kPaged, 8, HD>(a, B, stream);
+  return launch_gqa_instance<TQ, TKV, kPaged, 16, HD>(a, B, stream);
+}
+
 template <typename TQ, typename TKV, bool kPaged>
 int launch(const DecodeArgs& a, int B, void* stream_ptr) {
   const auto stream = static_cast<cudaStream_t>(stream_ptr);
   if (a.hd > 128) return launch_wide<TQ, TKV, kPaged>(a, B, stream);
-  return a.H == a.K ? launch_body<TQ, TKV, kPaged, 1>(a, B, stream)
-                    : launch_body<TQ, TKV, kPaged, kHeads>(a, B, stream);
+  if (a.H == a.K) return launch_body<TQ, TKV, kPaged>(a, B, stream);
+  if (a.hd <= 64) return launch_gqa<TQ, TKV, kPaged, 64>(a, B, stream);
+  return launch_gqa<TQ, TKV, kPaged, 128>(a, B, stream);
 }
 
 }  // namespace

@@ -9,16 +9,19 @@ of ``repro.kernels.decode_attention.decode_attention``:
   - on CUDA tensors it launches the hand-written Hopper kernel
     ``csrc/decode_attention.cu`` (split-span flash-decode: one block per
     slot, kv head, group of query heads and span of ``span_rows(hd)``
-    logical rows; at hd <= 128 groups of up to four query heads, the
-    valid rows spread over all eight warps; above, up to 16 query heads
-    of a kv head in one block, the span's rows copied to shared memory
-    by ``cp.async`` and worked in 32-row tiles with register-tiled
-    products; a cache longer than one span writes per-span partials to
-    scratch that a second small kernel merges in span order; see the
-    source for its bound and design) and adds one to ``launches`` per
-    call (and one to
-    ``combine_launches`` when the merge runs); on a card that is not
-    sm_90 it raises;
+    logical rows, in one of three bodies that ``decode_body`` names: at
+    hd <= 128 and G = H / K = 1 one query head a block, the valid rows
+    spread over all eight warps; at hd <= 128 and G > 1 every query
+    head of a kv head (up to 16) in one block, each warp streaming its
+    valid rows through its own ring of shared-memory tiles by
+    ``cp.async``; above hd 128, up to 16 query heads of a kv head in
+    one block, the span's rows copied to shared memory and worked in
+    32-row tiles with register-tiled products; a cache longer than one
+    span writes per-span partials to scratch that a second small kernel
+    merges in span order; see the source for its bound and design) and
+    adds one to ``launches`` per call (and one to ``gqa_launches`` when
+    the GQA body runs, one to ``combine_launches`` when the merge
+    runs); on a card that is not sm_90 it raises;
   - on CPU tensors it runs ``decode_attention_plain``, the plain
     PyTorch version of ``repro.kernels.ref.decode_attention``, which
     ``chip_smoke.py`` also holds the kernel against on the card.
@@ -87,16 +90,17 @@ from repro_torch.kernels import build
 from repro_torch.kernels.runtime import check_kernel_tensors
 
 # kernel calls since the last reset, contiguous, paged and chunk (a split
-# call counts once), and launches of the span merge; ``chip_smoke.py`` zeroes
-# them before it drives the main path and reads them after.  A CUDA graph
-# made by ``kernels.graphs.CountedGraph`` adds its launches at every
-# replay.
+# call counts once), launches of the span merge, and calls of any entry
+# that ran the GQA body; ``chip_smoke.py`` zeroes them before it drives the
+# main path and reads them after.  A CUDA graph made by
+# ``kernels.graphs.CountedGraph`` adds its launches at every replay.
 launches = 0
 paged_launches = 0
 chunk_launches = 0
 combine_launches = 0
+gqa_launches = 0
 COUNTERS = ("launches", "paged_launches", "chunk_launches",
-            "combine_launches")
+            "combine_launches", "gqa_launches")
 
 SPAN = 1024              # logical rows per span at hd <= 128: kSpan of the
 SPAN_WIDE = 128          # CUDA source; and above (kSpanWide)
@@ -144,9 +148,19 @@ class SpanPlan(NamedTuple):
 
 def span_rows(hd: int) -> int:
     """The logical rows of a span, a function of the head dim alone:
-    ``SPAN`` for the narrow body (hd <= 128), ``SPAN_WIDE`` for the
-    wide one."""
+    ``SPAN`` for the narrow and GQA bodies (hd <= 128), ``SPAN_WIDE``
+    for the wide one."""
     return SPAN if hd <= 128 else SPAN_WIDE
+
+
+def decode_body(H: int, K: int, hd: int) -> str:
+    """The body a call runs, as ``launch()`` of the CUDA source picks it:
+    ``"wide"`` above hd 128, else ``"narrow"`` (one query head a block)
+    at G = H / K = 1 and ``"gqa"`` (every query head of a kv head) at
+    G > 1."""
+    if hd > 128:
+        return "wide"
+    return "narrow" if H == K else "gqa"
 
 
 def decode_span_plan(B: int, H: int, S: int, hd: int) -> SpanPlan:
@@ -254,7 +268,7 @@ def decode_attention_cuda(q, k, v, kv_pos, cur_pos, *,
     strides multiples of 16 bytes), kv_pos
     and cur_pos are int32, hd is a multiple of 8 up to 256 and H a
     multiple of K."""
-    global launches, combine_launches
+    global launches, combine_launches, gqa_launches
     _check_contiguous_args("decode attention", q, k, v, kv_pos, cur_pos,
                            window, 3)
     B, H, hd = q.shape
@@ -281,6 +295,7 @@ def decode_attention_cuda(q, k, v, kv_pos, cur_pos, *,
                            f"{lib.decode_attention_error_string(err).decode()}")
     launches += 1
     combine_launches += plan.combine
+    gqa_launches += decode_body(H, K, hd) == "gqa"
     return out
 
 
@@ -322,7 +337,7 @@ def decode_attention_chunk_cuda(q, k, v, kv_pos, start, *,
                                 window: int = 0) -> torch.Tensor:
     """The CUDA kernel over the B * n query rows; raises as
     ``decode_attention_cuda`` does (q [B,n,H,hd]; start [B] int32)."""
-    global chunk_launches, combine_launches
+    global chunk_launches, combine_launches, gqa_launches
     _check_contiguous_args("decode attention chunk", q, k, v, kv_pos, start,
                            window, 4)
     B, n, H, hd = q.shape
@@ -349,6 +364,7 @@ def decode_attention_chunk_cuda(q, k, v, kv_pos, start, *,
                            f"{lib.decode_attention_error_string(err).decode()}")
     chunk_launches += 1
     combine_launches += plan.combine
+    gqa_launches += decode_body(H, K, hd) == "gqa"
     return out
 
 
@@ -421,7 +437,7 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_table, kv_pos,
     and cur_pos are int32, hd is a multiple of 8 up to 256, H a
     multiple of K, and the logical extent a multiple of the block size
     that the table covers."""
-    global paged_launches, combine_launches
+    global paged_launches, combine_launches, gqa_launches
     what = "paged decode attention"
     check_kernel_tensors(what, {"q": q, "k_pool": k_pool, "v_pool": v_pool},
                          dtypes=_TYPES, align=True)
@@ -495,6 +511,7 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_table, kv_pos,
                            f"{lib.decode_attention_error_string(err).decode()}")
     paged_launches += 1
     combine_launches += plan.combine
+    gqa_launches += decode_body(H, K, hd) == "gqa"
     return out
 
 

@@ -8,16 +8,17 @@ on inputs made from numpy seeds, and held against the JAX oracles
 (``repro.kernels.ref``):
 
   - the split-span flash-decode (``csrc/decode_attention.cu``): the span
-    plan the wrapper launches by (1024 rows at hd <= 128, 128 above);
-    each span's blocks, warps, tiles and subgroups merged as the narrow
-    body merges them, or its 32-row tiles worked as the wide body (hd
-    256, every head of a kv head in one block) works them; f32 to 1e-5
-    against
-    ``ref.decode_attention``, and bitwise equal with and without
-    trailing empty spans and between the contiguous and the paged
-    layout (bs 1, 16, 128), at hd 256 too, which is what lets the card's
-    native ==
-    shim, paged == contiguous and one-span == many-span checks hold;
+    plan the wrapper launches by (1024 rows at hd <= 128, 128 above) and
+    the body it runs by G and hd; each span's warps, tiles and subgroups
+    merged as the narrow body (G = 1) merges them, each warp's 8-row
+    tiles worked as the GQA body (G > 1 at hd <= 128, every head of a kv
+    head in one block) works them, or the 32-row tiles of the wide body
+    (hd 256); f32 to 1e-5 against ``ref.decode_attention``, and bitwise
+    equal with and without trailing empty spans and between the
+    contiguous and the paged layout (bs 1, 16, 128), at granite's,
+    llama3's and the smoke configurations' G and at hd 256 too, which is
+    what lets the card's native == shim, paged == contiguous and
+    one-span == many-span checks hold;
   - the tensor-core flash prefill (``csrc/flash_attention.cu``): 64-row
     query tiles, 64-key tiles, scores in f32, P rounded to bf16 before
     P.V, the sum of the weights in f32; against
@@ -99,16 +100,45 @@ def test_span_length_matches_the_cuda_source():
         L, L, tda.SPAN_WIDE, tda.SPAN_WIDE]
 
 
+@pytest.mark.parametrize("H,K,hd,body", [
+    (32, 32, 80, "narrow"), (16, 16, 64, "narrow"), (4, 4, 128, "narrow"),
+    (24, 8, 64, "gqa"), (48, 8, 128, "gqa"), (128, 8, 128, "gqa"),
+    (8, 4, 32, "gqa"), (16, 4, 16, "gqa"), (8, 4, 80, "gqa"),
+    (10, 1, 256, "wide"), (8, 1, 256, "wide"), (4, 4, 136, "wide")])
+def test_decode_body_matches_the_cuda_source(H, K, hd, body):
+    """The Python mirror of ``launch()``'s choice (``decode_body``)
+    against the CUDA source: the wide body above hd 128, the narrow body
+    at G = 1, the GQA body at G > 1, in instances of 4, 8 or 16 query
+    heads (groups of 16 above) and 64 or 128 head dims."""
+    src = (build.CSRC / "decode_attention.cu").read_text()
+    launch = src[src.index("int launch(const DecodeArgs& a"):]
+    launch = launch[:launch.index("\n}\n")]
+    assert "if (a.hd > 128) return launch_wide<" in launch
+    assert "if (a.H == a.K) return launch_body<" in launch
+    assert "if (a.hd <= 64) return launch_gqa<TQ, TKV, kPaged, 64>" in launch
+    assert "return launch_gqa<TQ, TKV, kPaged, 128>" in launch
+    pick = src[src.index("int launch_gqa(const DecodeArgs& a"):]
+    pick = pick[:pick.index("\n}\n")]
+    buckets = [(int(m.group(1)), int(m.group(2))) for m in re.finditer(
+        r"if \(G <= (\d+)\) return launch_gqa_instance<TQ, TKV, kPaged, "
+        r"(\d+), HD>", pick)]
+    assert buckets == [(4, 4), (8, 8)]
+    assert "return launch_gqa_instance<TQ, TKV, kPaged, 16, HD>" in pick
+    assert tda.decode_body(H, K, hd) == body
+    assert int(re.search(r"kTileGqa = (\d+);", src).group(1)) == TILE_GQA
+
+
 TILE_WIDE = 32         # the wide body's rows per tile (kTileWide)
 HEADS_WIDE = 16        # and its query heads per block (kHeadsWide)
+TILE_GQA = 8           # the GQA body's rows of a warp's tile (kTileGqa)
+HEADS_GQA = 16         # and its query heads per block, at most
 
 
 def _narrow_span(qg, read, b, kh, ok_row, s_begin, s_end, rj=2):
-    """One span of the narrow body (hd <= 128) for the heads qg [G, hd]:
-    each warp's tiles of 4 x rj rows (two rows a lane), its four
-    subgroups' partial
-    accumulators, then the warps merged in order -> (max [G], sum [G],
-    acc [G, hd])."""
+    """One span of the narrow body (G = 1 at hd <= 128) for the heads qg
+    [G, hd]: each warp's tiles of 4 x rj rows (two rows a lane), its four
+    subgroups' partial accumulators, then the warps merged in order ->
+    (max [G], sum [G], acc [G, hd])."""
     G, hd = qg.shape
     S = len(ok_row)
     wm, wl, wacc = [], [], []
@@ -147,10 +177,16 @@ def _narrow_span(qg, read, b, kh, ok_row, s_begin, s_end, rj=2):
         wm.append(m)
         wl.append(l)
         wacc.append((acc[0] + acc[1]) + (acc[2] + acc[3]))
-    mx = torch.full((G,), NEG)
+    return _merge_warps(wm, wl, wacc)
+
+
+def _merge_warps(wm, wl, wacc):
+    """The 8 warps' (max, sum, acc) merged in warp order, as the narrow
+    and the GQA bodies merge them through shared memory."""
+    mx = torch.full_like(wm[0], NEG)
     for w in range(WARPS):
         mx = torch.maximum(mx, wm[w])
-    tot, num = torch.zeros(G), torch.zeros(G, hd)
+    tot, num = torch.zeros_like(wl[0]), torch.zeros_like(wacc[0])
     for w in range(WARPS):
         c = torch.exp(wm[w] - mx)
         tot = tot + wl[w] * c
@@ -158,6 +194,51 @@ def _narrow_span(qg, read, b, kh, ok_row, s_begin, s_end, rj=2):
     return mx, tot, num
 
 
+def _gqa_span(qg, read, b, kh, ok_row, s_begin, s_end):
+    """One span of the GQA body (G > 1, hd <= 128) for the heads qg
+    [G, hd]: warp w's tiles of 8 rows (of every 64, rows 4w .. 4w + 3 and
+    32 + 4w .. + 3, in that order), each scored against every head, one
+    max and one rescale per head and tile, the weights' sum by the
+    warp's butterfly over the 8 rows (xor 1, 2, 4), the accumulators
+    adding the valid rows in row order; then the warps merged in order
+    -> (max [G], sum [G], acc [G, hd])."""
+    G, hd = qg.shape
+    S = len(ok_row)
+    wm, wl, wacc = [], [], []
+    for w in range(WARPS):
+        m = torch.full((G,), NEG)
+        l = torch.zeros(G)
+        acc = torch.zeros(G, hd)
+        for base in range(s_begin, s_end, TILE_GQA * WARPS):
+            rows = base + 4 * w + _GQA_ROWS
+            ok = (rows < s_end) & ok_row[rows.clamp(max=S - 1)]
+            if not ok.any():
+                continue
+            kr, vr = read(b, kh, rows[ok])
+            k = torch.zeros(TILE_GQA, hd)
+            v = torch.zeros(TILE_GQA, hd)
+            k[ok], v[ok] = kr.float(), vr.float()
+            s = torch.where(ok, qg @ k.T, torch.tensor(NEG))      # [G, 8]
+            m_new = torch.maximum(m, s.amax(1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[:, None])
+            ps = p
+            for o in (1, 2, 4):
+                ps = ps + ps[:, _GQA_RHO ^ o]
+            l = l * corr + ps[:, 0]
+            acc = acc * corr[:, None]
+            for t in torch.nonzero(ok).flatten().tolist():
+                acc = acc + p[:, t, None] * v[t]
+            m = m_new
+        wm.append(m)
+        wl.append(l)
+        wacc.append(acc)
+    return _merge_warps(wm, wl, wacc)
+
+
+# a warp's tile row rho = 4j + r is row 32j + 4w + r of its 64-row group
+_GQA_RHO = torch.arange(TILE_GQA)
+_GQA_ROWS = 32 * (_GQA_RHO // 4) + _GQA_RHO % 4
 _LANES = torch.arange(TILE_WIDE)
 
 
@@ -199,11 +280,12 @@ def _wide_span(qg, read, b, kh, ok_row, s_begin, s_end):
 def _split_decode(q, read, kv_pos, cur, S, window=0, fault=None):
     """The kernel's arithmetic in its order, in f32: q [B,H,hd];
     ``read(b, kh, rows)`` -> K and V rows [n, hd] of logical ``rows``;
-    kv_pos [B,S] int; cur [B] -> out [B,H,hd].  The narrow body at
-    hd <= 128, the wide one above, each over spans of
-    ``span_rows(hd)`` rows.  ``fault`` breaks the combine on purpose:
-    ("drop", s) leaves span s out, ("no_rescale", None) merges the spans
-    without their exp(m_s - M) factors."""
+    kv_pos [B,S] int; cur [B] -> out [B,H,hd].  The body
+    ``decode_body`` names (narrow at G = 1 and hd <= 128, GQA at G > 1,
+    wide above hd 128), over spans of ``span_rows(hd)`` rows.  ``fault``
+    breaks the combine on purpose: ("drop", s) leaves span s out,
+    ("no_rescale", None) merges the spans without their exp(m_s - M)
+    factors."""
     B, H, hd = q.shape
     K = read.K
     G = H // K
@@ -215,15 +297,17 @@ def _split_decode(q, read, kv_pos, cur, S, window=0, fault=None):
         ok_row = ((kv_pos[b] >= 0) & (kv_pos[b] <= cur[b])
                   & ((cur[b] - kv_pos[b] < window) if window else True))
         for kh in range(K):
-            # the narrow body's groups of 4 heads merge every head alike;
-            # the wide body takes up to 16 heads a block
-            step = G if hd <= 128 else HEADS_WIDE
+            # the narrow body takes one head a block, the GQA and the wide
+            # bodies up to 16
+            body = {"narrow": _narrow_span, "gqa": _gqa_span,
+                    "wide": _wide_span}[tda.decode_body(H, K, hd)]
+            step = {_narrow_span: 1, _gqa_span: HEADS_GQA,
+                    _wide_span: HEADS_WIDE}[body]
             for g0 in range(0, G, step):
                 qg = qs[b, kh * G + g0:kh * G + min(G, g0 + step)]
                 parts = []
                 for sp in range(plan.spans):
                     s_begin, s_end = sp * span, min(S, sp * span + span)
-                    body = _narrow_span if hd <= 128 else _wide_span
                     parts.append(body(qg, read, b, kh, ok_row, s_begin,
                                       s_end))
                 out[b, kh * G + g0:kh * G + g0 + len(qg)] = _combine(
@@ -296,13 +380,21 @@ def _decode_inputs(B, H, K, S, hd, lengths, seed):
 # (B, H, K, S, hd, valid rows per slot): one span, the serving shape's
 # few valid rows, GQA; two and three spans; a ragged last span; the wide
 # body at hd 256: paligemma's G = 8 at the serving shape, recurrentgemma's
-# G = 10 over a 2048-row cache (16 spans)
+# G = 10 over a 2048-row cache (16 spans); the GQA body at granite's 24
+# over 8 heads of 64 (two spans), internlm2's and dbrx's G = 6 and
+# llama3's G = 16 at 128, the smoke configuration's G = 4 at 16, and
+# G = 20 (two groups of heads)
 DECODE = {
     "serving_one_span": (3, 4, 4, 128, 80, [17, 31, 1]),
     "gqa_two_spans": (2, 8, 2, 2 * L, 32, [2 * L, 600]),
     "ragged_three_spans": (2, 4, 4, 2 * L + 128, 80, [2 * L + 128, 5]),
     "wide_g8_serving": (3, 8, 1, 128, 256, [17, 31, 1]),
     "wide_g10_sixteen_spans": (2, 10, 1, 2048, 256, [2048, 600]),
+    "gqa_granite_two_spans": (2, 24, 8, L + 64, 64, [L + 64, 300]),
+    "gqa_g6_hd128": (2, 12, 2, 256, 128, [256, 77]),
+    "gqa_g16_hd128": (1, 32, 2, 256, 128, [200]),
+    "gqa_smoke_g4_hd16": (3, 16, 4, 128, 16, [17, 31, 1]),
+    "gqa_g20_two_groups": (1, 40, 2, 128, 64, [100]),
 }
 
 
@@ -320,18 +412,26 @@ def test_split_span_emulation_matches_ref(case):
 
 
 @pytest.mark.parametrize("extra_spans", [1, 3])
-@pytest.mark.parametrize("S,hd", [
-    pytest.param(128, 80, id="128"), pytest.param(L + 64, 80, id=str(L + 64)),
+@pytest.mark.parametrize("S,hd,H,K", [
+    pytest.param(128, 80, 4, 2, id="128"),
+    pytest.param(L + 64, 80, 4, 2, id=str(L + 64)),
     # the wide body: one span of 128 rows, and two
-    pytest.param(128, 256, id="128-hd256"),
-    pytest.param(192, 256, id="192-hd256")])
-def test_split_span_trailing_empty_spans_change_no_bit(S, hd, extra_spans):
+    pytest.param(128, 256, 10, 1, id="128-hd256"),
+    pytest.param(192, 256, 10, 1, id="192-hd256"),
+    # the narrow body (G = 1); the GQA body at granite's, G = 6 and 16 at
+    # hd 128, the smoke configuration's G = 4 at 16
+    pytest.param(128, 80, 4, 4, id="128-mha"),
+    pytest.param(L + 64, 64, 24, 8, id=f"{L + 64}-granite"),
+    pytest.param(128, 128, 12, 2, id="128-g6-hd128"),
+    pytest.param(128, 128, 32, 2, id="128-g16-hd128"),
+    pytest.param(128, 16, 16, 4, id="128-smoke-g4-hd16")])
+def test_split_span_trailing_empty_spans_change_no_bit(S, hd, H, K,
+                                                       extra_spans):
     """The same valid rows in a cache of S rows and in one of
     S + extra_spans spans' rows whose extra rows are empty: the same
     bytes, whether S is one span (out written directly) or two (the
-    combine); at hd 256 with recurrentgemma's G = 10."""
+    combine); in each body (at hd 256 with recurrentgemma's G = 10)."""
     B = 2
-    H, K = (4, 2) if hd <= 128 else (10, 1)
     lengths = [S, S // 2 + 3]
     q, k, v, kv, cur = _decode_inputs(B, H, K, S, hd, lengths, 12)
     S2 = S + extra_spans * tda.span_rows(hd)
@@ -348,17 +448,32 @@ def test_split_span_trailing_empty_spans_change_no_bit(S, hd, extra_spans):
     assert torch.equal(small, big)
 
 
-@pytest.mark.parametrize("bs", [1, 16, 128])
-def test_split_span_paged_equals_contiguous(bs):
+W = tda.SPAN_WIDE
+# (S, valid rows per slot, (H, K, hd)): G = 2 at hd 32 and G = 10 at 256
+# over one span and two; granite's 24 over 8 of 64, G = 6 and 16 at 128,
+# the smoke configuration's G = 4 at 16
+PAGED_BASE = ((128, [100, 17], (4, 2, 32)),
+              (2 * L, [2 * L - 5, 300], (4, 2, 32)),
+              (W, [W - 28, 17], (10, 1, 256)),
+              (4 * W, [4 * W - 5, 150], (10, 1, 256)))
+PAGED_GQA = ((L + 128, [L + 100, 200], (24, 8, 64)),
+             (256, [250, 33], (12, 2, 128)),
+             (256, [256, 130], (32, 2, 128)),
+             (128, [100, 17], (16, 4, 16)))
+
+
+@pytest.mark.parametrize("bs,shapes", [
+    pytest.param(1, PAGED_BASE, id="1"), pytest.param(16, PAGED_BASE, id="16"),
+    pytest.param(128, PAGED_BASE, id="128"),
+    pytest.param(1, PAGED_GQA, id="1-gqa"),
+    pytest.param(16, PAGED_GQA, id="16-gqa"),
+    pytest.param(128, PAGED_GQA, id="128-gqa")])
+def test_split_span_paged_equals_contiguous(bs, shapes):
     """The paged layout changes only the row a key is read from: the
     same bytes as the contiguous cache, over one span and over two; at
-    hd 32 (the narrow body) and at hd 256 with G = 10 (the wide one)."""
-    W = tda.SPAN_WIDE
-    for S, lengths, (H, K, hd) in (
-            (128, [100, 17], (4, 2, 32)),
-            (2 * L, [2 * L - 5, 300], (4, 2, 32)),
-            (W, [W - 28, 17], (10, 1, 256)),
-            (4 * W, [4 * W - 5, 150], (10, 1, 256))):
+    hd 32 and 256 (G = 2 and 10), and in the GQA body at granite's,
+    llama3's, internlm2's and the smoke configuration's G."""
+    for S, lengths, (H, K, hd) in shapes:
         B = 2
         q, k, v, kv, cur = _decode_inputs(B, H, K, S, hd, lengths, 13)
         t = torch.from_numpy

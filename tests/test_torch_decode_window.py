@@ -277,7 +277,8 @@ def test_counted_graph_adds_its_launches_per_replay():
     assert set(graphs.launch_counts()) == {
         "decode_attention.launches", "decode_attention.paged_launches",
         "decode_attention.chunk_launches",
-        "decode_attention.combine_launches", "entropy.launches",
+        "decode_attention.combine_launches", "decode_attention.gqa_launches",
+        "entropy.launches",
         "flash_attention.launches", "ssd_scan.launches"}
     tda.launches = tda.paged_launches = tssd.launches = 0
 
