@@ -23,7 +23,7 @@ from perfbench import run  # noqa: E402
 def readings(cell_name: str, seeds, seconds: float, *, device="cuda",
              energy=None, control: bool = True) -> list[dict]:
     import torch
-    from perfbench.lib import bench, weights as wts
+    from perfbench.lib import bench
     from perfbench.reference import control as ctl
     manifest = run.load_json(run.ROOT / "BENCHMARK.json")
     cell, model_file, mix, limits = run.cell_files(manifest, cell_name)
@@ -43,9 +43,8 @@ def readings(cell_name: str, seeds, seconds: float, *, device="cuda",
                "memory_peak_bytes": rec["memory_peak_bytes"],
                "kv_bytes": rec["kv_bytes"]}
         if control:
-            m = model_file["model"]
-            row["control"] = ctl.control_readings(m, wts.dims(m), seed,
-                                                  rec["served"], device)
+            row["control"] = ctl.control_readings(rec["ref"], model_file["model"],
+                                                  seed, rec["served"], device)
         row["seconds"] = time.perf_counter() - t
         out.append(row)
         print(json.dumps(row), flush=True)

@@ -3,6 +3,10 @@ backlog through ``DecodeSession.push`` / ``advance`` as a serving loop
 would, measure the window, then judge what the window served against the
 plain reference.
 
+The configuration file names the module that describes its model
+(``describe.load``): its sizes, parameters, reference logits and counts;
+nothing here knows a layout.
+
 The program is touched only here: ``repro_torch``'s configuration class,
 its LM (whose parameters become the benchmark's seeded weights), the
 continuous-batching engine, and its counters (``DecodeSession``'s
@@ -20,9 +24,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from perfbench.lib import flops, profile, traffic
+from perfbench.lib import describe, flops, profile, traffic
 from perfbench.lib import weights as wts
-from perfbench.reference import lm as ref_lm
 
 TRACE_S = 5.0          # a traced run's window: profiled whole, at most this
 SMALL = 128            # the engine's power-of-two prompt buckets end here
@@ -164,10 +167,11 @@ def run_cell(cell: dict, model_file: dict, mix: dict, limits: dict, *,
     t = time.perf_counter()
     m = model_file["model"]
     serving = model_file["serving"]
-    z = wts.dims(m)
+    ref = describe.load(model_file)
+    z = ref.dims(m)
     cfg = ModelConfig(**m)
     params = tfm.LM(cfg, device="meta")
-    weights = wts.make(m, seed, device)
+    weights = wts.make(ref, m, seed, device)
     wts.install(params, weights)
     phases["weights"] = time.perf_counter() - t
     t = time.perf_counter()
@@ -243,7 +247,7 @@ def run_cell(cell: dict, model_file: dict, mix: dict, limits: dict, *,
     finished = [r for r in reqs if r.t_done is not None and r.t_done >= t0]
     half = window_s / 2
     counted = {k: c1[k] - c0[k] for k in c0}
-    rec: dict = {"config": z, "cell": cell["name"], "phases": phases}
+    rec: dict = {"config": z, "ref": ref, "cell": cell["name"], "phases": phases}
     rec.update(
         half_rates=[sum(n for t, n in win_log if (t <= half) == first) / half
                     for first in (True, False)],
@@ -251,7 +255,7 @@ def run_cell(cell: dict, model_file: dict, mix: dict, limits: dict, *,
         counters=counted,
         memory_peak_bytes=(torch.cuda.max_memory_allocated(device)
                            if device.type == "cuda" else 0),
-        kv_bytes=kv_bytes(z, n_slots, engine.max_seq, win.kv_rows,
+        kv_bytes=kv_bytes(ref, z, n_slots, engine.max_seq, win.kv_rows,
                           counted["decode_steps"]),
         trace=None)
     if trace:
@@ -268,7 +272,7 @@ def run_cell(cell: dict, model_file: dict, mix: dict, limits: dict, *,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    readings, rec["tokens_compared"], rec["worst"] = judge(m, z, seed, served, device)
+    readings, rec["tokens_compared"], rec["worst"] = judge(ref, m, seed, served, device)
     readings["length_errors"] = float(length_errors)
     rec["readings"] = readings
     rec["checks"] = {k: {"value": v, "limit": limits.get(k)}
@@ -278,11 +282,12 @@ def run_cell(cell: dict, model_file: dict, mix: dict, limits: dict, *,
     return rec
 
 
-def kv_bytes(z: dict, slots: int, max_seq: int, kv_rows: int, steps: int) -> dict:
-    """The K/V cache the engine holds for its slots (every slot at
-    ``max_seq`` rows) and the part of it that holds live rows, on average
-    over the window's decode steps."""
-    per_row = 2 * z["L"] * z["K"] * z["hd"] * z["dtype"].itemsize
+def kv_bytes(ref, z: dict, slots: int, max_seq: int, kv_rows: int,
+             steps: int) -> dict:
+    """The cache the engine holds for its slots (every slot at ``max_seq``
+    rows) and the part of it that holds live rows, on average over the
+    window's decode steps, at ``ref.cache_row_bytes`` a row."""
+    per_row = ref.cache_row_bytes(z)
     return {"pool": slots * max_seq * per_row,
             "live": kv_rows / steps * per_row if steps else 0.0}
 
@@ -316,19 +321,19 @@ def gaps(ref: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def judge(m: dict, z: dict, seed: int, served, device, *, weight=None):
-    """The reference over each sampled request's padded prompt and served
-    tokens (``weight``, the reference's parameter reader, defaults to the
-    seeded weights widened to float32).  -> (the readings, the number of
-    tokens compared, where the widest gap fell)."""
-    ref_lm.no_tf32()
+def judge(ref, m: dict, seed: int, served, device, *, weight=None):
+    """The reference module ``ref``'s logits over each sampled request's
+    padded prompt and served tokens (``weight``, the reference's parameter
+    reader, defaults to the seeded weights widened to float32).  -> (the
+    readings, the number of tokens compared, where the widest gap fell)."""
+    z = ref.dims(m)
     if weight is None:
-        w = wts.make(m, seed, device)
+        w = wts.make(ref, m, seed, device)
         weight = lambda name: w[name].float()
     all_gaps, tokens_compared, worst = [], 0, (0.0, None)
     for spec, plen, gen in served:
         seq, at = sequence(spec, plen, gen, device)
-        g = gaps(ref_lm.logits(z, weight, seq, at),
+        g = gaps(ref.logits(z, weight, seq, at),
                  torch.as_tensor(gen, device=device))
         all_gaps.append(g)
         j = int(g.argmax())

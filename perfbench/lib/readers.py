@@ -1,5 +1,5 @@
 """Arithmetic that several metric readers share."""
-from perfbench.lib import flops, peaks, profile
+from perfbench.lib import peaks, profile
 
 DECODE_KERNELS = ("decode_kernel", "decode_wide_kernel", "combine_kernel")
 
@@ -13,11 +13,12 @@ def decode_step_ms(rec):
     return (c["device_s"] - c["prefill_s"]) / c["decode_steps"] * 1e3
 
 
-def model_flops(z, prompt_tokens, prompt_pairs, decode_tokens, decode_pairs):
+def model_flops(ref, z, prompt_tokens, prompt_pairs, decode_tokens, decode_pairs):
     """2 x the parameters a token multiplies through x the tokens
-    processed, plus attention at the lengths served."""
-    return (flops.token_flops(z) * (prompt_tokens + decode_tokens)
-            + flops.attention_flops(z, prompt_pairs + decode_pairs))
+    processed, plus attention at the lengths served, by the
+    configuration's reference module ``ref``."""
+    return (2 * ref.matmul_params(z) * (prompt_tokens + decode_tokens)
+            + ref.attention_flops(z, prompt_pairs + decode_pairs))
 
 
 def roofline_pct(rec, needles, least_s):

@@ -2,17 +2,17 @@
 sides: the program gets them as its parameters, the reference makes them
 again from the same seed after the program is gone.
 
-The layout is the port's documented one (``models/nn.py``): dense
-matrices ``[d_in, d_out]`` applied as ``x @ W``, experts stacked
-``[E, d_in, d_out]``, the router ``[d, E]`` in float32, LayerNorm
-``scale``/``bias`` and RMSNorm stored as an offset from 1 (``x * (1 +
-scale)``), both float32.  Matrices are drawn in the served type from one
-``torch.Generator`` on the card in one call, then scaled by
-``1/sqrt(fan_in)`` (the embedding by ``1/sqrt(d)``); the router in a
-second call; every norm scale and bias in a third, ``NORM_SD`` apart
-from the identity (scale ``1 + NORM_SD * N(0, 1)``, RMSNorm's offset,
-biases ``NORM_SD * N(0, 1)``), so that a program that drops or misapplies
-one reads wrong.
+The names, shapes and kinds are the configuration's reference module's
+``specs`` (``perfbench/lib/describe.py``), in the port's parameter
+layout; the drawing is by kind, whatever the layout.  Matrices
+(``"matrix"``, ``"embed"``; ``[..., d_in, d_out]``) are drawn in the
+served type from one ``torch.Generator`` on the card in one call, then
+scaled by ``1/sqrt(d_in)`` (the embedding ``[V, d]`` by ``1/sqrt(d)``);
+the routers (``"router"``, float32) in a second call, scaled by
+``1/sqrt(d_in)``; every norm scale and bias in a third, float32,
+``NORM_SD`` apart from the identity (``"scale"``: ``1 + NORM_SD * N(0,
+1)``; ``"shift"``, a bias or RMSNorm's offset from 1: ``NORM_SD * N(0,
+1)``), so that a program that drops or misapplies one reads wrong.
 """
 from __future__ import annotations
 
@@ -23,73 +23,24 @@ import torch
 NORM_SD = 0.2
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
           "float32": torch.float32}
-
-
-def dims(m: dict) -> dict:
-    """Sizes of a ``model`` block (the port's ``ModelConfig`` fields)."""
-    d, H = m["d_model"], m["n_heads"]
-    return dict(d=d, H=H, K=m["n_kv_heads"], hd=m.get("head_dim") or d // H,
-                L=m["n_layers"], V=m["vocab"], f=m.get("d_ff", 0),
-                E=m.get("n_experts", 0), k=m.get("top_k", 0),
-                fe=m.get("d_ff_expert", 0), tie=m.get("tie_embeddings", True),
-                norm=m.get("norm", "rmsnorm"), bias=m.get("qkv_bias", False),
-                rope_pct=m.get("rope_pct", 1.0),
-                theta=m.get("rope_theta", 10000.0),
-                dtype=DTYPES[m.get("dtype", "bfloat16")])
-
-
-def specs(m: dict) -> list[tuple[str, tuple, str]]:
-    """(name, shape, kind) of every parameter, in drawing order; kind is
-    ``"matrix"``, ``"embed"``, ``"router"``, ``"scale"`` (drawn around 1)
-    or ``"shift"`` (drawn around 0)."""
-    z = dims(m)
-    d, H, K, hd = z["d"], z["H"], z["K"], z["hd"]
-
-    def norm(prefix):
-        if z["norm"] == "layernorm":
-            return [(f"{prefix}.scale", (d,), "scale"),
-                    (f"{prefix}.bias", (d,), "shift")]
-        return [(f"{prefix}.scale", (d,), "shift")]
-
-    out = [("emb", (z["V"], d), "embed")]
-    out += norm("final_norm")
-    if not z["tie"]:
-        out.append(("unemb", (d, z["V"]), "matrix"))
-    for i in range(z["L"]):
-        p = f"layers.{i}"
-        out += norm(f"{p}.norm1")
-        out += [(f"{p}.mix.wq", (d, H * hd), "matrix"),
-                (f"{p}.mix.wk", (d, K * hd), "matrix"),
-                (f"{p}.mix.wv", (d, K * hd), "matrix"),
-                (f"{p}.mix.wo", (H * hd, d), "matrix")]
-        if z["bias"]:
-            out += [(f"{p}.mix.b{n}", (w,), "shift") for n, w in
-                    (("q", H * hd), ("k", K * hd), ("v", K * hd), ("o", d))]
-        out += norm(f"{p}.norm2")
-        if z["E"]:
-            E, fe = z["E"], z["fe"]
-            out += [(f"{p}.moe.router", (d, E), "router"),
-                    (f"{p}.moe.w_gate", (E, d, fe), "matrix"),
-                    (f"{p}.moe.w_up", (E, d, fe), "matrix"),
-                    (f"{p}.moe.w_down", (E, fe, d), "matrix")]
-        else:
-            out += [(f"{p}.mlp.w_gate", (d, z["f"]), "matrix"),
-                    (f"{p}.mlp.w_up", (d, z["f"]), "matrix"),
-                    (f"{p}.mlp.w_down", (z["f"], d), "matrix")]
-    return out
+KINDS = ("matrix", "embed", "router", "scale", "shift")
 
 
 @torch.no_grad()
-def make(m: dict, seed: int, device) -> dict[str, torch.Tensor]:
-    """Every parameter by name, from ``seed``.  The matrices are views of
-    one buffer in the served type; the same seed gives the same bits."""
-    z = dims(m)
-    sp = specs(m)
+def make(ref, m: dict, seed: int, device) -> dict[str, torch.Tensor]:
+    """Every parameter of ``ref.specs(m)`` by name, from ``seed``, the
+    matrices in ``ref.dims(m)["dtype"]``.  The matrices are views of one
+    buffer in the served type; the same seed gives the same bits."""
+    sp = ref.specs(m)
+    unknown = {k for _, _, k in sp} - set(KINDS)
+    if unknown:
+        raise ValueError(f"parameter kinds {sorted(unknown)} are none of {KINDS}")
     gen = torch.Generator(device=device).manual_seed(int(seed) % 2 ** 63)
     n_mat = sum(math.prod(s) for _, s, k in sp if k in ("matrix", "embed"))
     n_rt = sum(math.prod(s) for _, s, k in sp if k == "router")
     n_nm = sum(math.prod(s) for _, s, k in sp if k in ("scale", "shift"))
-    flat = torch.randn(n_mat, dtype=z["dtype"], device=device, generator=gen)
+    flat = torch.randn(n_mat, dtype=ref.dims(m)["dtype"], device=device,
+                       generator=gen)
     rt = (torch.randn(n_rt, dtype=torch.float32, device=device, generator=gen)
           if n_rt else None)
     nm = torch.randn(n_nm, dtype=torch.float32, device=device,

@@ -1,12 +1,13 @@
 """Decode attention's share of its roofline in the traced window: the least
-time to read the valid K/V rows of the active slots, their queries and
-write their outputs, once each (or their operations, if more), over the
-decode-attention kernels' profiler time."""
-from perfbench.lib import flops, readers
+time to read the valid cached rows of the active slots, their queries and
+write their outputs, once each (or their operations, if more), as the
+configuration's reference module counts them, over the decode-attention
+kernels' profiler time."""
+from perfbench.lib import readers
 
 
 def compute(rec):
-    z, w = rec["config"], rec["work"]
-    least = readers.least_s(flops.attention_flops(z, w.decode_pairs),
-                            flops.decode_attention_bytes(z, w.kv_rows, w.decode_tokens))
+    ref, z, w = rec["ref"], rec["config"], rec["work"]
+    least = readers.least_s(ref.attention_flops(z, w.decode_pairs),
+                            ref.decode_attention_bytes(z, w.kv_rows, w.decode_tokens))
     return readers.roofline_pct(rec, readers.DECODE_KERNELS, least)

@@ -6,6 +6,6 @@ from perfbench.lib import peaks, readers
 
 def compute(rec):
     w = rec["work"]
-    f = readers.model_flops(rec["config"], w.prompt_tokens, w.prompt_pairs,
-                            w.decode_tokens, w.decode_pairs)
+    f = readers.model_flops(rec["ref"], rec["config"], w.prompt_tokens,
+                            w.prompt_pairs, w.decode_tokens, w.decode_pairs)
     return 100.0 * f / rec["window_s"] / peaks.BF16_FLOPS

@@ -15,7 +15,6 @@ import torch
 
 from perfbench.lib import bench
 from perfbench.lib import weights as wts
-from perfbench.reference import lm as ref_lm
 
 E4M3_MAX = 448.0
 
@@ -29,10 +28,12 @@ def fp8(w: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def control_readings(m: dict, z: dict, seed: int, served, device) -> dict:
-    ref_lm.no_tf32()
-    w = wts.make(m, seed, device)
-    kinds = {n: k for n, _, k in wts.specs(m)}
+def control_readings(ref, m: dict, seed: int, served, device) -> dict:
+    """The control's readings over ``served`` by the configuration's
+    reference module ``ref``, against ``ref``'s float32 logits."""
+    z = ref.dims(m)
+    w = wts.make(ref, m, seed, device)
+    kinds = {n: k for n, _, k in ref.specs(m)}
     full = lambda name: w[name].float()
 
     def low(name):
@@ -46,7 +47,7 @@ def control_readings(m: dict, z: dict, seed: int, served, device) -> dict:
     all_gaps = []
     for spec, plen, gen in served:
         seq, at = bench.sequence(spec, plen, gen, device)
-        ref = ref_lm.logits(z, full, seq, at)
-        ctl = ref_lm.logits(z, low, seq, at, act=lambda x: fp8(x, -1))
-        all_gaps.append(bench.gaps(ref, ctl.argmax(-1)))
+        exact = ref.logits(z, full, seq, at)
+        ctl = ref.logits(z, low, seq, at, act=lambda x: fp8(x, -1))
+        all_gaps.append(bench.gaps(exact, ctl.argmax(-1)))
     return bench.summarize(all_gaps)

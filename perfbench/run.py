@@ -3,7 +3,8 @@
     python3 perfbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 The cell (``BENCHMARK.json``'s ``workloads``) names a configuration
-(``perfbench/configs/<name>.json``) and a traffic mix
+(``perfbench/configs/<name>.json``, which names the module that
+describes its model: ``perfbench/lib/describe.py``) and a traffic mix
 (``perfbench/traffic/<name>.json``); its limits are
 ``perfbench/checks/<cell>.json`` and each metric is read by
 ``perfbench/metrics/<metric>.py``.  With ``--trace 0`` the line carries

@@ -6,6 +6,8 @@ from pathlib import Path
 
 import pytest
 
+from perfbench.lib import describe, weights
+
 ROOT = Path(__file__).resolve().parents[2]
 B = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -53,6 +55,20 @@ def test_configs_and_cells_have_their_files():
         assert (ROOT / "perfbench" / "traffic" / f"{w['traffic']}.json").is_file()
         assert (ROOT / "perfbench" / "checks" / f"{w['name']}.json").is_file()
     assert sum(w["chips"] == 4 for w in B["workloads"]) <= max(1, len(B["workloads"]) // 4)
+
+
+@pytest.mark.parametrize("conf", [c["file"] for c in B["configs"]])
+def test_each_configuration_module_has_the_contract(conf):
+    """The module a configuration names (``reference/lm.py`` without the
+    key) exists and defines the seven functions the harness reads."""
+    f = json.loads((ROOT / conf).read_text())
+    assert (ROOT / "perfbench" / f.get("reference", "reference/lm.py")).is_file()
+    ref = describe.load(f)
+    for name in ("dims", "specs", "logits", "cache_row_bytes", "matmul_params",
+                 "attention_flops", "decode_attention_bytes"):
+        assert callable(getattr(ref, name, None)), name
+    assert {"L", "V", "dtype"} <= set(ref.dims(f["model"]))
+    assert {k for _, _, k in ref.specs(f["model"])} <= set(weights.KINDS)
 
 
 def test_metrics_well_formed_with_readers():

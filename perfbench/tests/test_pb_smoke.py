@@ -12,7 +12,6 @@ import pytest
 import torch
 
 from perfbench.lib import bench
-from perfbench.lib import weights as wts
 from perfbench.reference import control
 
 DATA = Path(__file__).resolve().parent / "data"
@@ -55,8 +54,8 @@ def test_control_reads_above_the_program():
     """fp8 weights in the program's place: its gap is several times the
     port's at this size too."""
     rec = _run("smoke-dense", 99)
-    m = json.loads((DATA / "smoke-dense.json").read_text())["model"]
-    ctl = control.control_readings(m, wts.dims(m), 99, rec["served"], "cpu")
+    ctl = control.control_readings(rec["ref"], json.loads(
+        (DATA / "smoke-dense.json").read_text())["model"], 99, rec["served"], "cpu")
     prog = {k: c["value"] for k, c in rec["checks"].items()}
     assert ctl["logit_gap"] > 3 * max(prog["logit_gap"], 1e-3)
 

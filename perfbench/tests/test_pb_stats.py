@@ -6,7 +6,7 @@ from types import SimpleNamespace
 
 import numpy as np
 
-from perfbench.lib import bench, traffic
+from perfbench.lib import bench, describe, traffic
 from perfbench.run import load_reader
 
 
@@ -78,8 +78,9 @@ def test_rate_and_joules_move_with_a_stall():
 
 
 def test_kv_bytes_pool_and_live():
+    ref = describe.load({})
     z = {"L": 32, "K": 32, "hd": 80, "dtype": SimpleNamespace(itemsize=2)}
-    kv = bench.kv_bytes(z, 48, 2048, kv_rows=48 * 700 * 10, steps=10)
+    kv = bench.kv_bytes(ref, z, 48, 2048, kv_rows=48 * 700 * 10, steps=10)
     assert kv["pool"] == 48 * 2048 * 327_680 and kv["live"] == 48 * 700 * 327_680
 
 
