@@ -83,6 +83,15 @@ class ModelConfig:
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+    first_dense_layers: int = 0     # leading layers with the dense SwiGLU
+                                    # of width d_ff instead of the MoE
+    n_shared_experts: int = 0       # a shared SwiGLU of width
+                                    # n_shared_experts * d_ff_expert that
+                                    # every token takes (DeepSeek's)
+    router_score: str = "softmax"   # softmax | sigmoid (DeepSeek-V3's, with
+                                    # a float32 [E] correction bias added
+                                    # to the scores for the choice only)
+    routed_scale: float = 1.0       # the renormalised gates' scale
 
     # MLA (minicpm3 / deepseek-style)
     q_lora_rank: int = 0
@@ -128,6 +137,9 @@ class ModelConfig:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         if self.family == "hybrid" and not self.layer_pattern:
             raise ValueError("hybrid arch needs layer_pattern")
+        if self.router_score not in ("softmax", "sigmoid"):
+            raise ValueError(f"router_score must be 'softmax' or 'sigmoid', "
+                             f"got {self.router_score!r}")
         if self.kv_pool_blocks > 0 and self.kv_block_size <= 0:
             raise ValueError(
                 "kv_pool_blocks is set but kv_block_size is 0 — the "
@@ -194,7 +206,7 @@ class ModelConfig:
         d, f, V = self.d_model, self.d_ff, self.vocab
         H, K, hd = self.n_heads, self.n_kv_heads, self.head_dim
         total = V * d + (0 if self.tie_embeddings else V * d)
-        for kind in self.block_kinds:
+        for i, kind in enumerate(self.block_kinds):
             if kind in ("attn", "local_attn"):
                 total += d * (H + 2 * K) * hd + H * hd * d
             elif kind == "mla":
@@ -213,9 +225,11 @@ class ModelConfig:
             elif kind == "rglru":
                 r = self.lru_width or d
                 total += d * 2 * r + r * d + 3 * r * r  # approx gates
-            if self.is_moe:
+            if self.moe_layer(i):
                 total += self.n_experts * (3 * d * self.d_ff_expert)
                 total += d * self.n_experts
+                total += 3 * d * self.n_shared_experts * self.d_ff_expert
+                total += self.n_experts if self.router_score == "sigmoid" else 0
             elif f:
                 total += 3 * d * f
             total += 2 * d  # norms
@@ -230,9 +244,15 @@ class ModelConfig:
         if not self.is_moe:
             return self.n_params()
         dense_like = self.n_params()
-        unused = (self.n_experts - self.top_k) * self.n_layers * (
+        n_moe = sum(map(self.moe_layer, range(self.n_layers)))
+        unused = (self.n_experts - self.top_k) * n_moe * (
             3 * self.d_model * self.d_ff_expert)
         return dense_like - unused
+
+    def moe_layer(self, i: int) -> bool:
+        """Whether layer i's channel mix is the MoE (an MoE config's
+        layers from ``first_dense_layers`` on)."""
+        return self.is_moe and i >= self.first_dense_layers
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -16,6 +16,7 @@ _MODULES = {
     "paligemma-3b": "paligemma_3b",
     "llama3-405b": "llama3_405b",
     "mamba2-780m": "mamba2_780m",
+    "moonlight-16b-a3b": "moonlight_16b_a3b",
 }
 
 ARCH_IDS = tuple(_MODULES)

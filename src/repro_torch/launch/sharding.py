@@ -322,8 +322,22 @@ def _stacks(cfg: ModelConfig) -> list[str]:
 def layer_spec(cfg: ModelConfig, name: str, specs: dict) -> tuple:
     """The spec of the parameter ``name`` (``named_parameters()``'s, one
     module per layer) from ``specs`` on the flat layout: a stacked leaf's
-    without its lead entry.  Raises, naming the leaf, when a mesh axis
-    sits on the stacked L dim (a layer cannot hold part of another)."""
+    without its lead entry; MLA's up-projections, [r, H, n] on the flat
+    layout and [r, H*n] in the port, with their last two entries merged
+    (the heads' axis shards the merged dim by whole heads).  Raises,
+    naming the leaf, when a mesh axis sits on the stacked L dim (a layer
+    cannot hold part of another), or on both merged dims."""
+    spec = _flat_spec(cfg, name, specs)
+    if name.endswith((".mix.w_uk", ".mix.w_uv")) and spec:
+        *lead, heads, n = spec
+        if heads is not None and n is not None:
+            raise ValueError(f"{name}: spec {spec} shards both the heads and "
+                             f"their features, which the port holds as one dim")
+        spec = (*lead, heads if heads is not None else n)
+    return spec
+
+
+def _flat_spec(cfg: ModelConfig, name: str, specs: dict) -> tuple:
     parts = name.split(".")
     for prefix in _stacks(cfg):
         head = prefix.split("/")

@@ -17,7 +17,9 @@ as ``repro.training.checkpoint.load_into`` does.
 The other way, ``lm_to_flat`` gives an LM's weights in the reference's
 flat layout (layers stacked as the reference stacks them), which the
 port's checkpoints and int8 quantisation use, and ``load_lm`` loads
-such a dict, of numpy arrays or tensors, into an LM in place.
+such a dict, of numpy arrays or tensors, into an LM in place.  One
+leaf is reshaped on the way, both ways: MLA's up-projections ``w_uk``
+/ ``w_uv``, [r, H, n] in the reference and [r, H*n] in the port.
 """
 from __future__ import annotations
 
@@ -29,6 +31,9 @@ from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.distilbert import DistilBERT
 from repro_torch.models.resnet import ResNet18
 from repro_torch.models.transformer import LM
+
+# MLA's up-projections: [r, H*n] in the port, [r, H, n] in the reference
+_HEADED = ("w_uk", "w_uv")
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -57,6 +62,11 @@ def load_state(model: torch.nn.Module, flat: dict[str, np.ndarray]) -> None:
     key or shape mismatch."""
     state = model.state_dict()
     want = {k.replace(".", "/"): k for k in state}
+    # MLA's up-projections in the reference's [r, H, n] become the
+    # port's [r, H*n]
+    flat = {k: a.reshape(*a.shape[:-2], -1) if k.endswith(_HEADED)
+            and k in want and a.ndim == state[want[k]].dim() + 1 else a
+            for k, a in flat.items()}
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))
     if missing or extra:
@@ -138,13 +148,27 @@ def stack_layers(flat: dict, n_layers: int, *,
     return out
 
 
+def _mla_heads(cfg: ModelConfig, flat: dict, split: bool) -> dict:
+    """Per-layer keys: every MLA up-projection split into the reference's
+    heads (``split``), or merged back into the port's matrix."""
+    def shape(t):
+        if split:
+            return t.reshape(*t.shape[:-1], cfg.n_heads, -1)
+        return t.reshape(*t.shape[:-2], -1)
+    return {k: shape(t) if k.startswith("layers/")
+            and k.endswith(tuple("/mix/" + n for n in _HEADED)) else t
+            for k, t in flat.items()}
+
+
 def lm_flat(cfg: ModelConfig, named) -> dict:
     """A dict keyed by an LM's parameter names (``state_dict``,
     ``named_parameters``, or AdamW moments over them) in the reference's
-    flat layout: '/' for '.', a homogeneous stack's layers stacked, a
-    mixed stack's kept per layer (the reference's list), an
-    encoder-decoder's ``encoder/layers`` and ``xattn`` stacked."""
-    flat = {k.replace(".", "/"): t for k, t in named.items()}
+    flat layout: '/' for '.', MLA's up-projections split into heads, a
+    homogeneous stack's layers stacked, a mixed stack's kept per layer
+    (the reference's list), an encoder-decoder's ``encoder/layers`` and
+    ``xattn`` stacked."""
+    flat = _mla_heads(cfg, {k.replace(".", "/"): t
+                            for k, t in named.items()}, split=True)
     if cfg.homogeneous:
         flat = stack_layers(flat, cfg.n_layers)
     if cfg.family == "encdec":
@@ -160,7 +184,7 @@ def lm_unflat(cfg: ModelConfig, flat: dict) -> dict:
     if cfg.family == "encdec":
         flat = unstack_layers(flat, cfg.n_enc_layers, prefix="encoder/layers")
         flat = unstack_layers(flat, cfg.n_layers, prefix="xattn")
-    return flat
+    return _mla_heads(cfg, flat, split=False)
 
 
 def lm_to_flat(model: LM) -> dict[str, torch.Tensor]:

@@ -47,8 +47,11 @@ class MLAParams(nn.Module):
     """The reference's ``mla_params`` leaves: ``w_dq`` [D, q_lora],
     ``q_norm``, ``w_uq`` [q_lora, H*(nope+rope)] (``w_uq`` [D, ...] and no
     ``w_dq`` / ``q_norm`` when q_lora_rank is 0), ``w_dkv`` [D, r+rope],
-    ``kv_norm``, ``w_uk`` [r, H, nope], ``w_uv`` [r, H, v] and ``wo``
-    [H*v, D]; norms f32."""
+    ``kv_norm``, ``w_uk`` [r, H*nope], ``w_uv`` [r, H*v] and ``wo``
+    [H*v, D]; norms f32.  The reference keeps ``w_uk`` / ``w_uv`` as
+    [r, H, n]; the port stores them as the [r, H*n] matrices they are
+    (fan-in r, as any reader of the layout scales a matrix), and
+    ``convert`` reshapes between the two."""
 
     def __init__(self, d_model: int, m: MLAConfig, *, device=None,
                  dtype=torch.float32):
@@ -64,18 +67,17 @@ class MLAParams(nn.Module):
             self.w_uq = param(d_model, H * qk, **kw)
         self.w_dkv = param(d_model, r + m.qk_rope_dim, **kw)
         self.kv_norm = nn_.RMSNorm(r, device=device)
-        self.w_uk = param(r, H, m.qk_nope_dim, **kw)
-        self.w_uv = param(r, H, m.v_head_dim, **kw)
+        self.w_uk = param(r, H * m.qk_nope_dim, **kw)
+        self.w_uv = param(r, H * m.v_head_dim, **kw)
         self.wo = param(H * m.v_head_dim, d_model, **kw)
         self.m = m
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        """Fan-in init of the projections (``w_uk`` / ``w_uv`` as the
-        reference's [r, H*n] matrices), norms to zero scale."""
+        """Fan-in init of the projections, norms to zero scale."""
         for name in ("w_dq", "w_uq", "w_dkv", "w_uk", "w_uv", "wo"):
             w = getattr(self, name, None)
             if w is not None:
-                nn_.dense_init_(w.view(w.shape[0], -1), gen)
+                nn_.dense_init_(w, gen)
         for norm in (getattr(self, "q_norm", None), self.kv_norm):
             if norm is not None:
                 norm.reset_parameters()
@@ -109,12 +111,17 @@ def _project_kv_latent(p: MLAParams, x: torch.Tensor, rope):
             nn_.rotate(ckr[..., r:], cos[:, :, 0], sin[:, :, 0]))
 
 
+def _heads(w: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """An [r, H*n] up-projection as its [r, H, n] view."""
+    return w.view(w.shape[0], n_heads, -1)
+
+
 def _expand_attend(p: MLAParams, x, q_nope, q_rope, c_kv, k_rope,
                    q_offset=0):
     m = p.m
     B, S, _ = x.shape
-    k_nope = torch.einsum("bsr,rhn->bshn", c_kv, p.w_uk)
-    v = torch.einsum("bsr,rhv->bshv", c_kv, p.w_uv)
+    k_nope = torch.einsum("bsr,rhn->bshn", c_kv, _heads(p.w_uk, m.n_heads))
+    v = torch.einsum("bsr,rhv->bshv", c_kv, _heads(p.w_uv, m.n_heads))
     k_rope_h = k_rope[:, :, None, :].expand(B, S, m.n_heads, m.qk_rope_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_h], dim=-1)
@@ -222,7 +229,7 @@ def mla_decode(p: MLAParams, x: torch.Tensor, cache: MLACache, *, pos,
     _write(cache, c_kv, k_rope, pos)
     q_nope, q_rope = _project_q(p, x, rope)
     # W_uk absorbed into q: q_lat [B, 1, H, r]
-    q_lat = torch.einsum("bthn,rhn->bthr", q_nope, p.w_uk)
+    q_lat = torch.einsum("bthn,rhn->bthr", q_nope, _heads(p.w_uk, m.n_heads))
     c = cache.c_kv.float()                                     # [B, C, r]
     kr = cache.k_rope.float()                                  # [B, C, rope]
     scores = (torch.einsum("bthr,bsr->bhts", q_lat.float(), c)
@@ -234,5 +241,6 @@ def mla_decode(p: MLAParams, x: torch.Tensor, cache: MLACache, *, pos,
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     o_lat = torch.einsum("bhts,bsr->bthr", w, c)               # [B,1,H,r]
-    o = torch.einsum("bthr,rhv->bthv", o_lat, p.w_uv.float())
+    o = torch.einsum("bthr,rhv->bthv", o_lat,
+                     _heads(p.w_uv, m.n_heads).float())
     return o.to(x.dtype).reshape(B, 1, -1) @ p.wo, cache

@@ -33,6 +33,15 @@ rank, so the same tokens drop as in an unsharded step; the expert
 products run as DTensor ops on the rows it places, and the output goes
 back to the input's placements.  The context sets and resets it;
 outside one it is None.
+
+A sigmoid router (``score="sigmoid"``, DeepSeek-V3's ``noaux_tc`` with
+one group) scores each expert ``s = sigmoid(x R)`` in f32, chooses the
+top k on ``s + bias`` (the float32 correction bias enters the choice
+only; ties to the lower index), and weighs the chosen experts by their
+uncorrected ``s`` over their sum (+1e-20), times ``scale``.  A layer
+with shared experts (``MoEParams(..., d_ff_shared=...)``) adds one
+SwiGLU of that width, taken by every token, to the routed sum.  The
+softmax router is untouched by either.
 """
 from __future__ import annotations
 
@@ -54,23 +63,40 @@ ACTIVATION_SHARDING: contextvars.ContextVar = contextvars.ContextVar(
 class MoEParams(nn.Module):
     """The reference's ``moe_params`` leaves: ``router`` [D, E] f32
     whatever the model's dtype, ``w_gate`` / ``w_up`` [E, D, F] and
-    ``w_down`` [E, F, D]."""
+    ``w_down`` [E, F, D]; with ``router_bias``, ``router_bias`` [E] f32;
+    with ``d_ff_shared`` > 0, the shared SwiGLU ``shared_gate`` /
+    ``shared_up`` [D, Fs] and ``shared_down`` [Fs, D]."""
 
     def __init__(self, d_model: int, n_experts: int, d_ff_e: int, *,
+                 d_ff_shared: int = 0, router_bias: bool = False,
                  device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.router = param(d_model, n_experts, device=device)
+        self.router_bias = (param(n_experts, device=device) if router_bias
+                            else None)
         self.w_gate = param(n_experts, d_model, d_ff_e, **kw)
         self.w_up = param(n_experts, d_model, d_ff_e, **kw)
         self.w_down = param(n_experts, d_ff_e, d_model, **kw)
+        if d_ff_shared:
+            self.shared_gate = param(d_model, d_ff_shared, **kw)
+            self.shared_up = param(d_model, d_ff_shared, **kw)
+            self.shared_down = param(d_ff_shared, d_model, **kw)
+        self.shared = bool(d_ff_shared)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
-        """Fan-in init of the router and of every expert's matrices."""
+        """Fan-in init of the router and of every expert's matrices; the
+        correction bias at zero."""
         nn_.dense_init_(self.router, gen)
         for w in (self.w_gate, self.w_up, self.w_down):
             for e in range(w.shape[0]):
                 nn_.dense_init_(w[e], gen)
+        if self.router_bias is not None:
+            with torch.no_grad():
+                self.router_bias.zero_()
+        if self.shared:
+            for w in (self.shared_gate, self.shared_up, self.shared_down):
+                nn_.dense_init_(w, gen)
 
 
 def capacity(g: int, top_k: int, n_experts: int,
@@ -80,18 +106,31 @@ def capacity(g: int, top_k: int, n_experts: int,
 
 
 def route(router: torch.Tensor, xg: torch.Tensor, top_k: int,
-          capacity_factor: float):
+          capacity_factor: float, *, score: str = "softmax",
+          bias: torch.Tensor | None = None, scale: float = 1.0):
     """The routing of groups xg [G, g, D]: -> (gates [G, g, E] f32, top-k
     weights [G, g, k] f32 and experts [G, g, k] (ties to the lower
     index), each (token, k-slot)'s row in its expert [G, g, k], whether it
-    was kept [G, g, k], and the capacity C)."""
+    was kept [G, g, k], and the capacity C).  ``score="sigmoid"`` routes
+    as the module docstring says; its ``gates`` are the scores over
+    their sum, what the load-balance loss reads."""
     G, g, _ = xg.shape
     E = router.shape[1]
-    gates = torch.softmax(xg.float() @ router, dim=-1)
-    # a stable descending sort keeps equal gates in index order
-    w, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
-    w, idx = w[..., :top_k], idx[..., :top_k]
-    w = w / (w.sum(-1, keepdim=True) + 1e-9)
+    logits = xg.float() @ router
+    if score == "softmax":
+        gates = torch.softmax(logits, dim=-1)
+        # a stable descending sort keeps equal gates in index order
+        w, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+        w, idx = w[..., :top_k], idx[..., :top_k]
+        w = w / (w.sum(-1, keepdim=True) + 1e-9)
+    else:
+        s = torch.sigmoid(logits)
+        _, idx = torch.sort(s if bias is None else s + bias, dim=-1,
+                            descending=True, stable=True)
+        idx = idx[..., :top_k]
+        w = s.gather(-1, idx)
+        w = w / (w.sum(-1, keepdim=True) + 1e-20) * scale
+        gates = s / s.sum(-1, keepdim=True)
     C = capacity(g, top_k, E, capacity_factor)
     onehot = (idx[..., None] == torch.arange(E, device=xg.device)).long()
     # kept before slot j: min(choices at slots < j, C), per expert
@@ -102,12 +141,29 @@ def route(router: torch.Tensor, xg: torch.Tensor, top_k: int,
     return gates, w, idx, pos, pos < C, C
 
 
+def routed_work(n_tokens: int, top_k: int, n_experts: int,
+                capacity_factor: float,
+                group_size: int = GROUP_SIZE) -> tuple[int, int]:
+    """What ``moe_forward`` does over ``n_tokens`` tokens, from the shapes
+    alone: (the (token, expert) pairs it routes, padding rows included,
+    and the expert rows its products multiply, E x G x C)."""
+    if n_tokens <= 0:
+        return 0, 0
+    g = min(group_size, n_tokens)
+    G = -(-n_tokens // g)
+    return (G * g * top_k,
+            n_experts * G * capacity(g, top_k, n_experts, capacity_factor))
+
+
 def moe_forward(p: MoEParams, x: torch.Tensor, *, top_k: int,
                 capacity_factor: float = 1.25,
-                group_size: int = GROUP_SIZE, need_aux: bool = True):
+                group_size: int = GROUP_SIZE, need_aux: bool = True,
+                score: str = "softmax", scale: float = 1.0):
     """x [B, S, D] -> (y [B, S, D], the aux loss, an f32 scalar; None
     when ``need_aux`` is False, as on a decode step, whose aux the
-    reference discards)."""
+    reference discards).  ``score`` and ``scale`` pick the router
+    (``route``); the shared SwiGLU, when ``p`` has one, is added to every
+    token's routed sum."""
     shard = ACTIVATION_SHARDING.get()
     x_in, x = x, x if shard is None else shard.gather(x)
     B, S, D = x.shape
@@ -117,8 +173,12 @@ def moe_forward(p: MoEParams, x: torch.Tensor, *, top_k: int,
     G = -(-N // g)
     xt = F.pad(x.reshape(N, D), (0, 0, 0, G * g - N))          # [G*g, D]
     router = p.router if shard is None else shard.gather(p.router)
+    bias = p.router_bias
+    if shard is not None and bias is not None:
+        bias = shard.gather(bias)
     gates, w, idx, pos, keep, C = route(router, xt.reshape(G, g, D),
-                                        top_k, capacity_factor)
+                                        top_k, capacity_factor, score=score,
+                                        bias=bias, scale=scale)
     # row of each kept (token, k-slot) in the [E, G, C] expert buffer;
     # a dropped one points past it
     grp = torch.arange(G, device=x.device)[:, None, None]
@@ -142,6 +202,9 @@ def moe_forward(p: MoEParams, x: torch.Tensor, *, top_k: int,
     y = (cw[..., None] * yk).sum(1).to(x.dtype)[:N].reshape(B, S, D)
     if shard is not None:
         y = shard.like(y, x_in)
+    if p.shared:
+        y = y + (F.silu(x_in @ p.shared_gate) * (x_in @ p.shared_up)) \
+            @ p.shared_down
     if not need_aux:
         return y, None
     # load balance (Switch eq. 4): E * <f_e * P_e> over every group row

@@ -10,7 +10,8 @@ pairs, Multi-head Latent Attention (``mla``, ``models.mla``), the
 Mamba-2 SSD block (``ssd``, ``models.ssd``) or the RG-LRU block
 (``rglru``, ``models.rglru``); in an encoder-decoder, cross-attention
 over the encoder's rows (``xattn``); then the channel mix: the MoE FFN
-(``models.moe``) when ``cfg.n_experts`` > 0, else a dense one (SwiGLU
+(``models.moe``) when ``cfg.n_experts`` > 0 (past the first
+``cfg.first_dense_layers`` layers), else a dense one (SwiGLU
 with SiLU or tanh-GELU, or the biased GELU MLP) when ``d_ff`` > 0; a
 final norm and a tied or untied unembedding.  ``forward`` returns the
 MoE layers' summed load-balance loss beside the logits, as the
@@ -188,6 +189,25 @@ def layer_index(cfg: ModelConfig) -> tuple[tuple[str, int], ...]:
     return tuple(out)
 
 
+def step_work(cfg: ModelConfig, batch: int, seq: int, *,
+              cache_rows: int = 0, n_layers: int | None = None) -> dict:
+    """What one call over ``batch`` rows of ``seq`` tokens does in the
+    first ``n_layers`` layers (all by default), from the shapes alone:
+    ``moe_pairs``, the (token, expert) pairs its MoE layers route (the
+    call's tokens, padding rows included, routed as one set of groups);
+    ``moe_rows``, the expert rows their products multiply; and, for a
+    decode step over a cache of ``cache_rows`` rows a slot,
+    ``latent_rows``, the latent rows its MLA layers score: every row of
+    every slot, whether it holds a token or not."""
+    kinds = cfg.block_kinds[:cfg.n_layers if n_layers is None else n_layers]
+    n_moe = sum(cfg.moe_layer(i) for i in range(len(kinds)))
+    pairs, rows = (moe.routed_work(batch * seq, cfg.top_k, cfg.n_experts,
+                                   cfg.capacity_factor) if n_moe else (0, 0))
+    latent = batch * cache_rows if seq == 1 else 0
+    return {"moe_pairs": n_moe * pairs, "moe_rows": n_moe * rows,
+            "latent_rows": kinds.count("mla") * latent}
+
+
 def kv_rows(cfg: ModelConfig, max_seq: int) -> int:
     """Rows of the attention layers' cache: a ring of ``window`` rows
     when every attention layer is windowed, else ``max_seq``."""
@@ -223,12 +243,14 @@ def _check_paged_supported(cfg: ModelConfig) -> None:
 
 
 class Layer(nn.Module):
-    """One residual block of kind ``kind``: ``norm1``, ``mix``
+    """Residual block ``index`` of kind ``kind``: ``norm1``, ``mix``
     (attention, MLA, the SSD block or the RG-LRU block), and the channel
-    mix ``norm2`` + ``moe`` for an MoE config, else ``norm2`` + ``mlp``
-    when ``cfg.d_ff`` > 0 (the reference's ``init_layer`` keys)."""
+    mix ``norm2`` + ``moe`` for an MoE config's layers from
+    ``cfg.first_dense_layers`` on, else ``norm2`` + ``mlp`` when
+    ``cfg.d_ff`` > 0 (the reference's ``init_layer`` keys)."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, *, device=None):
+    def __init__(self, cfg: ModelConfig, kind: str, index: int = 0, *,
+                 device=None):
         super().__init__()
         d, dt = cfg.d_model, torch_dtype(cfg.dtype)
         self.kind = kind
@@ -254,10 +276,13 @@ class Layer(nn.Module):
         else:
             raise ValueError(f"unknown layer kind {kind!r}")
         self.mlp = self.moe = None
-        if cfg.is_moe:
+        if cfg.moe_layer(index):
             self.norm2 = nn_.norm(cfg.norm, d, device=device)
-            self.moe = moe.MoEParams(d, cfg.n_experts, cfg.d_ff_expert,
-                                     device=device, dtype=dt)
+            self.moe = moe.MoEParams(
+                d, cfg.n_experts, cfg.d_ff_expert,
+                d_ff_shared=cfg.n_shared_experts * cfg.d_ff_expert,
+                router_bias=cfg.router_score == "sigmoid", device=device,
+                dtype=dt)
         elif cfg.d_ff:
             self.norm2 = nn_.norm(cfg.norm, d, device=device)
             if cfg.act == "gelu_mlp":
@@ -499,8 +524,8 @@ class LM(nn.Module):
         self.final_norm = nn_.norm(cfg.norm, d, device=device)
         if not cfg.tie_embeddings:
             self.unemb = param(d, V, device=device, dtype=dt)
-        self.layers = nn.ModuleList(Layer(cfg, kind, device=device)
-                                    for kind in cfg.block_kinds)
+        self.layers = nn.ModuleList(Layer(cfg, kind, i, device=device)
+                                    for i, kind in enumerate(cfg.block_kinds))
         if cfg.family == "encdec":
             self.encoder = Encoder(cfg, device=device)
             self.xattn = nn.ModuleList(CrossAttn(cfg, device=device)
@@ -638,7 +663,8 @@ class LM(nn.Module):
             cfg = self.cfg
             y, a = moe.moe_forward(layer.moe, layer.norm2(h), top_k=cfg.top_k,
                                    capacity_factor=cfg.capacity_factor,
-                                   need_aux=need_aux)
+                                   need_aux=need_aux, score=cfg.router_score,
+                                   scale=cfg.routed_scale)
             return h + y, a if need_aux else None
         if layer.mlp is not None:
             return h + layer.mlp(layer.norm2(h)), None

@@ -130,7 +130,13 @@ Invariants, as the reference's:
   (``window_sync_s``), the harvest (``harvest_s``), and the caller's
   own time between one ``advance`` and the next while slots are active
   (``caller_s``).  No span is a ``record_function`` range: the
-  profiler would give those a device-side copy.
+  profiler would give those a device-side copy.  ``work`` counts, for
+  prefill and decode apart, what the model's layers did, from the
+  shapes of each call (``tfm.step_work``) and, for decode, multiplied
+  by the steps each window replays, with no operation added to a step:
+  the (token, expert) pairs the MoE layers route (``moe_pairs``), the
+  expert rows their products multiply (``moe_rows``), and the latent
+  rows an MLA decode scores (``latent_rows``).
 """
 from __future__ import annotations
 
@@ -375,6 +381,30 @@ def pool_hbm_bytes(cfg: ModelConfig, n_slots: int, max_seq: int,
     kv = (2 * L * B * C * K * hd * item
           if cfg.homogeneous and tfm.STATE_OF[kinds[0]] == "kv" else total)
     return {"kv_bytes": kv, "meta_bytes": total - kv, "total_bytes": total}
+
+
+WORK = ("moe_pairs", "moe_rows", "latent_rows")
+
+
+def window_work(eng: "ContinuousBatchingEngine") -> dict:
+    """``tfm.step_work`` of one decode window of ``eng``: ``sync_every``
+    steps over every slot at the pool's rows, or, speculative, as many
+    macro-steps of ``draft_depth`` draft steps through the draft layers
+    and one verify chunk of ``draft_depth + 1`` tokens."""
+    cfg, B, D = eng.cfg, eng.n_slots, eng.draft_depth
+    if D == 0:
+        one = tfm.step_work(cfg, B, 1, cache_rows=eng.max_seq)
+    else:
+        chunk = tfm.step_work(cfg, B, D + 1)
+        draft = tfm.step_work(cfg, B, 1, cache_rows=eng.max_seq,
+                              n_layers=cfg.draft_layers)
+        one = {k: chunk[k] + D * draft[k] for k in WORK}
+    return {k: eng.sync_every * v for k, v in one.items()}
+
+
+def _add_work(into: dict, work: dict) -> None:
+    for k in WORK:
+        into[k] += work[k]
 
 
 def _bucket(n: int) -> int:
@@ -951,6 +981,9 @@ class DecodeSession:
         self.spec_accepted = 0          # drafts the full model confirmed
         self.spec_draft_slot_steps = 0  # shallow passes (energy model)
         self.last_depth = engine.draft_depth
+        self.work = {phase: dict.fromkeys(WORK, 0)
+                     for phase in ("prefill", "decode")}
+        self._window_work = window_work(engine)
 
     # -- state --------------------------------------------------------------
     @property
@@ -1101,6 +1134,7 @@ class DecodeSession:
         toks_d = torch.from_numpy(toks).to(dev)
         with _phase(tr, "decode.refill.prefill", span):
             logits, rows = eng.params.prefill(toks_d, rows)
+        _add_work(self.work["prefill"], tfm.step_work(eng.cfg, nb, plen))
         # padding rows go to slot B, out of range: not written
         with _phase(tr, "decode.refill.scatter", span):
             slot_write(self._pool, rows, np.pad(slot_idx, (0, nb - take),
@@ -1253,6 +1287,7 @@ class DecodeSession:
         toks_d = torch.from_numpy(toks).to(dev)
         with _phase(tr, "decode.refill.prefill", span):
             logits, rows = eng.params.prefill(toks_d, rows)
+        _add_work(self.work["prefill"], tfm.step_work(eng.cfg, nb, plen))
         with _phase(tr, "decode.refill.scatter", span):
             paged_slot_write(self._pool, rows,
                              np.pad(slot_idx, (0, nb - n),
@@ -1406,6 +1441,7 @@ class DecodeSession:
         captured for the windows after it.  A failed capture or replay
         raises."""
         eng = self.engine
+        _add_work(self.work["decode"], self._window_work)
         if not eng.graphed:
             self._window(kind)
             return

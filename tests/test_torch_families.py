@@ -117,8 +117,8 @@ def test_lm_matches_jax(arch):
 
 def test_moe_and_mla_trees_carry_across_and_mismatches_raise():
     """The reference's stacked leaves (``layers/moe/w_gate`` [L, E, D, F],
-    ``layers/mix/w_uk`` [L, r, H, nope]) land in each layer's module; a
-    missing, extra or misshapen leaf raises."""
+    ``layers/mix/w_uk`` [L, r, H, nope], held as [r, H * nope]) land in
+    each layer's module; a missing, extra or misshapen leaf raises."""
     jcfg, params, tcfg, model = _pair(GRANITE)
     flat = convert.flatten_tree(jax.tree.map(np.asarray, params))
     np.testing.assert_array_equal(model.layers[1].moe.w_down.numpy(),
@@ -137,8 +137,10 @@ def test_moe_and_mla_trees_carry_across_and_mismatches_raise():
                               device="cpu")
     jcfg, params, tcfg, model = _pair(MINICPM)
     flat = convert.flatten_tree(jax.tree.map(np.asarray, params))
+    # the port holds the reference's [r, H, nope] as [r, H * nope]
+    w_uk = flat["layers/mix/w_uk"][1]
     np.testing.assert_array_equal(model.layers[1].mix.w_uk.numpy(),
-                                  flat["layers/mix/w_uk"][1])
+                                  w_uk.reshape(w_uk.shape[0], -1))
     # bf16 weights keep their exact values, the router stays f32
     tree = jax.tree.map(np.asarray, jtfm.init_lm(jget(GRANITE),
                                                  jax.random.PRNGKey(2)))
