@@ -7,6 +7,7 @@
     python3 chip_smoke.py --train          # the training phases only
     python3 chip_smoke.py --shard          # the sharding phases only
     python3 chip_smoke.py --attention      # attention kernels, hd-256 paths
+    python3 chip_smoke.py --latent         # the MLA latent decode kernel
 
 Drives ``src/repro_torch`` only (no JAX, nothing of ``repro``) and prints
 one JSON object per line; any failed check raises, so the exit code is
@@ -17,8 +18,8 @@ not 0.  Phases:
                (one ``nvcc`` per source, all at once), with the seconds taken
                in all and by each library, the count of ``HGMMA``
                (tensor-core ``wgmma``) instructions in the flash library's
-               SASS and of ``HMMA`` / ``HGMMA`` in the SSD library's
-               (``cuobjdump``);
+               SASS, of ``HMMA`` / ``HGMMA`` in the SSD library's and of
+               ``HMMA`` in the latent decode library's (``cuobjdump``);
   3. kernel  — first ``launch_floor``: the entropy library's empty kernel
                (one warp, no work), device and call time; then the entropy
                kernel on the card against its plain PyTorch version on the
@@ -293,11 +294,23 @@ not 0.  Phases:
                ``decode_graph`` for granite; then minicpm3-4b (62 layers,
                d 2560, MLA, bf16, seeded) through the launcher greedy
                (``serve_generate_mla``) and sampled
-               (``serve_generate_mla_sampled``), no attention kernel
-               launched; ``step_mla``; ``parity_generate_mla``: depth 2
-               in f32, the card against the CPU, equal tokens for 16
-               requests and prefill logits within 1e-3; ``decode_graph``
-               for minicpm3;
+               (``serve_generate_mla_sampled``), the latent decode kernel
+               launched and no other attention kernel; ``step_mla``;
+               ``parity_generate_mla``: depth 2 in f32, the card (the
+               latent kernel's f32 instance) against the CPU, equal
+               tokens for 16 requests and prefill logits within 1e-3;
+               ``decode_graph`` for minicpm3, latent launches equal to
+               layers x steps (``--latent`` runs these minicpm3 phases
+               after ``latent_decode``);
+ 17b. latent_decode — the MLA latent decode kernel against its plain
+               version at the Moonlight cell's shape (256 slots of 2048
+               rows, 16 heads, r 512, rope 64) in bf16 and f32 and at
+               MiniCPM3's widths, live lengths drawn as the backlog's:
+               the row-scaled error within 1e-4, device ms beside the
+               bound (the live rows once at the HBM peak), the plain
+               version's ms and the launches of one call (run after
+               ``attention``); then ``decode_graph`` for Moonlight whole,
+               latent launches equal to 27 x steps;
  18. training (``--train`` runs these alone; no kernel is on this
                path: a train step differentiates the einsum and chunked
                paths, and each phase gates every kernel counter at 0):
@@ -398,6 +411,7 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
 from repro_torch.kernels import entropy as ent_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import latent_decode as ld_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.runtime import (ATTN_BF16_ROW_TOL,  # noqa: E402
                                          row_scaled_error)
@@ -585,6 +599,9 @@ def phase_build():
     ssd_tc = {op: sass_count(ssd, op) for op in ("HMMA", "HGMMA")}
     fail_unless("not available" in ssd_tc.values() or sum(ssd_tc.values()),
                 "ssd_scan: the chunk-parallel products hold HMMA or HGMMA")
+    latent_hmma = sass_count(str(paths["latent_decode"]), "HMMA")
+    fail_unless(latent_hmma == "not available" or latent_hmma > 0,
+                "latent_decode: the bf16 instances' products hold HMMA")
     # the hd-256 instances: the tensor-core flash body and the wide decode
     # body (registers and spills as ptxas reports them)
     hd256 = {f"{lib}:{fn}": rep for lib in ("flash_attention",
@@ -598,8 +615,8 @@ def phase_build():
          library_seconds=dict(build.build_seconds),
          libraries={n: os.path.relpath(p, ROOT) for n, p in paths.items()},
          flash_sass_hgmma=hgmma, ssd_sass_hmma=ssd_tc["HMMA"],
-         ssd_sass_hgmma=ssd_tc["HGMMA"], ptxas_hd256=hd256, ptxas_gqa=gqa,
-         ptxas=ptxas)
+         ssd_sass_hgmma=ssd_tc["HGMMA"], latent_sass_hmma=latent_hmma,
+         ptxas_hd256=hd256, ptxas_gqa=gqa, ptxas=ptxas)
 
 
 # entropy cases: the gated step's [64 or 128, 2] and its edges (one row,
@@ -2723,8 +2740,10 @@ def phase_decode_graph(name: str, cfg, model) -> dict:
     capture) in ms per step, issue ms, and the card's busy share: one
     window's device time (its graph replayed) over the window's time."""
     out = {}
-    # SSD, MLA and RG-LRU layers decode with no attention kernel
+    # SSD and RG-LRU layers decode with no attention kernel, MLA layers
+    # through the latent decode kernel
     attn_layers = sum(k in ("attn", "local_attn") for k in cfg.block_kinds)
+    mla_layers = sum(k == "mla" for k in cfg.block_kinds)
     counter = (None if attn_layers == 0 else
                "paged_launches" if cfg.paged_kv else "launches")
     for mode in ("greedy", "sampled"):
@@ -2733,7 +2752,7 @@ def phase_decode_graph(name: str, cfg, model) -> dict:
             eng = cont.ContinuousBatchingEngine(
                 cfg, model, n_slots=8, max_seq=serve.GEN_MAX_SEQ,
                 device="cuda", capture=capture)
-            da_mod.launches = da_mod.paged_launches = 0
+            da_mod.launches = da_mod.paged_launches = ld_mod.launches = 0
             toks, dec, issue, sess = _drive_windows(
                 eng, _graph_requests(cfg.vocab, mode == "sampled"))
             torch.cuda.synchronize()
@@ -2744,6 +2763,12 @@ def phase_decode_graph(name: str, cfg, model) -> dict:
                             f"decode_graph {name} {mode} capture={capture}: "
                             f"{launches} decode launches for "
                             f"{attn_layers} x {steps} layer-steps")
+            fail_unless(ld_mod.launches == mla_layers * steps,
+                        f"decode_graph {name} {mode} capture={capture}: "
+                        f"{ld_mod.launches} latent decode launches for "
+                        f"{mla_layers} x {steps} layer-steps")
+            if mla_layers:
+                launches = ld_mod.launches
             runs[capture] = dict(toks=toks, dec=dec, issue=issue, sess=sess,
                                  eng=eng, launches=launches)
         e, g = runs[False], runs[True]
@@ -3719,7 +3744,8 @@ MOE_ARCH, MLA_ARCH = "granite-moe-3b-a800m", "minicpm3-4b"
 MOE_LAYER_TOL = 1e-4
 _COUNTERS = ((fa_mod, "launches"), (da_mod, "launches"),
              (da_mod, "paged_launches"), (da_mod, "chunk_launches"),
-             (da_mod, "gqa_launches"), (ssd_mod, "launches"))
+             (da_mod, "gqa_launches"), (ssd_mod, "launches"),
+             (ld_mod, "launches"), (ld_mod, "merge_launches"))
 
 
 def _zero_counters() -> None:
@@ -3733,7 +3759,8 @@ def _attention_launches() -> dict:
             "paged_decode_attention": da_mod.paged_launches,
             "decode_attention_chunk": da_mod.chunk_launches,
             "decode_attention_gqa_body": da_mod.gqa_launches,
-            "ssd_scan": ssd_mod.launches}
+            "ssd_scan": ssd_mod.launches,
+            "latent_decode": ld_mod.launches}
 
 
 def phase_moe_layer():
@@ -3954,10 +3981,12 @@ def phase_parity_generate_moe(model):
 
 def phase_parity_generate_mla():
     """minicpm3 at published width, depth 2, f32 weights and caches, TF32
-    off, the card against the CPU on the same weights (no kernel runs on
-    this path: it holds the card's numerics): 16 requests of 16 + 16
-    tokens through the continuous engine, equal greedy tokens for every
-    request, and lockstep logits' largest difference printed."""
+    off, the card against the CPU on the same weights (the card's decode
+    steps through the latent decode kernel's f32 instance, no other
+    attention kernel; the CPU's through its plain version): 16 requests
+    of 16 + 16 tokens through the continuous engine, equal greedy tokens
+    for every request, and lockstep logits' largest difference
+    printed."""
     cfg = get_config(MLA_ARCH)
     tf32 = bool(torch.backends.cuda.matmul.allow_tf32)
     fail_unless(not tf32, "parity_generate_mla: TF32 off")
@@ -3977,8 +4006,10 @@ def phase_parity_generate_mla():
         tfm.init_cache = init_cache
     lg = _greedy_lockstep(m_gpu, prompts, 8)                 # f32 caches
     lc = _greedy_lockstep(m_cpu, prompts, 8)
-    fail_unless(not any(launches.values()),
-                f"parity_generate_mla: no attention kernel: {launches}")
+    fail_unless(launches["latent_decode"] > 0 and not any(
+        n for k, n in launches.items() if k != "latent_decode"),
+                f"parity_generate_mla: the latent decode kernel and no other "
+                f"attention kernel: {launches}")
     same = [a == b for a, b in zip(toks_gpu, toks_cpu)]
     fail_unless(all(same), f"parity_generate_mla depth-2 f32: card tokens "
                            f"== CPU, per request: {same}")
@@ -4026,12 +4057,25 @@ def phase_families(peaks) -> dict:
     phase_decode_graph(MOE_ARCH, model.cfg, model)
     del model
     torch.cuda.empty_cache()
+    launches.update(phase_mla_family(peaks))
+    emit(phase="families", seconds=time.perf_counter() - t0)
+    return launches
+
+
+def phase_mla_family(peaks) -> dict:
+    """minicpm3-4b through the launcher greedy and sampled
+    (``serve_generate_mla``, ``serve_generate_mla_sampled``: the latent
+    decode kernel and no other attention kernel), its step
+    (``step_mla``), ``parity_generate_mla`` and ``decode_graph``; -> each
+    served path's launches."""
     sampled = ["--temperature", str(SAMPLED["temperature"]), "--top-k",
                str(SAMPLED["top_k"]), "--top-p", str(SAMPLED["top_p"])]
+    launches = {}
     launches["serve_generate_mla"], model = _serve_family(
-        MLA_ARCH, [], "serve_generate_mla", (), peaks)
+        MLA_ARCH, [], "serve_generate_mla", ("latent_decode",), peaks)
     launches["serve_generate_mla_sampled"], other = _serve_family(
-        MLA_ARCH, sampled, "serve_generate_mla_sampled", (), peaks)
+        MLA_ARCH, sampled, "serve_generate_mla_sampled", ("latent_decode",),
+        peaks)
     del other
     torch.cuda.empty_cache()
     emit(phase="step_mla", arch=MLA_ARCH, slots=8,
@@ -4040,8 +4084,87 @@ def phase_families(peaks) -> dict:
     phase_decode_graph(MLA_ARCH, model.cfg, model)
     del model
     torch.cuda.empty_cache()
-    emit(phase="families", seconds=time.perf_counter() - t0)
     return launches
+
+
+# the latent decode kernel against its plain version, relative to each
+# row's largest output: tests/test_torch_latent_decode.py's ROW_TOL (both
+# take exact products in f32 and differ by summation order, exp2 against
+# exp and the three-part weights' last bit, ~1e-6 of a row; one dropped
+# live row of ~1,000 moves a row by ~1e-2)
+LATENT_ROW_TOL = 1e-4
+LATENT_ARCH = "moonlight-16b-a3b"
+# (case, heads, r, rope, nope, slots, rows, cache dtype): the benchmark
+# cell's shape (Moonlight, 256 slots of 2048 rows) in bf16 and in f32, and
+# MiniCPM3's widths
+LATENT_CASES = (("moonlight_bf16", 16, 512, 64, 128, 256, 2048, torch.bfloat16),
+                ("moonlight_f32", 16, 512, 64, 128, 256, 2048, torch.float32),
+                ("minicpm3_bf16", 40, 256, 32, 64, 64, 2048, torch.bfloat16))
+
+
+def phase_latent_decode(peaks) -> list:
+    """The MLA latent decode kernel at ``LATENT_CASES``, each slot's
+    position a prompt of 64-1024 tokens plus up to 1,000 outputs (the
+    backlog's), its rows [0, pos] live: the row-scaled error against the
+    plain version, device ms (graph replay) beside the bound (the live
+    rows' latent, rotary part and position, q and the f32 output once
+    each at the HBM peak), the plain version's ms, and the kernel's and
+    the merge's launches for one call."""
+    out = []
+    for name, H, r, rope, nope, B, C, dt in LATENT_CASES:
+        rng = np.random.default_rng(34)
+        cur = np.minimum(rng.integers(64, 1025, B)
+                         + rng.integers(0, 1001, B) - 1, C - 1)
+        g = torch.Generator(device="cuda").manual_seed(34)
+
+        def rand(*shape):
+            return torch.randn(*shape, device="cuda", generator=g).to(dt)
+
+        q, qr, c, kr = rand(B, 1, H, r), rand(B, 1, H, rope), rand(B, C, r), \
+            rand(B, C, rope)
+        cur_t = torch.from_numpy(cur.astype(np.int32)).cuda()
+        rows = torch.arange(C, device="cuda", dtype=torch.int32)
+        kv_pos = torch.where(rows[None] <= cur_t[:, None], rows[None],
+                             -1).to(torch.int32)
+        scale = 1.0 / math.sqrt(nope + rope)
+        args = (q, qr, c, kr, kv_pos, cur_t)
+        ld_mod.launches = ld_mod.merge_launches = 0
+        got = ld_mod.latent_decode(*args, scale=scale)
+        torch.cuda.synchronize()
+        launches = {"launches": ld_mod.launches,
+                    "merge_launches": ld_mod.merge_launches}
+        want = ld_mod.latent_decode_plain(*args, scale=scale)
+        err = row_scaled_error(got, want)
+        fail_unless(bool(torch.isfinite(got).all()) and err <= LATENT_ROW_TOL,
+                    f"latent_decode {name}: kernel vs plain {err}")
+        ms = graph_ms(lambda: ld_mod.latent_decode(  # noqa: B023
+            *args, scale=scale), 20)
+        plain_ms = graph_ms(lambda: ld_mod.latent_decode_plain(  # noqa: B023
+            *args, scale=scale), 2, replays=3)
+        live = int((cur + 1).sum())
+        nbytes = (live * ((r + rope) * c.element_size() + 4)
+                  + B * H * (r + rope) * q.element_size() + B * H * r * 4)
+        bound_ms = nbytes / peaks["hbm"] * 1e3
+        row = dict(case=name, slots=B, rows=C, heads=H, r=r, rope=rope,
+                   cache_dtype=str(dt).replace("torch.", ""),
+                   live_rows=live, live_share=live / (B * C),
+                   row_scaled_error=err, tol=LATENT_ROW_TOL, ms=ms,
+                   bound_ms=bound_ms, roofline_pct=100.0 * bound_ms / ms,
+                   plain_ms=plain_ms, launches=launches)
+        emit(phase="latent_decode", **row,
+             nvidia_smi=nvidia_smi("name,power.limit"))
+        out.append(row)
+        del q, qr, c, kr, args, got, want
+        torch.cuda.empty_cache()
+    # the cell's model whole (27 MLA layers, seeded) through the engine:
+    # the latent launches equal layers x steps, the window captured and
+    # replayed
+    cfg = get_config(LATENT_ARCH)
+    model = tfm.init_lm(cfg, 0, device="cuda")
+    phase_decode_graph(LATENT_ARCH, cfg, model)
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4974,6 +5097,20 @@ def shard_only() -> None:
          seconds=time.perf_counter() - t0)
 
 
+def latent_only() -> None:
+    """``--latent``: the device, build, ``latent_decode`` and the MLA
+    family's phases (``phase_mla_family``): the quickest check of the
+    latent decode kernel on the card."""
+    t0 = time.perf_counter()
+    name, _, _ = phase_device()
+    peaks = PEAKS["pcie" if "pcie" in name.lower() else "sxm"]
+    phase_build()
+    phase_latent_decode(peaks)
+    launches = phase_mla_family(peaks)
+    emit(phase="latent_only", launches_by_path=launches,
+         seconds=time.perf_counter() - t0)
+
+
 def attention_only() -> None:
     """``--attention``: the device, build, attention (every case and
     ``decode_invariance``), ``spec_chunk`` and the hd-256 families'
@@ -4992,13 +5129,14 @@ def attention_only() -> None:
 
 ONLY = {"--decode-graph": decode_graph_only, "--fleet": fleet_only,
         "--disagg": disagg_only, "--train": train_only,
-        "--shard": shard_only, "--attention": attention_only}
+        "--shard": shard_only, "--attention": attention_only,
+        "--latent": latent_only}
 
 
 def main(argv: list[str]) -> int:
     if argv and (len(argv) > 1 or argv[0] not in ONLY):
         print(f"usage: chip_smoke.py [--decode-graph | --fleet | --disagg | "
-              f"--train | --shard | --attention], "
+              f"--train | --shard | --attention | --latent], "
               f"got {argv}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5024,6 +5162,7 @@ def main(argv: list[str]) -> int:
     phase_breakdown(cfg, model, x, peaks)
     del model, x
     attn = phase_attention(peaks)
+    phase_latent_decode(peaks)
     spec_err, spec_main = phase_spec_chunk(peaks)
     phase_sampling_keys(get_config(ARCH).vocab)
     phase_serve_generate_smoke()

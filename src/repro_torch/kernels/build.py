@@ -31,7 +31,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-KERNELS = ("entropy", "flash_attention", "decode_attention", "ssd_scan")
+KERNELS = ("entropy", "flash_attention", "decode_attention", "ssd_scan",
+           "latent_decode")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -19,7 +19,7 @@ import torch
 
 # the kernel modules whose wrappers count launches
 KERNEL_MODULES = ("decode_attention", "entropy", "flash_attention",
-                  "ssd_scan")
+                  "ssd_scan", "latent_decode")
 # (wall time it started, seconds) of each capture in this process
 capture_log: list[tuple[float, float]] = []
 

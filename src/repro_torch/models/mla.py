@@ -8,10 +8,13 @@ Prefill and ``forward`` expand the latent to per-head keys and values
 width, scale 1/sqrt(nope + rope), causal with the reference's
 ``NEG_INF`` = -2**30); a decode step attends in latent space with the
 up-projections absorbed into the query and the output
-(``mla_decode``), scores and the weighted sum in f32 over the whole
-latent cache.  The reference computes MLA in einsum outside any Pallas
-kernel, and the port's flash kernel takes one head dim for q, k and v,
-so this module is plain PyTorch on the card too.
+(``mla_decode``), its attention over the latent cache in
+``kernels.latent_decode``: the hand-written kernel on the card (the
+live bf16 rows read in place), the plain version (f32 scores and
+weighted sum over the whole cache) on the CPU.  The reference computes
+MLA in einsum outside any Pallas kernel, and the port's flash kernel
+takes one head dim for q, k and v, so prefill and ``forward`` are plain
+PyTorch on the card too.
 
 Rotary angles: the functions take the reference's positions, or
 ``rope``, the (cos, sin) of ``nn.rope_angles(positions, qk_rope_dim,
@@ -28,8 +31,9 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from repro_torch.kernels import latent_decode
 from repro_torch.models import nn as nn_
-from repro_torch.models.attention import NEG_INF, causal_attention
+from repro_torch.models.attention import causal_attention
 from repro_torch.models.nn import param
 
 
@@ -219,9 +223,14 @@ def mla_prefill(p: MLAParams, cache: MLACache, x: torch.Tensor, *,
 
 
 def mla_decode(p: MLAParams, x: torch.Tensor, cache: MLACache, *, pos,
-               rope=None) -> tuple[torch.Tensor, MLACache]:
+               rope=None, impl: str = "auto"
+               ) -> tuple[torch.Tensor, MLACache]:
     """Absorbed single-token decode: x [B, 1, D] -> (y [B, 1, D], cache);
-    ``pos`` scalar (lockstep) or [B] (continuous batching)."""
+    ``pos`` scalar (lockstep) or [B] (continuous batching).  The attention
+    over the latent cache is ``kernels.latent_decode`` under ``impl``: the
+    CUDA kernel for a CUDA cache and the plain version for a CPU one
+    (``"auto"``), the plain version always (``"ref"``), or the kernel or
+    raise (``"cuda"``)."""
     m = p.m
     B = x.shape[0]
     rope = _angles(p.m, _positions(pos, 1, x.device), x.device, rope)
@@ -230,17 +239,9 @@ def mla_decode(p: MLAParams, x: torch.Tensor, cache: MLACache, *, pos,
     q_nope, q_rope = _project_q(p, x, rope)
     # W_uk absorbed into q: q_lat [B, 1, H, r]
     q_lat = torch.einsum("bthn,rhn->bthr", q_nope, _heads(p.w_uk, m.n_heads))
-    c = cache.c_kv.float()                                     # [B, C, r]
-    kr = cache.k_rope.float()                                  # [B, C, rope]
-    scores = (torch.einsum("bthr,bsr->bhts", q_lat.float(), c)
-              + torch.einsum("bthe,bse->bhts", q_rope.float(), kr))
-    scores = scores * (1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim))
-    cur = torch.as_tensor(pos, device=x.device)
-    cur = cur[:, None] if cur.dim() == 1 else cur
-    valid = (cache.pos >= 0) & (cache.pos <= cur)
-    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    o_lat = torch.einsum("bhts,bsr->bthr", w, c)               # [B,1,H,r]
+    o_lat = latent_decode.latent_decode(
+        q_lat, q_rope, cache.c_kv, cache.k_rope, cache.pos, pos,
+        scale=1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim), impl=impl)
     o = torch.einsum("bthr,rhv->bthv", o_lat,
                      _heads(p.w_uv, m.n_heads).float())
     return o.to(x.dtype).reshape(B, 1, -1) @ p.wo, cache

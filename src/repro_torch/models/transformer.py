@@ -52,7 +52,9 @@ path.  The same field and rule route an SSD layer's chunked scan: the
 CUDA SSD kernel on the card, the model's own chunked algorithm on the
 CPU under ``"auto"`` and ``"xla"``; a decode step's single-step state
 update is plain PyTorch everywhere, and so is the RG-LRU (the reference
-runs no kernel there either).
+runs no kernel there either).  An MLA decode step's attention over the
+latent cache takes the latent decode kernel on the card under
+``"auto"`` and ``"cuda"``, its plain version otherwise.
 
 No kernel has a backward, and the reference defines none: its train
 step differentiates the einsum attention and the model's chunked SSD
@@ -647,13 +649,18 @@ class LM(nn.Module):
         """Temporal mixing of an MLA layer (ref ``_mla_mix``,
         ``transformer.py:363-373``): the expanded form for ``forward``
         and prefill (whose latents go to the cache from position 0), the
-        absorbed decode for a step.  ``decode_chunk`` refuses MLA before
-        it gets here, as the reference's does."""
+        absorbed decode for a step, whose latent attention takes the
+        kernel dispatch on ``attn_impl``'s rule (the latent decode kernel
+        on the card under ``"auto"``, its plain version on the CPU and
+        under ``"xla"`` and ``"ref"``).  ``decode_chunk`` refuses MLA
+        before it gets here, as the reference's does."""
         if mode == "full":
             return mla.mla_attention(layer.mix, x, rope=rope)
         if mode == "prefill":
             return mla.mla_prefill(layer.mix, lc, x, rope=rope)
-        return mla.mla_decode(layer.mix, x, lc, pos=pos, rope=rope)[0]
+        impl = self.attn_impl if self._use_kernel(x, layer) else "ref"
+        return mla.mla_decode(layer.mix, x, lc, pos=pos, rope=rope,
+                              impl=impl)[0]
 
     def _channel(self, layer: Layer, h, need_aux: bool):
         """The channel mix (ref ``_channel_mix``, ``transformer.py:

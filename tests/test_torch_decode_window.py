@@ -279,7 +279,8 @@ def test_counted_graph_adds_its_launches_per_replay():
         "decode_attention.chunk_launches",
         "decode_attention.combine_launches", "decode_attention.gqa_launches",
         "entropy.launches",
-        "flash_attention.launches", "ssd_scan.launches"}
+        "flash_attention.launches", "ssd_scan.launches",
+        "latent_decode.launches", "latent_decode.merge_launches"}
     tda.launches = tda.paged_launches = tssd.launches = 0
 
 
